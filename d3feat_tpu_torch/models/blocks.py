@@ -1,0 +1,306 @@
+"""Network blocks (port of ``d3feat_tpu.models.blocks``): unary and
+last_unary, simple and resnet-bottleneck KPConv blocks (plain and strided),
+nearest-upsample, and the K2 band KPConv that every rigid KPConv of the
+serving path runs through.
+
+Modules carry the JAX package's parameter names, so a parameter's
+``state_dict`` name is its JAX key path written with dots
+(``encoder.1.unary1.linear.w``). Linear weights are stored ``[in, out]``.
+Pooling appends a zero feature row, so all-shadow neighborhoods pool to
+zero.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from d3feat_tpu_torch.models.kpconv import KPConv, torch_kaiming_uniform
+
+LEAKY_SLOPE = 0.1
+
+
+@dataclass(frozen=True)
+class BlockSpec:
+    """Static description of one network block."""
+
+    name: str         # architecture entry, e.g. 'resnetb_strided'
+    kind: str         # 'unary' | 'last_unary' | 'simple' | 'resnetb' | 'nearest_upsample' ...
+    layer: int        # pyramid level index
+    in_dim: int
+    out_dim: int
+    radius: float     # conv radius at this level
+    strided: bool = False
+    deformable: bool = False
+
+
+def classify_block(name: str) -> str:
+    if name == "unary":
+        return "unary"
+    if name == "last_unary":
+        return "last_unary"
+    if name.startswith("simple"):
+        return "simple"
+    if name.startswith("resnetb"):
+        return "resnetb"
+    if name == "nearest_upsample":
+        return "nearest_upsample"
+    if name in ("max_pool", "max_pool_wide"):
+        return "max_pool"
+    if name == "global_average":
+        return "global_average"
+    raise ValueError(f"unknown block name {name!r}")
+
+
+def _ext_zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
+def closest_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+    """Features of the nearest (first) neighbor; shadow -> zeros."""
+    return _ext_zero(x)[inds[:, 0].long()]
+
+
+def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+    """Max over each neighborhood with a zero shadow row."""
+    return _ext_zero(x)[inds.long()].amax(1)
+
+
+class Linear(nn.Module):
+    """``x @ w + b`` with torch ``nn.Linear``'s default init, ``w`` [in, out]."""
+
+    def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator):
+        super().__init__()
+        self.w = nn.Parameter(torch_kaiming_uniform((out_dim, in_dim), generator).T.contiguous())
+        bound = 1.0 / math.sqrt(in_dim)
+        u = torch.rand((out_dim,), generator=generator, device=generator.device)
+        self.b = nn.Parameter((u * 2.0 - 1.0) * bound)
+
+    def forward(self, x):
+        return x @ self.w + self.b
+
+
+class Norm(nn.Module):
+    """The learned bias that replaces batch norm (``use_batch_norm=False``)."""
+
+    def __init__(self, dim: int, device):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x):
+        return x + self.bias
+
+
+class Unary(nn.Module):
+    """Linear + bias + optional LeakyReLU(0.1)."""
+
+    def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator):
+        super().__init__()
+        self.linear = Linear(in_dim, out_dim, generator)
+        self.norm = Norm(out_dim, generator.device)
+
+    def forward(self, x, relu: bool = True):
+        y = self.norm(self.linear(x))
+        return F.leaky_relu(y, LEAKY_SLOPE) if relu else y
+
+
+# ---------------------------------------------------------------------------
+# K2 band KPConv
+# ---------------------------------------------------------------------------
+
+
+def band_conv_eligible(spec: BlockSpec, batch, config) -> bool:
+    """Whether the band kernel covers this block: rigid, linear influence,
+    sum aggregation, weight panel within ``bandconv_max_panel_mb`` (sized
+    as the reference sizes it), unscaled search radius, band state present."""
+    from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
+
+    if spec.deformable:
+        return False
+    if config.KP_influence != "linear" or config.aggregation_mode != "sum":
+        return False
+    cin = spec.in_dim if spec.kind == "simple" else spec.out_dim // 4
+    cout = spec.out_dim // 2 if spec.kind == "simple" else spec.out_dim // 4
+    cin_p = -(-cin // 128) * 128
+    panel_mb = config.num_kernel_points * cin_p * cout * 4 / (1024 * 1024)
+    if panel_mb > config.bandconv_max_panel_mb:
+        return False
+    if spec.layer > config.bandconv_max_layer:
+        return False
+    pyr = make_pyramid_spec(config)
+    scale = pyr.pool_r_scale if spec.strided else pyr.conv_r_scale
+    if spec.layer < len(scale) and scale[spec.layer] != 1.0:
+        return False
+    band = batch.get("band") or {}
+    q_level = spec.layer + 1 if spec.strided else spec.layer
+    return spec.layer in band and q_level in band
+
+
+def band_query_tiles(qb, sb, num_clouds: int, r: float, tile: int, s_rows: int,
+                     thr, ptie):
+    """Shared band-kernel query prep: pad the sorted query rows and their
+    thresholds to a tile multiple and compute each tile's support window
+    ``[start, end)`` from the sorted keys (``r + EPS`` margin).
+
+    Returns (q_rows [Nq_pad, 4], starts, ends, thr, ptie)."""
+    from d3feat_tpu_torch.ops.neighbors import SortedLevel, pad_query_rows, tile_key_bounds
+
+    nq = qb["q_rows"].shape[0]
+    pad = (-nq) % tile
+    q_rows = pad_query_rows(qb["q_rows"], tile)
+    if pad:
+        thr = torch.cat([thr, thr.new_zeros(pad)])
+        ptie = torch.cat([ptie, ptie.new_full((pad,), -1.0)])
+    kmin, kmax = tile_key_bounds(qb["key_sorted"], tile, num_clouds)
+    margin = r + SortedLevel.EPS  # python float, rounded once to float32 below
+    starts = torch.clamp(torch.searchsorted(sb["key_sorted"], kmin - margin), max=s_rows)
+    ends = torch.searchsorted(sb["key_sorted"], kmax + margin)
+    return q_rows, starts, ends, thr, ptie
+
+
+def band_conv_inputs(spec: BlockSpec, batch, config) -> dict:
+    """Everything the K2 call of one block needs besides its features and
+    weights: sorted query rows and thresholds padded to the tile, support
+    rows, tile windows, tile and extent (keyword arguments of
+    ``ops.band_conv.band_conv``)."""
+    from d3feat_tpu_torch.ops.neighbors import band_windows
+    from d3feat_tpu_torch.ops.pyramid import level_band_cap
+
+    l = spec.layer
+    q_level = l + 1 if spec.strided else l
+    qb, sb = batch["band"][q_level], batch["band"][l]
+    thr, ptie = batch["sel_thr"][f"pool{l}" if spec.strided else f"conv{l}"]
+    s_rows = batch["points"][l].shape[0]
+    n_q_rows = batch["points"][q_level].shape[0]
+    # strided blocks carry the wide pool band: the smaller tile keeps the
+    # window per tile bounded (same sizing as the pyramid's pool search)
+    tile = 128 if spec.strided else 256
+    num_clouds = len(batch["lengths"][0])
+    q_rows, starts, ends, thr, ptie = band_query_tiles(
+        qb, sb, num_clouds, spec.radius, tile, s_rows, thr, ptie)
+    band_cap = level_band_cap(s_rows, num_clouds, config.band_frac,
+                              tile=tile, ratio=-(-s_rows // n_q_rows))
+    starts, wends = band_windows(starts, ends, band_cap)
+    return dict(q_rows=q_rows.contiguous(), thr=thr.contiguous(), ptie=ptie.contiguous(),
+                s_rows=sb["s_rows"], starts=starts, wends=wends, query_tile=tile,
+                extent=spec.radius * config.KP_extent / config.conv_radius)
+
+
+def apply_band_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, config,
+                      impl: str = "auto") -> torch.Tensor:
+    """Rigid KPConv of one block through the K2 band kernel, in the
+    pyramid's sorted space (features, points and lists already sorted)."""
+    from d3feat_tpu_torch.ops.band_conv import band_conv
+
+    args = band_conv_inputs(spec, batch, config)
+    band_pad = args["s_rows"].shape[0] - x.shape[0]
+    x_sorted = torch.cat([x, x.new_zeros((band_pad, x.shape[1]))]).float().contiguous()
+    out, _ = band_conv(x=x_sorted, weights=conv.weights.contiguous(),
+                       kernel_points=conv.kernel_points.contiguous(), impl=impl, **args)
+    n_q_rows = batch["points"][spec.layer + 1 if spec.strided else spec.layer].shape[0]
+    return out[:n_q_rows]
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+class _ConvBlock(nn.Module):
+    def __init__(self, spec: BlockSpec, config):
+        super().__init__()
+        self.spec = spec
+        self.config = config
+
+    def _conv(self, x, batch, impl):
+        if not band_conv_eligible(self.spec, batch, self.config):
+            raise NotImplementedError(
+                f"block {self.spec.name} at layer {self.spec.layer} is not covered by the "
+                f"band KPConv; the gather KPConv is not ported yet")
+        return apply_band_kpconv(self.conv, self.spec, x, batch, self.config, impl)
+
+
+class SimpleBlock(_ConvBlock):
+    def __init__(self, spec, config, kernel_points, generator):
+        super().__init__(spec, config)
+        self.conv = KPConv(kernel_points, spec.in_dim, spec.out_dim // 2, generator)
+        self.norm = Norm(spec.out_dim // 2, generator.device)
+
+    def forward(self, x, batch, impl="auto"):
+        return F.leaky_relu(self.norm(self._conv(x, batch, impl)), LEAKY_SLOPE)
+
+
+class ResnetBBlock(_ConvBlock):
+    def __init__(self, spec, config, kernel_points, generator):
+        super().__init__(spec, config)
+        mid = spec.out_dim // 4
+        if spec.in_dim != mid:
+            self.unary1 = Unary(spec.in_dim, mid, generator)
+        self.conv = KPConv(kernel_points, mid, mid, generator)
+        self.norm_conv = Norm(mid, generator.device)
+        self.unary2 = Unary(mid, spec.out_dim, generator)
+        if spec.in_dim != spec.out_dim:
+            self.shortcut = Unary(spec.in_dim, spec.out_dim, generator)
+
+    def forward(self, x, batch, impl="auto"):
+        spec = self.spec
+        h = self.unary1(x) if hasattr(self, "unary1") else x
+        h = F.leaky_relu(self.norm_conv(self._conv(h, batch, impl)), LEAKY_SLOPE)
+        h = self.unary2(h, relu=False)
+        shortcut = max_pool(x, batch["pools"][spec.layer]) if spec.strided else x
+        if hasattr(self, "shortcut"):
+            shortcut = self.shortcut(shortcut, relu=False)
+        return F.leaky_relu(h + shortcut, LEAKY_SLOPE)
+
+
+class UnaryBlock(Unary):
+    def __init__(self, spec, generator):
+        super().__init__(spec.in_dim, spec.out_dim, generator)
+        self.spec = spec
+
+    def forward(self, x, batch=None, impl="auto"):
+        return super().forward(x, relu=True)
+
+
+class LastUnaryBlock(nn.Module):
+    def __init__(self, spec, config, generator):
+        super().__init__()
+        self.spec = spec
+        self.linear = Linear(spec.in_dim, config.output_dim, generator)
+
+    def forward(self, x, batch=None, impl="auto"):
+        return self.linear(x)
+
+
+class NearestUpsampleBlock(nn.Module):
+    def __init__(self, spec):
+        super().__init__()
+        self.spec = spec
+
+    def forward(self, x, batch, impl="auto"):
+        # decoder block at level l pools from level l + 1 via upsamples[l - 1]
+        return closest_pool(x, batch["upsamples"][self.spec.layer - 1])
+
+
+def make_block(spec: BlockSpec, config, kernel_points, generator: torch.Generator) -> nn.Module:
+    """The module of one block with freshly initialised parameters."""
+    if config.use_batch_norm:
+        raise NotImplementedError("batch norm is not ported yet (use_batch_norm=True)")
+    if spec.deformable:
+        raise NotImplementedError("deformable KPConv is not ported yet")
+    kind = spec.kind
+    if kind == "unary":
+        return UnaryBlock(spec, generator)
+    if kind == "last_unary":
+        return LastUnaryBlock(spec, config, generator)
+    if kind == "nearest_upsample":
+        return NearestUpsampleBlock(spec)
+    if kind == "simple":
+        return SimpleBlock(spec, config, kernel_points, generator)
+    if kind == "resnetb":
+        return ResnetBBlock(spec, config, kernel_points, generator)
+    raise NotImplementedError(f"block kind {kind!r} is not ported yet")

@@ -1,0 +1,229 @@
+"""KPFCNN: the D3Feat encoder-decoder with joint descriptor + detector head
+(port of ``d3feat_tpu.models.kpfcnn``).
+
+``make_kpfcnn_specs`` walks the architecture list as the reference
+constructor does (radius doubling at strided blocks, output-dim doubling
+per level, skip bookkeeping, decoder concat positions). The forward returns
+L2-normalised descriptors and detection scores.
+
+Detector head (parameter-free): with f normalised by its max,
+  saliency   = softplus(f - mean of f over the level-0 neighborhood)
+  channelmax = f / (1e-6 + max over channels)
+  score      = max over channels of (saliency * channelmax)
+The neighborhood sums and counts come from the K3 band-head kernel. At eval
+time points that are not a per-channel local max of their neighborhood
+score zero (optionally only the top-M candidates are gated,
+``eval_gate_topm``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, NamedTuple, Tuple
+
+import torch
+from torch import nn
+
+from d3feat_tpu_torch import resolve_device
+from d3feat_tpu_torch.models.blocks import BlockSpec, classify_block, make_block
+from d3feat_tpu_torch.models.kernel_points import load_kernels
+
+
+@dataclass(frozen=True)
+class KPFCNNSpecs:
+    """Static model structure derived from the architecture list."""
+
+    encoder: Tuple[BlockSpec, ...]
+    decoder: Tuple[BlockSpec, ...]
+    encoder_skips: Tuple[int, ...]      # encoder block indices to stash before
+    decoder_concats: Tuple[int, ...]    # decoder block indices that concat a skip
+
+
+def make_kpfcnn_specs(config) -> KPFCNNSpecs:
+    """Walk ``config.architecture()`` the way the reference constructor does."""
+    arch = config.architecture()
+    layer = 0
+    r = config.first_subsampling_dl * config.conv_radius
+    in_dim = config.in_features_dim
+    out_dim = config.first_features_dim
+
+    encoder: List[BlockSpec] = []
+    encoder_skips: List[int] = []
+    encoder_skip_dims: List[int] = []
+    for block_i, name in enumerate(arch):
+        if any(tag in name for tag in ("pool", "strided", "upsample", "global")):
+            encoder_skips.append(block_i)
+            encoder_skip_dims.append(in_dim)
+        if "upsample" in name:
+            break
+        encoder.append(BlockSpec(
+            name=name, kind=classify_block(name), layer=layer,
+            in_dim=in_dim, out_dim=out_dim, radius=r,
+            strided="strided" in name, deformable="deform" in name))
+        in_dim = out_dim // 2 if "simple" in name else out_dim
+        if "pool" in name or "strided" in name:
+            layer += 1
+            r *= 2
+            out_dim *= 2
+
+    decoder: List[BlockSpec] = []
+    decoder_concats: List[int] = []
+    start_i = next(i for i, n in enumerate(arch) if "upsample" in n)
+    for block_i, name in enumerate(arch[start_i:]):
+        if block_i > 0 and "upsample" in arch[start_i + block_i - 1]:
+            in_dim += encoder_skip_dims[layer]
+            decoder_concats.append(block_i)
+        decoder.append(BlockSpec(
+            name=name, kind=classify_block(name), layer=layer,
+            in_dim=in_dim, out_dim=out_dim, radius=r,
+            strided=False, deformable="deform" in name))
+        in_dim = out_dim
+        if "upsample" in name:
+            layer -= 1
+            r *= 0.5
+            out_dim = out_dim // 2
+
+    return KPFCNNSpecs(encoder=tuple(encoder), decoder=tuple(decoder),
+                       encoder_skips=tuple(encoder_skips),
+                       decoder_concats=tuple(decoder_concats))
+
+
+class KPFCNN(nn.Module):
+    """Encoder and decoder blocks; ``state_dict`` names follow the JAX
+    parameter tree (``encoder.<i>.<...>``, ``decoder.<i>.<...>``)."""
+
+    def __init__(self, config, specs: KPFCNNSpecs, generator: torch.Generator):
+        super().__init__()
+        self.config = config
+        self.specs = specs
+        unit_kp = load_kernels(1.0, config.num_kernel_points, dimension=config.in_points_dim,
+                               fixed=config.fixed_kernel_points)
+        self.encoder = nn.ModuleList(
+            make_block(s, config, unit_kp * s.radius, generator) for s in specs.encoder)
+        self.decoder = nn.ModuleList(
+            make_block(s, config, unit_kp * s.radius, generator) for s in specs.decoder)
+
+
+def init_kpfcnn(config, seed: int = 0, device="cuda", specs: KPFCNNSpecs = None) -> KPFCNN:
+    """A ``KPFCNN`` with random weights drawn from ``torch.Generator`` seeded
+    with ``seed``, on ``device``."""
+    if not config.deterministic_kernel_points:
+        raise NotImplementedError("randomised kernel-point loading is not ported yet")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return KPFCNN(config, specs or make_kpfcnn_specs(config), gen)
+
+
+class KPFCNNOutput(NamedTuple):
+    features: torch.Tensor      # [C0, output_dim] L2-normalised descriptors
+    scores: torch.Tensor        # [C0, 1] detection scores
+    raw_features: torch.Tensor  # pre-normalisation descriptors
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.softplus = logaddexp(x, 0)
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def band_head_inputs(batch, config) -> dict:
+    """Everything the K3 call needs besides the features: level-0 sorted
+    query rows with their conv0 thresholds padded to the 256-row tile,
+    support rows and tile windows (keyword arguments of
+    ``ops.head.band_head``)."""
+    from d3feat_tpu_torch.models.blocks import band_query_tiles
+    from d3feat_tpu_torch.ops.neighbors import band_windows
+    from d3feat_tpu_torch.ops.pyramid import level_band_cap
+
+    b0 = batch["band"][0]
+    thr, ptie = batch["sel_thr"]["conv0"]
+    s_rows = batch["points"][0].shape[0]
+    num_clouds = len(batch["lengths"][0])
+    r0 = config.first_subsampling_dl * config.conv_radius
+    tile = 256
+    q_rows, starts, ends, thr, ptie = band_query_tiles(
+        b0, b0, num_clouds, r0, tile, s_rows, thr, ptie)
+    starts, wends = band_windows(starts, ends, level_band_cap(
+        s_rows, num_clouds, config.band_frac, tile=tile, ratio=1))
+    return dict(q_rows=q_rows.contiguous(), thr=thr.contiguous(), ptie=ptie.contiguous(),
+                s_rows=b0["s_rows"], starts=starts, wends=wends, query_tile=tile)
+
+
+def detection_scores(batch, features: torch.Tensor, *, config, per_cloud_norm: bool = False,
+                     impl: str = "auto") -> torch.Tensor:
+    """Eval-mode detector head over the sorted-space pyramid ``batch``.
+
+    ``per_cloud_norm`` normalises each stacked cloud by its own max (the
+    extraction path, where independent fragments share a batch); otherwise
+    one global max, as the reference."""
+    from d3feat_tpu_torch.ops.head import band_head
+    from d3feat_tpu_torch.ops.subsample import lengths_to_cloud_ids
+
+    neighbor = batch["neighbors"][0].long()  # [C0, K0], shadow = C0
+    f = features
+    lengths = batch["lengths"][0]
+    num_clouds = lengths.shape[0]
+    if per_cloud_norm:
+        cidc = torch.clamp(lengths_to_cloud_ids(lengths, f.shape[0]), max=num_clouds - 1).long()
+        rowmax = f.amax(1)
+        cmax = torch.stack([
+            torch.where(cidc == b, rowmax, torch.tensor(-torch.inf, device=f.device)).amax()
+            for b in range(num_clouds)])
+        f = f / (cmax[cidc, None] + 1e-6)
+    else:
+        f = f / (f.max() + 1e-6)
+
+    args = band_head_inputs(batch, config)
+    s_rows = f.shape[0]
+    band_pad = args["s_rows"].shape[0] - s_rows
+    x_pad = torch.cat([f.float(), f.new_zeros((band_pad, f.shape[1]))]).contiguous()
+    fsum, cnt = band_head(x=x_pad, impl=impl, **args)
+    neighbor_num = torch.clamp(cnt[:s_rows, None], min=1.0)
+    mean_features = fsum[:s_rows, : f.shape[1]] / neighbor_num
+    local_max_score = _softplus(f - mean_features)
+
+    depth_wise_max = f.amax(1, keepdim=True)
+    depth_wise_max_score = f / (1e-6 + depth_wise_max)
+    scores = (local_max_score * depth_wise_max_score).amax(1, keepdim=True)  # [C0, 1]
+
+    # hard local-max gate; with eval_gate_topm > 0 only the top-M points by
+    # ungated score are gated (gating only zeroes scores, so top-k keypoint
+    # selection stays exact), the rest report 0
+    f_ext = torch.cat([f, f.new_zeros((1, f.shape[1]))])
+    topm = config.eval_gate_topm
+    s_flat = scores[:, 0]
+    if topm and topm < f.shape[0]:
+        cand = torch.topk(s_flat, topm).indices
+        local_max = f_ext[neighbor[cand]].amax(1)                     # [M, D]
+        det = (f[cand] == local_max).float().amax(1)
+        return torch.zeros_like(s_flat).index_copy(0, cand, s_flat[cand] * det)[:, None]
+    local_max = f_ext[neighbor].amax(1)
+    detected = (f == local_max).float().amax(1, keepdim=True)
+    return scores * detected
+
+
+@torch.no_grad()
+def apply_kpfcnn(model: KPFCNN, batch, *, per_cloud_norm: bool = False,
+                 impl: str = "auto") -> KPFCNNOutput:
+    """Eval forward over a sorted-space pyramid ``batch`` (with
+    ``features`` in the pyramid's level-0 sorted order). Forward only: the
+    training path (and the backward kernels) is not ported yet."""
+    specs = model.specs
+    mask0 = batch["masks"][0]
+    x = batch["features"].float() * mask0[:, None]
+    skips = []
+    for i, block in enumerate(model.encoder):
+        if i in specs.encoder_skips:
+            skips.append(x)
+        x = block(x, batch, impl=impl)
+    for i, block in enumerate(model.decoder):
+        if i in specs.decoder_concats:
+            x = torch.cat([x, skips.pop()], 1)
+        x = block(x, batch, impl=impl)
+    x = x * mask0[:, None]
+    scores = detection_scores(batch, x, config=model.config,
+                              per_cloud_norm=per_cloud_norm, impl=impl)
+    norm2 = (x * x).sum(-1, keepdim=True)
+    norm2_safe = torch.where(norm2 > 0.0, norm2, 1.0)
+    features = torch.where(norm2 > 0.0, x * torch.rsqrt(norm2_safe), 0.0)
+    return KPFCNNOutput(features=features, scores=scores, raw_features=x)
