@@ -7,23 +7,32 @@ Run from the repository root with no arguments::
 
 It needs one CUDA device, ``nvcc`` (the CUDA toolkit), the committed r5
 weights (``artifacts/model_best_acc_r5.npz``) and the committed eval-cache
-fragments (``artifacts/eval_cache``); it imports nothing of JAX or of the
-JAX package. Phases, each announced with the elapsed seconds:
+fragments and poses (``artifacts/eval_cache``); it imports nothing of JAX
+or of the JAX package. Phases, each announced with the elapsed seconds:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
-2. build: the three kernels from ``d3feat_tpu_torch/ops/cuda/*.cu`` with
+2. build: the five kernels from ``d3feat_tpu_torch/ops/cuda/*.cu`` with
    ``nvcc``, one process per source, all started together;
 3. kernels vs twins on one real pyramid (two eval-cache fragments at the
    bench capacities): K1 bit for bit (positions, d2, thr, ptie of all 13
    searches), K2 at level 0 and at the widest level (atol 3e-5, rtol 1e-4,
-   density exact), K3 (sums atol 1e-6, counts exact); kernel and twin times
-   by CUDA events;
-4. main path: ``FeatureExtractor(batch_fragments=2)`` with the r5 weights on
-   the eval-cache fragments of 12k-16k points: launch counts of one counted
-   call, output checks, the same batch through the twins on the card, and
-   fragments/s over 20 calls after warm-up; with ``--profile``, device time
-   by operator over 4 more calls (``torch.profiler``);
-5. one JSON line with every kernel's numbers, then the result line.
+   density exact), K3 (sums atol 1e-6, counts exact), K4 at the same two
+   convs from a seeded cotangent (dx and dW at atol 5e-4, rtol 1e-3), K5
+   (atol 1e-5); kernel and twin times by CUDA events;
+4. serving path: ``FeatureExtractor(batch_fragments=2)`` with the r5
+   weights on the eval-cache fragments of 12k-16k points: launch counts of
+   one counted call, output checks, the same batch through the twins on
+   the card, and fragments/s over 20 calls after warm-up;
+5. training path: ``make_train_step`` at full width from a copy of the r5
+   weights on the first ground-truth-posed eval-cache pair that fits the
+   bench capacities (correspondences within 0.0375, 128 of them): launch
+   counts of one counted step, that step's loss and gradients against a
+   step through the twins (loss rtol 1e-3, gradients atol 5e-3, rtol
+   5e-3), then 10 more kernel steps (finite, none skipped, no overflow)
+   and train steps/s;
+6. with ``--profile``, device time by kernel and the device busy share
+   over 4 extraction calls and over 3 train steps (``torch.profiler``);
+7. one JSON line with every kernel's numbers, then the result line.
 
 Any failed check exits non-zero before the result line.
 """
@@ -39,6 +48,9 @@ BENCH_CAPS = tuple(2 * c for c in (16384, 8192, 2048, 768, 256))
 N_MIN, N_MAX = 12000, 16000  # fragment sizes of the JAX package's bench.py
 TOPK = 250                   # keypoints per fragment of the registration protocol
 WARMUP, ITERS = 3, 20
+TRAIN_STEPS = 10             # timed kernel train steps after the counted one
+CORR_RADIUS = 0.0375         # ground-truth correspondence radius (synthetic.py's corr_radius)
+NUM_NODE = 128               # correspondences per pair (the reference's num_node)
 PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3, data sheet
 PEAK_FP32_S = 67e12          # H100 SXM FP32 outside the tensor cores, data sheet
 D2_OPS = 8  # per query-row pair: 3 subtractions, 1 multiply, 2 fused multiply-adds
@@ -236,6 +248,85 @@ def check_k3(pyr, cfg, report, device="cuda"):
           f"{err:.3g}; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
+def check_k4(pyr, cfg, model, report, device="cuda"):
+    import torch
+    from d3feat_tpu_torch.models.blocks import band_conv_inputs
+    from d3feat_tpu_torch.ops.band_conv import band_conv_bwd
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    worst = 0.0
+    for i in (1, len(model.specs.encoder) - 1):  # resnetb at level 0, at the widest level
+        spec = model.specs.encoder[i]
+        conv = model.encoder[i].conv
+        args = band_conv_inputs(spec, pyr, cfg)
+        ns_pad, cin = args["s_rows"].shape[0], conv.weights.shape[1]
+        kpn, cout = conv.weights.shape[0], conv.weights.shape[2]
+        n_valid = int(pyr["lengths"][spec.layer].sum())
+        nq = args["q_rows"].shape[0]
+        n_q = pyr["points"][spec.layer + 1 if spec.strided else spec.layer].shape[0]
+        x = torch.zeros((ns_pad, cin), device=device)
+        x[:n_valid] = torch.nn.functional.leaky_relu(
+            torch.randn((n_valid, cin), generator=gen, device=device), 0.1)
+        gs = torch.zeros((nq, cout), device=device)
+        gs[:n_q] = torch.randn((n_q, cout), generator=gen, device=device) * 1e-2
+        kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points, gs=gs)
+        kdx, kdw = band_conv_bwd(impl="kernel", **kw)
+        pdx, pdw = band_conv_bwd(impl="plain", **kw)
+        err = max(float((kdx - pdx).abs().max()), float((kdw - pdw).abs().max()))
+        check(torch.allclose(kdx, pdx, atol=5e-4, rtol=1e-3)
+              and torch.allclose(kdw, pdw, atol=5e-4, rtol=1e-3),
+              f"K4 layer {spec.layer}: max |kernel - twin| = {err}")
+        check(float(pdw.abs().max()) > 1e-3, f"K4 layer {spec.layer}: vacuous comparison")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: band_conv_bwd(impl="kernel", **kw))
+        plain_ms = cuda_ms(lambda: band_conv_bwd(impl="plain", **kw), reps=3)
+        lists = pyr["pools" if spec.strided else "neighbors"][spec.layer]
+        pairs = int((lists < pyr["points"][spec.layer].shape[0]).sum())
+        q_live = int((args["q_rows"][:, 3] >= 0).sum())
+        # window scan, influence weights, the weighted rows and the dx sums
+        # ([pairs x Cin] per kernel point each), dW and gW ([queries x Cin x
+        # Cout] per kernel point each)
+        ops = (D2_OPS * window_rows(args) + kpn * 12 * pairs
+               + kpn * (4 * pairs * cin + 4 * q_live * cin * cout))
+        b_ms, b_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
+                                  x, conv.weights, gs, kdx, kdw), ops)
+        phase(f"K4 band_conv_bwd layer {spec.layer} ({cin} -> {cout}, {nq} queries): max err "
+              f"{err:.3g}; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
+        report["K4 band_conv_bwd"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_k5(pyr, cfg, report, device="cuda"):
+    import torch
+    from d3feat_tpu_torch.models.kpfcnn import band_head_inputs
+    from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
+
+    args = band_head_inputs(pyr, cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    nq, c = args["q_rows"].shape[0], cfg.output_dim
+    n_valid = int(pyr["lengths"][0].sum())
+    g = torch.zeros((nq, c), device=device)
+    g[:n_valid] = torch.randn((n_valid, c), generator=gen, device=device)
+    kdx = band_head_bwd(g=g, impl="kernel", **args)
+    pdx = band_head_bwd(g=g, impl="plain", **args)
+    err = float((kdx - pdx).abs().max())
+    check(torch.allclose(kdx, pdx, atol=1e-5, rtol=0), f"K5: max |kernel - twin| = {err}")
+    ms = cuda_ms(lambda: band_head_bwd(g=g, impl="kernel", **args))
+    plain_ms = cuda_ms(lambda: band_head_bwd(g=g, impl="plain", **args), reps=3)
+    ones = torch.ones((args["s_rows"].shape[0], 1), device=device)
+    pairs = int(band_head(x=ones, impl="kernel", **args)[1].sum())  # selected pairs
+    ops = D2_OPS * window_rows(args) + pairs * c
+    b_ms, b_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
+                              g, kdx), ops)
+    report["K5 band_head_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=b_by, library_ms=None)
+    phase(f"K5 band_head_bwd ({nq} queries x {c}): max err {err:.3g}; kernel {ms:.3f} ms, "
+          f"twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+
 def topk_agree(a, b, k, atol):
     """The top-k index sets of two score vectors agree, up to swaps of
     scores within ``atol`` of the k-th score (ties at the boundary)."""
@@ -322,30 +413,159 @@ def main_path(cfg, model, frags, report, device="cuda"):
     phase(f"throughput: {fps:.3f} fragments/s ({ITERS} calls of 2 fragments, "
           f"gate top-{cfg.eval_gate_topm})")
     if "--profile" in sys.argv:
-        profile(ex, groups)
+        profile(lambda i: ex.extract_many(groups[i % len(groups)]), 4, "extraction calls")
     return fps
 
 
-def profile(ex, groups, calls=4):
-    """Device time by operator over a few extraction calls, and the device
-    busy share of their wall time (``--profile``)."""
+def profile(run, calls, what):
+    """Device time by kernel over ``calls`` calls of ``run(i)``, and the
+    device busy share of their wall time (``--profile``). Only the device's
+    own events count (kernels and copies): a host operator's device time
+    repeats that of the kernels it launched, and an annotation's (such as
+    an autograd function's range) that of the kernels inside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for i in range(calls):
-            ex.extract_many(groups[i % len(groups)])
+            run(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
-            for e in prof.key_averages()]
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    phase(f"profile: {calls} calls, wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+    phase(f"profile: {calls} {what}, wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.1f} %)")
     for ms, n, key in rows[:20]:
         print(f"    {ms:9.3f} ms  {n:6d}x  {key[:90]}", flush=True)
+
+
+def training_pair(cfg, spec, device="cuda"):
+    """The first ground-truth-posed eval-cache pair whose two fragments fit
+    level 0 and whose pyramid does not overflow, packed as a train-step
+    batch: correspondences are the pairs within ``CORR_RADIUS`` once
+    ``frag_j`` is moved by ``pose_i_j`` into ``frag_i``'s frame,
+    ``NUM_NODE`` of them drawn with a seeded generator; features are ones."""
+    import glob
+    import re
+
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+    from d3feat_tpu_torch.data.pack import EVAL_CACHE, pack_pair
+    from d3feat_tpu_torch.ops.pyramid import build_pyramid
+
+    rng = np.random.default_rng(0)
+    for path in sorted(glob.glob(os.path.join(EVAL_CACHE, "scene_*.npz"))):
+        with np.load(path, allow_pickle=False) as z:
+            keys = sorted((k for k in z.files if re.fullmatch(r"pose_\d+_\d+", k)),
+                          key=lambda k: tuple(int(v) for v in k.split("_")[1:]))
+            for key in keys:
+                i, j = key.split("_")[1:]
+                pts0 = np.asarray(z[f"frag_{i}"], np.float32)
+                pts1 = np.asarray(z[f"frag_{j}"], np.float32)
+                if len(pts0) + len(pts1) > cfg.caps.points[0]:
+                    continue
+                pose = np.asarray(z[key], np.float64)
+                moved = pts1 @ pose[:3, :3].T + pose[:3, 3]
+                dist, idx = cKDTree(pts0).query(moved, distance_upper_bound=CORR_RADIUS)
+                hit = np.isfinite(dist)
+                pairs = np.stack([idx[hit], np.nonzero(hit)[0]], 1).astype(np.int32)
+                if len(pairs) < NUM_NODE:
+                    continue
+                sel = pairs[rng.choice(len(pairs), NUM_NODE, replace=False)]
+                kp = pts0[sel[:, 0]]
+                dk = np.linalg.norm(kp[:, None] - kp[None], axis=-1).astype(np.float32)
+                packed = pack_pair(pts0, pts1, np.ones((len(pts0), 1), np.float32),
+                                   np.ones((len(pts1), 1), np.float32), sel, dk,
+                                   point_capacity=cfg.caps.points[0],
+                                   corr_capacity=cfg.caps.corr)
+                batch = {k: torch.from_numpy(np.asarray(getattr(packed, k))).to(device)
+                         for k in packed._fields}
+                if bool(build_pyramid(batch["points"], batch["lengths"], spec=spec)["overflow"]):
+                    continue
+                name = f"{os.path.basename(path)}:{key}"
+                return batch, (name, len(pts0), len(pts1), len(pairs))
+    fail("no eval-cache pair fits the bench capacities without overflow")
+
+
+def train_phase(cfg, report, card, device="cuda"):
+    """The training path at full width from a copy of the r5 weights: one
+    counted kernel step against one twin step from the same state, then
+    ``TRAIN_STEPS`` more kernel steps. Returns train steps/s."""
+    import copy
+    import math
+
+    import torch
+    from d3feat_tpu_torch.compat.weights import load_npz
+    from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
+    from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
+    from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
+    from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
+    from d3feat_tpu_torch.ops.select import band_select
+    from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
+    from d3feat_tpu_torch.train.step import TrainState, make_train_step
+
+    spec = make_pyramid_spec(cfg)
+    batch, (name, n0, n1, n_corr) = training_pair(cfg, spec, device)
+    phase(f"training pair {name}: {n0} + {n1} points, {n_corr} correspondences within "
+          f"{CORR_RADIUS}, {NUM_NODE} used")
+    model = init_kpfcnn(cfg, device=device)  # its own copy: extraction keeps the r5 weights
+    load_npz(model, os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                                 "model_best_acc_r5.npz"))
+    twin_model = copy.deepcopy(model)
+    state = TrainState(model, make_optimizer(cfg, model))
+    twin_state = TrainState(twin_model, make_optimizer(cfg, twin_model))
+    step = make_train_step(cfg, spec)
+    twin_step = make_train_step(cfg, spec, impl="plain")
+
+    wrappers = {"K1 select": band_select, "K2 band_conv": band_conv, "K3 band_head": band_head,
+                "K4 band_conv_bwd": band_conv_bwd, "K5 band_head_bwd": band_head_bwd}
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    state, m = step(state, batch, 0)  # the counted training-path run
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    for n, c in counts.items():
+        check(c > 0, f"{n}: no launch on the training path")
+    for n in ("K4 band_conv_bwd", "K5 band_head_bwd"):
+        report[n]["launches"] = counts[n]
+    phase("training path launches per step: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
+
+    twin_state, tm = twin_step(twin_state, batch, 0)
+    flat = torch.cat([t.grad.reshape(-1) for _, t in train_tensors(model)])
+    flat_t = torch.cat([t.grad.reshape(-1) for _, t in train_tensors(twin_model)])
+    gerr = float((flat - flat_t).abs().max())
+    check(math.isfinite(m.loss) and abs(m.loss - tm.loss) <= 1e-3 * abs(tm.loss),
+          f"train step: loss {m.loss} vs twins' {tm.loss}")
+    check(torch.allclose(flat, flat_t, atol=5e-3, rtol=5e-3),
+          f"train step: gradients differ from the twins' by {gerr}")
+    check(float(flat_t.abs().max()) > 1e-4, "train step: vacuous gradient comparison")
+    phase(f"train step vs twins on the card: loss {m.loss:.6f} vs {tm.loss:.6f}, max gradient "
+          f"diff {gerr:.3g} over {flat.numel()} values (max |g| {float(flat_t.abs().max()):.3g})")
+    del twin_state, twin_model
+
+    losses = [m.loss]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        state, m = step(state, batch, 0)
+        check(math.isfinite(m.loss) and m.skipped == 0.0 and m.overflow == 0.0,
+              f"train step {i + 1}: loss {m.loss}, skipped {m.skipped}, overflow {m.overflow}")
+        losses.append(m.loss)
+    torch.cuda.synchronize()
+    sps = TRAIN_STEPS / (time.perf_counter() - t)
+    check(state.step == TRAIN_STEPS + 1, f"train state counts {state.step} updates")
+    phase("train losses: " + ", ".join(f"{v:.5f}" for v in losses))
+    phase(f"training: {sps:.3f} train steps/s on {card} ({TRAIN_STEPS} steps of one pair at "
+          f"full width, lr {m.lr:.6g}, accuracy {m.accuracy:.1f} %)")
+    if "--profile" in sys.argv:
+        profile(lambda i: step(state, batch, 0), 3, "train steps")
+    return sps
 
 
 def main():
@@ -376,7 +596,7 @@ def main():
     phase(f"torch {torch.__version__} cuda {torch.version.cuda}; {kind} x {count}")
 
     phase("build")
-    secs = build.build(["select", "band_conv", "head"])
+    secs = build.build(build.KERNELS)
     phase("built: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
 
     cfg = bench_config()
@@ -397,13 +617,21 @@ def main():
     check_k1(pyr, spec, report)
     check_k2(pyr, cfg, model, report)
     check_k3(pyr, cfg, report)
+    check_k4(pyr, cfg, model, report)
+    check_k5(pyr, cfg, report)
+    del pyr
 
-    phase("main path")
+    phase("serving path")
     fps = main_path(cfg, model, frags, report)
+    phase("training path")
+    sps = train_phase(cfg, report, smi)
 
     sources = {"K1 select": ("select.cu", "d3feat_tpu/ops/pallas/select.py:252"),
                "K2 band_conv": ("band_conv.cu", "d3feat_tpu/ops/pallas/band_conv.py:351"),
-               "K3 band_head": ("head.cu", "d3feat_tpu/ops/pallas/head.py:173")}
+               "K3 band_head": ("head.cu", "d3feat_tpu/ops/pallas/head.py:173"),
+               "K4 band_conv_bwd": ("band_conv_bwd.cu",
+                                    "d3feat_tpu/ops/pallas/band_conv.py:586"),
+               "K5 band_head_bwd": ("head_bwd.cu", "d3feat_tpu/ops/pallas/head.py:304")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[name]
@@ -412,7 +640,10 @@ def main():
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    print(json.dumps({"fragments_per_s": fps, "card": smi}), flush=True)
+    phase("library_ms is null for every kernel: no single PyTorch call computes any of them "
+          "(each includes the threshold selection of its rows)")
+    print(json.dumps({"fragments_per_s": fps, "train_steps_per_s": sps, "card": smi}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": count}}), flush=True)

@@ -2,11 +2,13 @@
 
 The JAX package ``d3feat_tpu`` stays the reference; this package keeps its
 module names so each counterpart is easy to find, and imports nothing of it
-(nor ``jax``). Plain tensor code is PyTorch; the three Pallas kernels of the
-serving path are hand-written CUDA kernels under ``ops/cuda/`` (K1 band
-select, K2 band KPConv, K3 detector-head band sums), built at first use with
-``nvcc`` into ``_build/`` and called through ``ctypes``. Each kernel has a
-plain PyTorch twin in the same module, which runs for CPU tensors.
+(nor ``jax``). Plain tensor code is PyTorch; the five Pallas kernels are
+hand-written CUDA kernels under ``ops/cuda/`` (K1 band select, K2 band
+KPConv, K3 detector-head band sums, and the backward kernels of the
+training path, K4 band-KPConv backward and K5 band-head backward), built at
+first use with ``nvcc`` into ``_build/`` and called through ``ctypes``.
+Each kernel has a plain PyTorch twin in the same module, which runs for
+CPU tensors.
 
 Entry points default to ``device="cuda"`` and raise when CUDA is missing;
 tests pass ``device="cpu"`` explicitly.

@@ -1,8 +1,12 @@
-"""Carry weights into the port's ``KPFCNN`` modules.
+"""Carry weights, and optimizer state, into the port's ``KPFCNN`` modules.
 
-Two sources: the JAX parameter pytree handed over as nested numpy arrays
-(``params_from_numpy``; the tests use it to run both stacks on the same
-random weights), and the committed portable npz (``load_npz``).
+Two sources of weights: the JAX parameter pytree handed over as nested
+numpy arrays (``params_from_numpy``; the tests use it to run both stacks
+on the same random weights), and the committed portable npz
+(``load_npz``). Optimizer state is compared by parameter name: an optax
+state tree shaped like the parameters (SGD's momentum trace, Adam's
+moments) flattens with ``params_from_numpy`` to the same names that
+``optimizer_state_by_name`` gives the port's ``torch.optim`` state.
 """
 
 from __future__ import annotations
@@ -52,3 +56,18 @@ def load_npz(model: torch.nn.Module, path: str) -> dict:
     sd = {k: torch.from_numpy(v).to(device) for k, v in params.items()}
     model.load_state_dict(sd, strict=True)
     return meta
+
+
+def optimizer_state_by_name(model: torch.nn.Module, optimizer: torch.optim.Optimizer
+                            ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{slot: {name: tensor}}`` of the optimizer's per-tensor state
+    (``momentum_buffer`` for SGD, ``exp_avg``/``exp_avg_sq``/``step`` for
+    Adam), names as in ``train.optim.train_tensors``."""
+    from d3feat_tpu_torch.train.optim import train_tensors
+
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, t in train_tensors(model):
+        for slot, v in optimizer.state.get(t, {}).items():
+            out.setdefault(slot, {})[name] = v
+    return out
+

@@ -3,6 +3,9 @@
 Host-side numpy, copied from ``d3feat_tpu.data.pack`` (the port imports
 nothing of the JAX package): rows [0, n0) hold cloud 0, [n0, n0 + n1)
 cloud 1, ..., and shadow padding at ``SHADOW_COORD`` fills the tail.
+Training pairs also carry their correspondences, padded to a fixed count
+with a validity mask, and the anchors' spatial distances, padded with
+``_FAR`` so padded pairs never enter the safe-radius negative mask.
 Also reads the committed held-out fragments under ``artifacts/eval_cache``.
 """
 
@@ -11,11 +14,49 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
 SHADOW_COORD = 1.0e6  # shadow/padding coordinate (same value as the reference)
+_FAR = 1.0e4  # padding value of dist_keypts: always outside safe_radius
+
+
+class PackedPair(NamedTuple):
+    points: np.ndarray       # [C0, 3] float32 stacked + shadow-padded
+    features: np.ndarray     # [C0, F] float32, zero padding
+    lengths: np.ndarray      # [2] int32
+    corr: np.ndarray         # [M, 2] int32 (anchor idx in cloud 0, positive in cloud 1)
+    corr_valid: np.ndarray   # [M] bool
+    dist_keypts: np.ndarray  # [M, M] float32
+
+
+def pack_pair(pts0: np.ndarray, pts1: np.ndarray, feat0: np.ndarray, feat1: np.ndarray,
+              corr: Optional[np.ndarray], dist_keypts: Optional[np.ndarray], *,
+              point_capacity: int, corr_capacity: int) -> PackedPair:
+    """One training pair in the static layout of the train step."""
+    n0, n1 = len(pts0), len(pts1)
+    if n0 + n1 > point_capacity:
+        raise ValueError(f"pair has {n0}+{n1} points > capacity {point_capacity}; "
+                         "downsample more or use a larger bucket")
+    points = np.full((point_capacity, 3), SHADOW_COORD, np.float32)
+    feats = np.zeros((point_capacity, feat0.shape[1]), np.float32)
+    points[:n0] = pts0
+    points[n0 : n0 + n1] = pts1
+    feats[:n0] = feat0
+    feats[n0 : n0 + n1] = feat1
+    m = corr_capacity
+    corr_out = np.zeros((m, 2), np.int32)
+    corr_valid = np.zeros((m,), bool)
+    dk_out = np.full((m, m), _FAR, np.float32)
+    if corr is not None and len(corr) > 0:
+        k = min(len(corr), m)
+        corr_out[:k] = corr[:k]
+        corr_valid[:k] = True
+        if dist_keypts is not None:
+            dk_out[:k, :k] = dist_keypts[:k, :k]
+    return PackedPair(points=points, features=feats, lengths=np.array([n0, n1], np.int32),
+                      corr=corr_out, corr_valid=corr_valid, dist_keypts=dk_out)
 
 EVAL_CACHE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),

@@ -1,7 +1,7 @@
 """Network blocks (port of ``d3feat_tpu.models.blocks``): unary and
 last_unary, simple and resnet-bottleneck KPConv blocks (plain and strided),
-nearest-upsample, and the K2 band KPConv that every rigid KPConv of the
-serving path runs through.
+nearest-upsample, and the band KPConv (K2 forward, K4 backward) that every
+rigid KPConv runs through.
 
 Modules carry the JAX package's parameter names, so a parameter's
 ``state_dict`` name is its JAX key path written with dots
@@ -22,6 +22,12 @@ from torch import nn
 from d3feat_tpu_torch.models.kpconv import KPConv, torch_kaiming_uniform
 
 LEAKY_SLOPE = 0.1
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: ``where(x >= 0, x, slope * x)``, so the
+    gradient at exactly 0 is 1 (``F.leaky_relu`` gives the slope there)."""
+    return torch.where(x >= 0, x, LEAKY_SLOPE * x)
 
 
 @dataclass(frozen=True)
@@ -56,18 +62,25 @@ def classify_block(name: str) -> str:
     raise ValueError(f"unknown block name {name!r}")
 
 
-def _ext_zero(x: torch.Tensor) -> torch.Tensor:
-    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+def _gather_rows(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+    """``x`` rows at ``inds``, where index ``len(x)`` (the shadow) reads a
+    zero row. An embedding lookup with the shadow as padding index: the
+    same values as indexing the zero-extended ``x``, but its backward sums
+    the rows' gradients by sorted segments and skips the shadow entries,
+    where indexing's backward walks each repeated index serially (the
+    shadow is repeated in most lists of a padded level)."""
+    ext = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    return F.embedding(inds.long(), ext, padding_idx=x.shape[0])
 
 
 def closest_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     """Features of the nearest (first) neighbor; shadow -> zeros."""
-    return _ext_zero(x)[inds[:, 0].long()]
+    return _gather_rows(x, inds[:, 0])
 
 
 def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     """Max over each neighborhood with a zero shadow row."""
-    return _ext_zero(x)[inds.long()].amax(1)
+    return _gather_rows(x, inds).amax(1)
 
 
 class Linear(nn.Module):
@@ -105,7 +118,7 @@ class Unary(nn.Module):
 
     def forward(self, x, relu: bool = True):
         y = self.norm(self.linear(x))
-        return F.leaky_relu(y, LEAKY_SLOPE) if relu else y
+        return leaky_relu(y) if relu else y
 
 
 # ---------------------------------------------------------------------------
@@ -192,15 +205,16 @@ def band_conv_inputs(spec: BlockSpec, batch, config) -> dict:
 
 def apply_band_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, config,
                       impl: str = "auto") -> torch.Tensor:
-    """Rigid KPConv of one block through the K2 band kernel, in the
-    pyramid's sorted space (features, points and lists already sorted)."""
-    from d3feat_tpu_torch.ops.band_conv import band_conv
+    """Rigid KPConv of one block through the K2 band kernel (K4 in the
+    backward), in the pyramid's sorted space (features, points and lists
+    already sorted). Differentiable in ``x`` and the conv weights."""
+    from d3feat_tpu_torch.ops.band_conv import BandConvFn
 
     args = band_conv_inputs(spec, batch, config)
     band_pad = args["s_rows"].shape[0] - x.shape[0]
     x_sorted = torch.cat([x, x.new_zeros((band_pad, x.shape[1]))]).float().contiguous()
-    out, _ = band_conv(x=x_sorted, weights=conv.weights.contiguous(),
-                       kernel_points=conv.kernel_points.contiguous(), impl=impl, **args)
+    out = BandConvFn.apply(x_sorted, conv.weights.contiguous(),
+                           conv.kernel_points.contiguous(), args, impl)
     n_q_rows = batch["points"][spec.layer + 1 if spec.strided else spec.layer].shape[0]
     return out[:n_q_rows]
 
@@ -231,7 +245,7 @@ class SimpleBlock(_ConvBlock):
         self.norm = Norm(spec.out_dim // 2, generator.device)
 
     def forward(self, x, batch, impl="auto"):
-        return F.leaky_relu(self.norm(self._conv(x, batch, impl)), LEAKY_SLOPE)
+        return leaky_relu(self.norm(self._conv(x, batch, impl)))
 
 
 class ResnetBBlock(_ConvBlock):
@@ -249,12 +263,12 @@ class ResnetBBlock(_ConvBlock):
     def forward(self, x, batch, impl="auto"):
         spec = self.spec
         h = self.unary1(x) if hasattr(self, "unary1") else x
-        h = F.leaky_relu(self.norm_conv(self._conv(h, batch, impl)), LEAKY_SLOPE)
+        h = leaky_relu(self.norm_conv(self._conv(h, batch, impl)))
         h = self.unary2(h, relu=False)
         shortcut = max_pool(x, batch["pools"][spec.layer]) if spec.strided else x
         if hasattr(self, "shortcut"):
             shortcut = self.shortcut(shortcut, relu=False)
-        return F.leaky_relu(h + shortcut, LEAKY_SLOPE)
+        return leaky_relu(h + shortcut)
 
 
 class UnaryBlock(Unary):

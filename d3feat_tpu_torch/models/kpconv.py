@@ -2,10 +2,11 @@
 ``d3feat_tpu.models.kpconv``).
 
 A rigid KPConv holds ``weights`` [KP, Cin, Cout] and the fixed
-``kernel_points`` [KP, 3] (a buffer: stored with the weights, never
-trained). Its forward at this configuration is the K2 band kernel
-(``models.blocks.apply_band_kpconv``); the reference's gather formulation
-is not ported yet.
+``kernel_points`` [KP, 3] (a buffer without gradient; the optimizer still
+decays and traces it, as the JAX package's optimizer does the parameter
+leaf it keeps there). Its forward at this configuration is the K2 band
+kernel and its backward K4 (``models.blocks.apply_band_kpconv``); the
+reference's gather formulation is not ported yet.
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ Detector head (parameter-free): with f normalised by its max,
 The neighborhood sums and counts come from the K3 band-head kernel. At eval
 time points that are not a per-channel local max of their neighborhood
 score zero (optionally only the top-M candidates are gated,
-``eval_gate_topm``).
+``eval_gate_topm``); the training head has no gate.
 """
 
 from __future__ import annotations
@@ -121,9 +121,10 @@ class KPFCNNOutput(NamedTuple):
     raw_features: torch.Tensor  # pre-normalisation descriptors
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.softplus = logaddexp(x, 0)
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` = ``logaddexp(x, 0)``, in value and in gradient
+    (0.5 at 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def band_head_inputs(batch, config) -> dict:
@@ -149,17 +150,18 @@ def band_head_inputs(batch, config) -> dict:
                 s_rows=b0["s_rows"], starts=starts, wends=wends, query_tile=tile)
 
 
-def detection_scores(batch, features: torch.Tensor, *, config, per_cloud_norm: bool = False,
-                     impl: str = "auto") -> torch.Tensor:
-    """Eval-mode detector head over the sorted-space pyramid ``batch``.
+def detection_scores(batch, features: torch.Tensor, *, config, train: bool = False,
+                     per_cloud_norm: bool = False, impl: str = "auto") -> torch.Tensor:
+    """Detector head over the sorted-space pyramid ``batch``.
 
     ``per_cloud_norm`` normalises each stacked cloud by its own max (the
     extraction path, where independent fragments share a batch); otherwise
-    one global max, as the reference."""
-    from d3feat_tpu_torch.ops.head import band_head
+    one global max, as the reference. ``train`` drops the eval local-max
+    gate. Differentiable in ``features`` (the K3 sums through
+    ``ops.head.BandHeadFn``, whose backward is K5)."""
+    from d3feat_tpu_torch.ops.head import BandHeadFn
     from d3feat_tpu_torch.ops.subsample import lengths_to_cloud_ids
 
-    neighbor = batch["neighbors"][0].long()  # [C0, K0], shadow = C0
     f = features
     lengths = batch["lengths"][0]
     num_clouds = lengths.shape[0]
@@ -171,24 +173,27 @@ def detection_scores(batch, features: torch.Tensor, *, config, per_cloud_norm: b
             for b in range(num_clouds)])
         f = f / (cmax[cidc, None] + 1e-6)
     else:
-        f = f / (f.max() + 1e-6)
+        f = f / (f.amax() + 1e-6)
 
     args = band_head_inputs(batch, config)
     s_rows = f.shape[0]
     band_pad = args["s_rows"].shape[0] - s_rows
     x_pad = torch.cat([f.float(), f.new_zeros((band_pad, f.shape[1]))]).contiguous()
-    fsum, cnt = band_head(x=x_pad, impl=impl, **args)
-    neighbor_num = torch.clamp(cnt[:s_rows, None], min=1.0)
+    fsum, cnt = BandHeadFn.apply(x_pad, args, impl)
+    neighbor_num = torch.clamp(cnt[:s_rows, None], min=1.0)  # a count: no gradient
     mean_features = fsum[:s_rows, : f.shape[1]] / neighbor_num
-    local_max_score = _softplus(f - mean_features)
+    local_max_score = softplus(f - mean_features)
 
     depth_wise_max = f.amax(1, keepdim=True)
     depth_wise_max_score = f / (1e-6 + depth_wise_max)
     scores = (local_max_score * depth_wise_max_score).amax(1, keepdim=True)  # [C0, 1]
+    if train:
+        return scores
 
     # hard local-max gate; with eval_gate_topm > 0 only the top-M points by
     # ungated score are gated (gating only zeroes scores, so top-k keypoint
     # selection stays exact), the rest report 0
+    neighbor = batch["neighbors"][0].long()  # [C0, K0], shadow = C0
     f_ext = torch.cat([f, f.new_zeros((1, f.shape[1]))])
     topm = config.eval_gate_topm
     s_flat = scores[:, 0]
@@ -202,12 +207,20 @@ def detection_scores(batch, features: torch.Tensor, *, config, per_cloud_norm: b
     return scores * detected
 
 
-@torch.no_grad()
-def apply_kpfcnn(model: KPFCNN, batch, *, per_cloud_norm: bool = False,
+def apply_kpfcnn(model: KPFCNN, batch, *, train: bool = False, per_cloud_norm: bool = False,
                  impl: str = "auto") -> KPFCNNOutput:
-    """Eval forward over a sorted-space pyramid ``batch`` (with
-    ``features`` in the pyramid's level-0 sorted order). Forward only: the
-    training path (and the backward kernels) is not ported yet."""
+    """Forward over a sorted-space pyramid ``batch`` (with ``features`` in
+    the pyramid's level-0 sorted order). With ``train`` it is the training
+    forward, differentiable in the model's parameters (every band KPConv
+    through ``ops.band_conv.BandConvFn``, K2 forward and K4 backward, the
+    head through ``ops.head.BandHeadFn``, K3 and K5) with the training
+    detector head (no local-max gate); without, the eval forward, which
+    records no gradients."""
+    with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+        return _forward(model, batch, train, per_cloud_norm, impl)
+
+
+def _forward(model: KPFCNN, batch, train: bool, per_cloud_norm: bool, impl: str):
     specs = model.specs
     mask0 = batch["masks"][0]
     x = batch["features"].float() * mask0[:, None]
@@ -221,8 +234,10 @@ def apply_kpfcnn(model: KPFCNN, batch, *, per_cloud_norm: bool = False,
             x = torch.cat([x, skips.pop()], 1)
         x = block(x, batch, impl=impl)
     x = x * mask0[:, None]
-    scores = detection_scores(batch, x, config=model.config,
+    scores = detection_scores(batch, x, config=model.config, train=train,
                               per_cloud_norm=per_cloud_norm, impl=impl)
+    # safe L2 normalisation: zero (padding) rows stay zero with finite
+    # gradients (the reference's double-where)
     norm2 = (x * x).sum(-1, keepdim=True)
     norm2_safe = torch.where(norm2 > 0.0, norm2, 1.0)
     features = torch.where(norm2 > 0.0, x * torch.rsqrt(norm2_safe), 0.0)

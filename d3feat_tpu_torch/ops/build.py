@@ -29,6 +29,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-arch=sm_90a", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC")
 
+# every kernel source under cuda/; the first load builds all that are missing
+KERNELS = ("select", "band_conv", "head", "band_conv_bwd", "head_bwd")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -86,12 +89,14 @@ def build(names: Iterable[str]) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``ops/cuda/<name>.cu``, building it if needed."""
+    """The loaded library of ``ops/cuda/<name>.cu``. When it is not built
+    yet, every kernel of ``KERNELS`` without an up-to-date library is
+    built, all at once."""
     lib = _LIBS.get(name)
     if lib is None:
         so = _target(name)
         if not os.path.exists(so):
-            build([name])
+            build(sorted(set(KERNELS) | {name}))
         lib = ctypes.CDLL(so)
         _LIBS[name] = lib
     return lib

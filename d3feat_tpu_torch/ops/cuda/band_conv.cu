@@ -27,22 +27,15 @@
 // second product (Nq x KP x Cin x Cout) at the deep levels, the window scan
 // at level 0.
 //
-// Threshold selection reproduces a list of at most K <= 64 rows (K1's cap),
-// so a 64-entry list per query holds every selected row.
+// The selection and the weights are band_lists.cuh's, shared with K4.
 
 #include <cuda_runtime.h>
 
-#include "d2.cuh"
+#include "band_lists.cuh"
 
 #define QT 32        // queries per CTA
-#define LCAP 64      // selected rows per query
 #define COLS 64      // output columns per CTA
 #define NTHREADS 256
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az,
-                                      float bx, float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
-}
 
 __global__ void __launch_bounds__(NTHREADS)
 band_conv_kernel(const float4* __restrict__ q, const float* __restrict__ thr,
@@ -69,29 +62,8 @@ band_conv_kernel(const float4* __restrict__ q, const float* __restrict__ thr,
     const float4 qq = q[qg];
     const float th = thr[qg], pt = ptie[qg];
     const int t = qg / tile;
-    const int ws = starts[t], we = wends[t];
-    int cnt = 0;
-    for (int base = ws; base < we; base += 32) {
-      const int r = base + lane;
-      bool sel = false;
-      float d2 = 0.f;
-      if (r < we) {
-        const float4 sr = s[r];
-        d2 = exact_d2(sr, qq.x, qq.y, qq.z);
-        sel = (sr.w == qq.w) && (d2 < th || (d2 == th && (float)r <= pt));
-      }
-      const unsigned m = __ballot_sync(0xffffffffu, sel);
-      if (sel) {
-        const int idx = cnt + __popc(m & ((1u << lane) - 1u));
-        if (idx < LCAP) {
-          lpos[qi * LCAP + idx] = r;
-          ld2[qi * LCAP + idx] = d2;
-        }
-      }
-      cnt += __popc(m);
-    }
-    cnt = min(cnt, LCAP);
-    __syncwarp();
+    const int cnt = select_rows(s, qq, th, pt, starts[t], wends[t], lpos + qi * LCAP,
+                                ld2 + qi * LCAP);
     int active = 0;
     for (int j = 0; j < cnt; ++j) {
       const float* xr = x + (size_t)lpos[qi * LCAP + j] * C;
@@ -122,12 +94,7 @@ band_conv_kernel(const float4* __restrict__ q, const float* __restrict__ thr,
     for (int e = threadIdx.x; e < QT * LCAP; e += NTHREADS) {
       const int qi = e / LCAP, j = e % LCAP;
       if (j < lcnt[qi]) {
-        const float4 sr = s[lpos[e]];
-        const float4 qq = qs[qi];
-        const float a = __fmul_rn(-2.f, dot3(sr.x, sr.y, sr.z, kx, ky, kz));
-        const float b = __fadd_rn(__fmul_rn(2.f, dot3(qq.x, qq.y, qq.z, kx, ky, kz)), kk);
-        const float d2kp = fmaxf(__fadd_rn(__fadd_rn(ld2[e], a), b), 0.f);
-        wbuf[e] = fmaxf(__fsub_rn(1.f, __fmul_rn(__fsqrt_rn(d2kp), inv_extent)), 0.f);
+        wbuf[e] = kp_weight(ld2[e], s[lpos[e]], qs[qi], kx, ky, kz, kk, inv_extent);
       }
     }
     __syncthreads();

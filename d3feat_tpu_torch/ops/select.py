@@ -60,6 +60,36 @@ def tile_windows(s_rows: torch.Tensor, starts: torch.Tensor, wends: torch.Tensor
     return s_rows[pos], pos, inside
 
 
+def add_windows(values: torch.Tensor, pos: torch.Tensor, inside: torch.Tensor,
+                n_rows: int) -> torch.Tensor:
+    """[n_rows, C]: each tile's window rows ``values`` [n_tiles, W, C] added
+    into the support rows they stand for, tile after tile in ascending
+    order (the backward kernels' order), rows outside every window zero."""
+    out = values.new_zeros((n_rows + 1, values.shape[-1]))  # row n_rows: padding
+    rows = torch.where(inside, pos, n_rows)
+    for t in range(values.shape[0]):
+        out.index_add_(0, rows[t], values[t])
+    return out[:n_rows]
+
+
+def covering_tiles(starts: torch.Tensor, wends: torch.Tensor, n_rows: int):
+    """([n_rows] first, [n_rows] end) tile index of the tiles whose window
+    ``[start, wend)`` may hold each support row: every tile whose window
+    holds row r lies in ``[first[r], end[r])`` (the backward kernels still
+    test each). Holds for any windows: ``first`` searches the running max
+    of the window ends, ``end`` the running min of the starts from the
+    right, both sorted whatever the windows are."""
+    rows = torch.arange(n_rows, device=starts.device, dtype=torch.int64)
+    if starts.numel() == 0:
+        z = torch.zeros(n_rows, dtype=torch.int32, device=starts.device)
+        return z, z
+    end_max = torch.cummax(wends.long(), 0).values
+    start_min = torch.flip(torch.cummin(torch.flip(starts.long(), (0,)), 0).values, (0,))
+    first = torch.searchsorted(end_max, rows, right=True)
+    end = torch.searchsorted(start_min, rows, right=True)
+    return first.to(torch.int32), end.to(torch.int32)
+
+
 def select_plain(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: int):
     """Twin of the K1 kernel (same contract), in plain PyTorch."""
     nq = q_rows.shape[0]

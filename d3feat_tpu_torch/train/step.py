@@ -1,20 +1,152 @@
-"""Feature-extraction step (port of
-``d3feat_tpu.train.step.make_extract_step``; the training steps are not
-ported yet).
+"""Training, validation and feature-extraction steps (port of
+``d3feat_tpu.train.step``).
 
-One call: packed cloud(s) -> sorted-space pyramid -> KPFCNN forward ->
-descriptors and scores back in the caller's row order, plus the overflow
-flag (a level exceeded its point or neighbor capacity, so lists were
-truncated and the outputs are degraded — callers must surface it).
+A train step takes one raw packed pair (points, features, lengths,
+correspondences) and does: pyramid -> KPFCNN training forward ->
+correspondence gather -> descriptor loss (circle | contrastive) + detector
+loss -> backward (K4 and K5 through the band autograd functions) ->
+non-finite skip -> SGD/Adam update at ``learning_rate(epoch)``.
+
+The network runs in the pyramid's sorted row order: features are permuted
+by ``order0``, and the correspondences are remapped through ``inv0``,
+anchors indexing cloud 0 and positives cloud 1 (offset by ``lengths[0]``).
+When any gradient is not finite no update is made: parameters, optimizer
+state and the step count stay as they were (``skipped`` = 1).
+
+The extraction step returns descriptors and scores in the caller's row
+order, plus the overflow flag (a level exceeded its point or neighbor
+capacity, so lists were truncated and the outputs are degraded — callers
+must surface it).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import NamedTuple
+
 import torch
 
-from d3feat_tpu_torch.models.kpfcnn import apply_kpfcnn
+from d3feat_tpu_torch.losses.descriptor import circle_loss, contrastive_loss
+from d3feat_tpu_torch.losses.detector import det_loss
+from d3feat_tpu_torch.models.kpfcnn import KPFCNN, apply_kpfcnn
 from d3feat_tpu_torch.ops.neighbors import permute_rows
 from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+from d3feat_tpu_torch.train.optim import learning_rate, optimizer_step, train_tensors
+
+
+@dataclass
+class TrainState:
+    """The model, its optimizer (``train.optim.make_optimizer``) and the
+    count of completed updates."""
+
+    model: KPFCNN
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+class StepMetrics(NamedTuple):
+    loss: float
+    desc_loss: float
+    det_loss: float
+    accuracy: float
+    d_pos: float
+    d_neg: float
+    lr: float
+    skipped: float   # 1.0 when the update was dropped (non-finite gradients)
+    overflow: float  # 1.0 when a pyramid level overflowed its capacity
+
+
+def _check_config(config):
+    if config.compute_dtype != "float32":
+        raise NotImplementedError("only compute_dtype='float32' is ported")
+    if config.use_batch_norm:
+        raise NotImplementedError("batch norm is not ported yet (use_batch_norm=True)")
+
+
+def _forward_losses(model, batch, config, pyramid_spec, *, train: bool, impl: str,
+                    pyramid=None):
+    """Pyramid (or the given sorted-space ``pyramid``) + forward + losses.
+    Returns (loss, [desc_loss, det_loss, accuracy, d_pos, d_neg, overflow])."""
+    pyr = pyramid if pyramid is not None else build_pyramid(
+        batch["points"], batch["lengths"], spec=pyramid_spec, impl=impl)
+    order0, inv0 = pyr["band"][0]["order"], pyr["band"][0]["inv"]
+    full = dict(pyr, features=permute_rows(batch["features"], order0))
+    out = apply_kpfcnn(model, full, train=train, impl=impl)
+
+    corr = batch["corr"].long()
+    anc_idx = inv0[corr[:, 0]]
+    pos_idx = inv0[corr[:, 1] + batch["lengths"][0].long()]
+    valid = batch["corr_valid"].bool()
+    anc_f, pos_f = out.features[anc_idx], out.features[pos_idx]
+    anc_s, pos_s = out.scores[anc_idx], out.scores[pos_idx]
+    if config.desc_loss == "circle":
+        desc = circle_loss(anc_f, pos_f, batch["dist_keypts"], valid,
+                           dist_type=config.dist_type, log_scale=config.log_scale,
+                           safe_radius=config.safe_radius, pos_margin=config.pos_margin,
+                           neg_margin=config.neg_margin)
+    else:
+        desc = contrastive_loss(anc_f, pos_f, batch["dist_keypts"], valid,
+                                metric=config.dist_type, pos_margin=config.pos_margin,
+                                neg_margin=config.neg_margin, safe_radius=config.safe_radius)
+    dl = det_loss(desc.dists, anc_s, pos_s, valid)
+    loss = config.desc_loss_weight * desc.loss + config.det_loss_weight * dl
+    overflow = pyr["overflow"].float()
+    return loss, [desc.loss, dl, desc.accuracy, desc.d_pos, desc.d_neg, overflow]
+
+
+def make_train_step(config, pyramid_spec=None, impl: str = "auto"):
+    """``train_step(state, batch, epoch, pyramid=None) -> (state,
+    StepMetrics)``, updating ``state`` in place.
+
+    ``batch``: tensors on the model's device, ``points`` [C0, 3],
+    ``features`` [C0, F], ``lengths`` [2], ``corr`` [M, 2], ``corr_valid``
+    [M], ``dist_keypts`` [M, M] — one packed pair (``data.pack.pack_pair``).
+    ``pyramid``: a sorted-space pyramid of those points built elsewhere,
+    used instead of building one. ``impl`` selects kernels or their plain
+    twins (see ``ops.select.band_select``)."""
+    _check_config(config)
+    pyramid_spec = pyramid_spec or make_pyramid_spec(config)
+
+    def train_step(state: TrainState, batch, epoch, pyramid=None):
+        model = state.model
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = _forward_losses(model, batch, config, pyramid_spec, train=True,
+                                        impl=impl, pyramid=pyramid)
+        loss.backward()
+        grads = [t.grad for _, t in train_tensors(model) if t.grad is not None]
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        # one device-to-host copy for the skip decision and the metrics
+        vals = torch.stack([loss.detach(), *(m.detach().float() for m in metrics),
+                            finite.float()]).tolist()
+        loss_v, desc_l, det_l, acc, d_pos, d_neg, overflow, ok = vals
+        lr = learning_rate(config, epoch)
+        if ok:
+            optimizer_step(config, state.optimizer, model, lr)
+            state.step += 1
+        return state, StepMetrics(loss=loss_v, desc_loss=desc_l, det_loss=det_l, accuracy=acc,
+                                  d_pos=d_pos, d_neg=d_neg, lr=lr, skipped=1.0 - ok,
+                                  overflow=overflow)
+
+    return train_step
+
+
+def make_eval_step(config, pyramid_spec=None, impl: str = "auto"):
+    """Validation step ``eval_step(model, batch, pyramid=None) ->
+    StepMetrics``: the same losses with the eval detector head, no
+    gradients."""
+    _check_config(config)
+    pyramid_spec = pyramid_spec or make_pyramid_spec(config)
+
+    @torch.no_grad()
+    def eval_step(model, batch, pyramid=None):
+        loss, metrics = _forward_losses(model, batch, config, pyramid_spec, train=False,
+                                        impl=impl, pyramid=pyramid)
+        vals = torch.stack([loss, *(m.float() for m in metrics)]).tolist()
+        loss_v, desc_l, det_l, acc, d_pos, d_neg, overflow = vals
+        return StepMetrics(loss=loss_v, desc_loss=desc_l, det_loss=det_l, accuracy=acc,
+                           d_pos=d_pos, d_neg=d_neg, lr=0.0, skipped=0.0, overflow=overflow)
+
+    return eval_step
 
 
 def make_extract_step(config, pyramid_spec=None, num_clouds: int = 2, impl: str = "auto"):
@@ -24,8 +156,7 @@ def make_extract_step(config, pyramid_spec=None, num_clouds: int = 2, impl: str 
     model's device. Scores use per-cloud max normalisation, so fragments
     batched on the cloud axis do not perturb each other. ``impl`` selects
     kernels or their plain twins (see ``ops.select.band_select``)."""
-    if config.compute_dtype != "float32":
-        raise NotImplementedError("only compute_dtype='float32' is ported")
+    _check_config(config)
     pyramid_spec = pyramid_spec or make_pyramid_spec(config, num_clouds=num_clouds)
 
     @torch.no_grad()

@@ -51,6 +51,20 @@ def packed_pair(seed=3, n=N_POINTS, cap=CAPS[0]):
     return packed.points, packed.features, packed.lengths
 
 
+def pair_batch(seed=3, n=N_POINTS, cap=CAPS[0]):
+    """The packed numpy training pair of ``packed_pair(seed)`` with its
+    correspondences: the six arrays of a train-step batch."""
+    from d3feat_tpu.data.pack import pack_pair
+    from d3feat_tpu.data.synthetic import synthetic_pair
+
+    rng = np.random.default_rng(seed)
+    pts0, pts1, corr, dk = synthetic_pair(rng, n_points=n, num_corr=8, extent=2.0)
+    p = pack_pair(pts0, pts1, np.ones((n, 1), np.float32), np.ones((n, 1), np.float32),
+                  corr, dk, point_capacity=cap, corr_capacity=8)
+    return {k: getattr(p, k) for k in
+            ("points", "features", "lengths", "corr", "corr_valid", "dist_keypts")}
+
+
 def jax_band_spec(jcfg, num_clouds=2):
     from d3feat_tpu.ops import make_pyramid_spec
 
@@ -98,5 +112,6 @@ def torch_batch_from_jax(pyr, features_sorted):
         "masks": [t(x) for x in pyr["masks"]],
         "band": band,
         "sel_thr": {k: (t(a), t(b)) for k, (a, b) in pyr["sel_thr"].items()},
+        "overflow": t(pyr["overflow"]),
         "features": t(np.asarray(features_sorted, np.float32)),
     }
