@@ -11,14 +11,18 @@ fragments and poses (``artifacts/eval_cache``); it imports nothing of JAX
 or of the JAX package. Phases, each announced with the elapsed seconds:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
-2. build: the five kernels from ``d3feat_tpu_torch/ops/cuda/*.cu`` with
+2. build: the kernel sources ``d3feat_tpu_torch/ops/cuda/*.cu`` with
    ``nvcc``, one process per source, all started together;
 3. kernels vs twins on one real pyramid (two eval-cache fragments at the
    bench capacities): K1 bit for bit (positions, d2, thr, ptie of all 13
-   searches), K2 at level 0 and at the widest level (atol 3e-5, rtol 1e-4,
-   density exact), K3 (sums atol 1e-6, counts exact), K4 at the same two
-   convs from a seeded cotangent (dx and dW at atol 5e-4, rtol 1e-3), K5
-   (atol 1e-5); kernel and twin times by CUDA events;
+   searches); the list stage of K2/K4 and its transpose bit for bit on the
+   9 searches the convs use; K2 at all 14 convs (atol 3e-5, rtol 1e-4,
+   density exact); K3 (sums atol 1e-6, counts exact); K4 at all 14 convs
+   from the forward's lists and weighted rows and a seeded cotangent (dx
+   and dW at atol 5e-4, rtol 1e-3); K5 (atol 1e-5). Kernel and twin times
+   by CUDA events (a call's launches, the host's launch work included),
+   kernel device time by ``torch.profiler``, and each bound; K2's and K4's
+   sums over the 14 convs;
 4. serving path: ``FeatureExtractor(batch_fragments=2)`` with the r5
    weights on the eval-cache fragments of 12k-16k points: launch counts of
    one counted call, output checks, the same batch through the twins on
@@ -53,6 +57,7 @@ CORR_RADIUS = 0.0375         # ground-truth correspondence radius (synthetic.py'
 NUM_NODE = 128               # correspondences per pair (the reference's num_node)
 PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3, data sheet
 PEAK_FP32_S = 67e12          # H100 SXM FP32 outside the tensor cores, data sheet
+PEAK_3XTF32_S = 495e12 / 3   # H100 SXM dense TF32 tensor cores, 3 products per f32 product
 D2_OPS = 8  # per query-row pair: 3 subtractions, 1 multiply, 2 fused multiply-adds
 
 
@@ -88,8 +93,39 @@ def cuda_ms(fn, reps=5):
     return sorted(times)[len(times) // 2]
 
 
-def bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S
+def device_events(prof):
+    """(device ms, launches, name) of every device event of a profile: the
+    kernels and copies themselves; a host operator's device time repeats
+    that of the kernels it launched, an annotation's (such as an autograd
+    function's range) that of the kernels inside it."""
+    import torch
+
+    return [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, reps=5):
+    """Device milliseconds per call of ``fn()``: the time its kernels (and
+    copies) ran on the card, without the host's launch overhead, over
+    ``reps`` calls after one warm-up call (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for ms, _, _ in device_events(prof)) / reps
+
+
+def bound(nbytes, ops, tc_ops=0):
+    """(least milliseconds, what bounds them): bytes at the memory rate, or
+    ``ops`` at the FP32 rate plus ``tc_ops`` (f32-accurate products on the
+    tensor cores as 3xTF32) at a third of the TF32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S + tc_ops / PEAK_3XTF32_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -174,50 +210,154 @@ def check_k1(pyr, spec, report):
           f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
-def check_k2(pyr, cfg, model, report, device="cuda"):
-    import torch
+def conv_cases(pyr, cfg, model):
+    """(spec, conv, band_conv_inputs) of every band conv of the encoder, in
+    the order the forward runs them (14 at the default config)."""
     from d3feat_tpu_torch.models.blocks import band_conv_inputs
+
+    return [(model.specs.encoder[i], blk.conv, band_conv_inputs(model.specs.encoder[i], pyr, cfg))
+            for i, blk in enumerate(model.encoder) if hasattr(blk, "conv")]
+
+
+def conv_features(spec, pyr, args, cin, gen, device):
+    """Seeded leaky-ReLU features on the valid support rows, zero padding."""
+    import torch
+
+    n_valid = int(pyr["lengths"][spec.layer].sum())
+    x = torch.zeros((args["s_rows"].shape[0], cin), device=device)
+    x[:n_valid] = torch.nn.functional.leaky_relu(
+        torch.randn((n_valid, cin), generator=gen, device=device), 0.1)
+    return x
+
+
+def conv_pairs(spec, pyr):
+    """Listed (= selected) query-support pairs of the conv's search; shadow
+    entries equal the support level's size."""
+    lists = pyr["pools" if spec.strided else "neighbors"][spec.layer]
+    return int((lists < pyr["points"][spec.layer].shape[0]).sum())
+
+
+def conv_label(spec, conv, args):
+    kpn, cin, cout = conv.weights.shape
+    return (f"{'pool' if spec.strided else 'conv'}{spec.layer} {cin} -> {cout}, "
+            f"{args['q_rows'].shape[0]} queries")
+
+
+def list_nbytes(lists):
+    return nbytes(lists.lpos, lists.ld2, lists.lcnt)
+
+
+def check_lists(pyr, cfg, model, report):
+    """The list stage and its transpose (K4's dx order) bit for bit against
+    their twins on every search the convs use (9 at the default config);
+    their ms in the kernels line are the sums over those searches (the
+    builds: one extraction call's; the transposes: one train step's)."""
+    import torch
+    from d3feat_tpu_torch.ops.band_lists import band_lists, transpose_lists
+
+    seen = {}
+    tot = {k: dict(ms=0.0, plain_ms=0.0, dev_ms=0.0, bound_ms=0.0, ops=0.0, bytes=0.0)
+           for k in "lt"}
+    for spec, conv, args in conv_cases(pyr, cfg, model):
+        name = f"{'pool' if spec.strided else 'conv'}{spec.layer}"
+        if name in seen:
+            continue
+        kw = {k: args[k] for k in ("q_rows", "thr", "ptie", "s_rows", "starts", "wends",
+                                   "query_tile")}
+        got = band_lists(impl="kernel", **kw)
+        ref = band_lists(impl="plain", **kw)
+        for f in ("lpos", "ld2", "lcnt"):
+            check(torch.equal(getattr(got, f), getattr(ref, f)),
+                  f"band_lists {name}: {f} differs from the twin")
+        ns = args["s_rows"].shape[0]
+        tk, tp = (transpose_lists(got, ns, impl=i) for i in ("kernel", "plain"))
+        check(all(torch.equal(a, b) for a, b in zip(tk, tp)),
+              f"band_lists {name}: the transpose differs from the twin's")
+        seen[name] = int(got.lcnt.sum())
+        fns = dict(l=lambda impl: band_lists(impl=impl, **kw),
+                   t=lambda impl: transpose_lists(got, ns, impl=impl))
+        times = {k: (cuda_ms(lambda: f("kernel")), cuda_ms(lambda: f("plain"), reps=3),
+                     device_ms(lambda: f("kernel"))) for k, f in fns.items()}
+        work = dict(  # (bytes, operations): the d2 tests of the windows; a transpose moves ints
+            l=(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"])
+               + list_nbytes(got), D2_OPS * window_rows(args)),
+            t=(nbytes(got.lpos, got.lcnt, tk[0]) + 4 * seen[name], 0))
+        for k in "lt":
+            b_ms, b_by = bound(*work[k])
+            for f, v in (("ms", times[k][0]), ("plain_ms", times[k][1]), ("dev_ms", times[k][2]),
+                         ("bound_ms", b_ms), ("bytes", work[k][0]), ("ops", work[k][1])):
+                tot[k][f] += v
+        phase(f"band_lists {name} ({args['q_rows'].shape[0]} queries, {seen[name]} listed "
+              f"rows): bit-exact vs twin; kernel {times['l'][0]:.4f} ms (device "
+              f"{times['l'][2]:.4f} ms), twin {times['l'][1]:.3f} ms, bound "
+              f"{bound(*work['l'])[0]:.4f} ms; transpose bit-exact, kernel {times['t'][0]:.4f} ms "
+              f"(device {times['t'][2]:.4f} ms), twin {times['t'][1]:.3f} ms, bound "
+              f"{bound(*work['t'])[0]:.4f} ms")
+    for k, what in (("l", "band_lists"), ("t", "band_lists transpose")):
+        phase(f"{what}, sum over the {len(seen)} searches: kernel {tot[k]['ms']:.4f} ms (device "
+              f"{tot[k]['dev_ms']:.4f} ms), twin {tot[k]['plain_ms']:.3f} ms, bound "
+              f"{tot[k]['bound_ms']:.4f} ms")
+    for k, key in (("l", "K2/K4 band_lists"), ("t", "K4 band_lists transpose")):
+        report[key] = dict(max_abs_err=0.0, ms=tot[k]["ms"], plain_ms=tot[k]["plain_ms"],
+                           bound_ms=tot[k]["bound_ms"],
+                           bound_by=bound(tot[k]["bytes"], tot[k]["ops"])[1], library_ms=None)
+
+
+def k2_work(spec, conv, args, pyr):
+    """(FP32 operations, tensor-core products) of one K2 call on its lists:
+    the influence weights (~12 operations a pair and kernel point), the
+    first product [pairs x Cin] and the second [queries x KP * Cin x Cout]
+    (the first product of a single input feature runs on FP32 FMA)."""
+    kpn, cin, cout = conv.weights.shape
+    pairs = conv_pairs(spec, pyr)
+    q_live = int((args["q_rows"][:, 3] >= 0).sum())
+    first = 2 * kpn * pairs * cin
+    simt = kpn * 12 * pairs + (first if cin < 8 else 0)
+    return simt, (0 if cin < 8 else first) + 2 * q_live * kpn * cin * cout
+
+
+def check_k2(pyr, cfg, model, report, device="cuda"):
+    """K2 against its twin at every conv of the forward; its ms in the
+    kernels line is the sum over the 14 convs of one extraction call."""
+    import torch
     from d3feat_tpu_torch.ops.band_conv import band_conv
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     worst = 0.0
-    for i in (1, len(model.specs.encoder) - 1):  # resnetb at level 0, at the widest level
-        spec = model.specs.encoder[i]
-        conv = model.encoder[i].conv
-        args = band_conv_inputs(spec, pyr, cfg)
-        ns_pad, cin = args["s_rows"].shape[0], conv.weights.shape[1]
-        n_valid = int(pyr["lengths"][spec.layer].sum())
-        x = torch.zeros((ns_pad, cin), device=device)
-        x[:n_valid] = torch.nn.functional.leaky_relu(
-            torch.randn((n_valid, cin), generator=gen, device=device), 0.1)
+    tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, tc=0.0, bytes=0.0)
+    for spec, conv, args in conv_cases(pyr, cfg, model):
+        kpn, cin, cout = conv.weights.shape
+        x = conv_features(spec, pyr, args, cin, gen, device)
         kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points)
         ko, kden = band_conv(impl="kernel", **kw)
         po, pden = band_conv(impl="plain", **kw)
-        check(torch.equal(kden, pden), f"K2 layer {spec.layer}: density differs from the twin")
+        check(torch.equal(kden, pden), f"K2 {conv_label(spec, conv, args)}: density differs "
+              f"from the twin")
         err = float((ko - po).abs().max())
         check(torch.allclose(ko, po, atol=3e-5, rtol=1e-4),
-              f"K2 layer {spec.layer}: max |kernel - twin| = {err}")
+              f"K2 {conv_label(spec, conv, args)}: max |kernel - twin| = {err}")
         worst = max(worst, err)
         ms = cuda_ms(lambda: band_conv(impl="kernel", **kw))
+        dev_ms = device_ms(lambda: band_conv(impl="kernel", **kw))
         plain_ms = cuda_ms(lambda: band_conv(impl="plain", **kw), reps=3)
-        cout = conv.weights.shape[2]
-        lists = pyr["pools" if spec.strided else "neighbors"][spec.layer]
-        # listed (= selected) query-support pairs; shadow entries equal the level size
-        pairs = int((lists < pyr["points"][spec.layer].shape[0]).sum())
-        q_live = int((args["q_rows"][:, 3] >= 0).sum())
-        # window scan, influence weights (~12 operations a pair and kernel
-        # point), then per kernel point [pairs x Cin] and [queries x Cin x Cout]
-        kpn = conv.weights.shape[0]
-        ops = (D2_OPS * window_rows(args) + kpn * 12 * pairs
-               + kpn * (2 * pairs * cin + 2 * q_live * cin * cout))
-        b_ms, b_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
-                                  x, conv.weights, ko, kden), ops)
-        phase(f"K2 band_conv layer {spec.layer} ({cin} -> {cout}, {args['q_rows'].shape[0]} "
-              f"queries): max err {err:.3g}; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
-        report["K2 band_conv"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        ops, tc = k2_work(spec, conv, args, pyr)
+        nb = (nbytes(args["q_rows"], args["s_rows"], x, conv.weights, conv.kernel_points, ko,
+                     kden) + list_nbytes(args["lists"]))
+        b_ms, b_by = bound(nb, ops, tc)
+        for k, v in (("ms", ms), ("dev_ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                     ("ops", ops), ("tc", tc), ("bytes", nb)):
+            tot[k] += v
+        phase(f"K2 band_conv {conv_label(spec, conv, args)}: max err {err:.3g}; kernel "
+              f"{ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+    phase(f"K2 band_conv, sum over the {len(conv_cases(pyr, cfg, model))} convs of one "
+          f"extraction call: kernel {tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin "
+          f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
+    report["K2 band_conv"] = dict(max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                                  bound_ms=tot["bound_ms"],
+                                  bound_by=bound(tot["bytes"], tot["ops"], tot["tc"])[1],
+                                  library_ms=None)
 
 
 def check_k3(pyr, cfg, report, device="cuda"):
@@ -249,53 +389,67 @@ def check_k3(pyr, cfg, report, device="cuda"):
 
 
 def check_k4(pyr, cfg, model, report, device="cuda"):
+    """K4 against its twin at every conv of the backward (the first, on the
+    input features, without dx as in the train step), from the lists and
+    the weighted rows of the forward as the train step runs it; its ms in
+    the kernels line is the sum over the 14 convs of one train step."""
     import torch
-    from d3feat_tpu_torch.models.blocks import band_conv_inputs
-    from d3feat_tpu_torch.ops.band_conv import band_conv_bwd
+    from d3feat_tpu_torch.ops.band_conv import band_conv_bwd, band_conv_kernel
 
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
     worst = 0.0
-    for i in (1, len(model.specs.encoder) - 1):  # resnetb at level 0, at the widest level
-        spec = model.specs.encoder[i]
-        conv = model.encoder[i].conv
-        args = band_conv_inputs(spec, pyr, cfg)
-        ns_pad, cin = args["s_rows"].shape[0], conv.weights.shape[1]
-        kpn, cout = conv.weights.shape[0], conv.weights.shape[2]
-        n_valid = int(pyr["lengths"][spec.layer].sum())
+    tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, tc=0.0, bytes=0.0)
+    for ci, (spec, conv, args) in enumerate(conv_cases(pyr, cfg, model)):
+        kpn, cin, cout = conv.weights.shape
         nq = args["q_rows"].shape[0]
         n_q = pyr["points"][spec.layer + 1 if spec.strided else spec.layer].shape[0]
-        x = torch.zeros((ns_pad, cin), device=device)
-        x[:n_valid] = torch.nn.functional.leaky_relu(
-            torch.randn((n_valid, cin), generator=gen, device=device), 0.1)
+        x = conv_features(spec, pyr, args, cin, gen, device)
         gs = torch.zeros((nq, cout), device=device)
         gs[:n_q] = torch.randn((n_q, cout), generator=gen, device=device) * 1e-2
-        kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points, gs=gs)
-        kdx, kdw = band_conv_bwd(impl="kernel", **kw)
+        need_dx = ci > 0
+        kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points)
+        wtd = band_conv_kernel(keep_weighted=True, **kw)[2]
+        kw.update(gs=gs, need_dx=need_dx)
+        kdx, kdw = band_conv_bwd(impl="kernel", weighted=wtd, **kw)
         pdx, pdw = band_conv_bwd(impl="plain", **kw)
-        err = max(float((kdx - pdx).abs().max()), float((kdw - pdw).abs().max()))
-        check(torch.allclose(kdx, pdx, atol=5e-4, rtol=1e-3)
-              and torch.allclose(kdw, pdw, atol=5e-4, rtol=1e-3),
-              f"K4 layer {spec.layer}: max |kernel - twin| = {err}")
-        check(float(pdw.abs().max()) > 1e-3, f"K4 layer {spec.layer}: vacuous comparison")
+        err = float((kdw - pdw).abs().max())
+        ok = torch.allclose(kdw, pdw, atol=5e-4, rtol=1e-3)
+        if need_dx:
+            err = max(err, float((kdx - pdx).abs().max()))
+            ok = ok and torch.allclose(kdx, pdx, atol=5e-4, rtol=1e-3)
+        check(ok, f"K4 {conv_label(spec, conv, args)}: max |kernel - twin| = {err}")
+        check(float(pdw.abs().max()) > 1e-3, f"K4 {conv_label(spec, conv, args)}: vacuous "
+              f"comparison")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: band_conv_bwd(impl="kernel", **kw))
+        ms = cuda_ms(lambda: band_conv_bwd(impl="kernel", weighted=wtd, **kw))
+        dev_ms = device_ms(lambda: band_conv_bwd(impl="kernel", weighted=wtd, **kw))
         plain_ms = cuda_ms(lambda: band_conv_bwd(impl="plain", **kw), reps=3)
-        lists = pyr["pools" if spec.strided else "neighbors"][spec.layer]
-        pairs = int((lists < pyr["points"][spec.layer].shape[0]).sum())
+        pairs = conv_pairs(spec, pyr)
         q_live = int((args["q_rows"][:, 3] >= 0).sum())
-        # window scan, influence weights, the weighted rows and the dx sums
-        # ([pairs x Cin] per kernel point each), dW and gW ([queries x Cin x
-        # Cout] per kernel point each)
-        ops = (D2_OPS * window_rows(args) + kpn * 12 * pairs
-               + kpn * (4 * pairs * cin + 4 * q_live * cin * cout))
-        b_ms, b_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
-                                  x, conv.weights, gs, kdx, kdw), ops)
-        phase(f"K4 band_conv_bwd layer {spec.layer} ({cin} -> {cout}, {nq} queries): max err "
-              f"{err:.3g}; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})")
-        report["K4 band_conv_bwd"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        # dW on the tensor cores [queries x KP * Cin x Cout]; with dx, the
+        # gather (influence weights and [pairs x Cout] per kernel point) and
+        # dx = G W^T on the tensor cores over the listed support rows
+        row_ptr = args["lists"].transpose(args["s_rows"].shape[0])[0]
+        rows_live = int((row_ptr[1:] > row_ptr[:-1]).sum())
+        tc = 2 * kpn * cin * cout * (q_live + (rows_live if need_dx else 0))
+        ops = kpn * (12 + 2 * cout) * pairs if need_dx else 0
+        nb = (nbytes(args["q_rows"], args["s_rows"], conv.weights, conv.kernel_points, gs, wtd,
+                     kdw, *((kdx,) if need_dx else ())) + list_nbytes(args["lists"]))
+        b_ms, b_by = bound(nb, ops, tc)
+        for k, v in (("ms", ms), ("dev_ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                     ("ops", ops), ("tc", tc), ("bytes", nb)):
+            tot[k] += v
+        phase(f"K4 band_conv_bwd {conv_label(spec, conv, args)}{'' if need_dx else ', no dx'}: "
+              f"max err {err:.3g}; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    phase(f"K4 band_conv_bwd, sum over the {ci + 1} convs of one train step: kernel "
+          f"{tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin {tot['plain_ms']:.3f} ms, "
+          f"bound {tot['bound_ms']:.4f} ms")
+    report["K4 band_conv_bwd"] = dict(max_abs_err=worst, ms=tot["ms"],
+                                      plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                                      bound_by=bound(tot["bytes"], tot["ops"], tot["tc"])[1],
+                                      library_ms=None)
 
 
 def check_k5(pyr, cfg, report, device="cuda"):
@@ -344,12 +498,13 @@ def main_path(cfg, model, frags, report, device="cuda"):
     from d3feat_tpu_torch.data.pack import pack_fragments
     from d3feat_tpu_torch.eval.extract import FeatureExtractor
     from d3feat_tpu_torch.ops.band_conv import band_conv
+    from d3feat_tpu_torch.ops.band_lists import band_lists
     from d3feat_tpu_torch.ops.head import band_head
     from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
     from d3feat_tpu_torch.ops.select import band_select
 
-    wrappers = {"K1 select": band_select, "K2 band_conv": band_conv,
-                "K3 band_head": band_head}
+    wrappers = {"K1 select": band_select, "K2/K4 band_lists": band_lists,
+                "K2 band_conv": band_conv, "K3 band_head": band_head}
     # the serving policy: a group that overflows the bench bucket is run
     # again in the next larger one, so no served output is degraded
     ex = FeatureExtractor(cfg, model, batch_fragments=2, device=device)
@@ -419,10 +574,8 @@ def main_path(cfg, model, frags, report, device="cuda"):
 
 def profile(run, calls, what):
     """Device time by kernel over ``calls`` calls of ``run(i)``, and the
-    device busy share of their wall time (``--profile``). Only the device's
-    own events count (kernels and copies): a host operator's device time
-    repeats that of the kernels it launched, and an annotation's (such as
-    an autograd function's range) that of the kernels inside it."""
+    device busy share of their wall time (``--profile``); only the device's
+    own events count (``device_events``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -432,10 +585,7 @@ def profile(run, calls, what):
             run(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    rows = sorted((r for r in device_events(prof) if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     phase(f"profile: {calls} {what}, wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.1f} %)")
@@ -503,6 +653,7 @@ def train_phase(cfg, report, card, device="cuda"):
     from d3feat_tpu_torch.compat.weights import load_npz
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
     from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
+    from d3feat_tpu_torch.ops.band_lists import band_lists, transpose_lists
     from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
     from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
     from d3feat_tpu_torch.ops.select import band_select
@@ -522,8 +673,10 @@ def train_phase(cfg, report, card, device="cuda"):
     step = make_train_step(cfg, spec)
     twin_step = make_train_step(cfg, spec, impl="plain")
 
-    wrappers = {"K1 select": band_select, "K2 band_conv": band_conv, "K3 band_head": band_head,
-                "K4 band_conv_bwd": band_conv_bwd, "K5 band_head_bwd": band_head_bwd}
+    wrappers = {"K1 select": band_select, "K2/K4 band_lists": band_lists,
+                "K2 band_conv": band_conv, "K3 band_head": band_head,
+                "K4 band_lists transpose": transpose_lists, "K4 band_conv_bwd": band_conv_bwd,
+                "K5 band_head_bwd": band_head_bwd}
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
@@ -532,7 +685,7 @@ def train_phase(cfg, report, card, device="cuda"):
     counts = {n: w.launches for n, w in wrappers.items()}
     for n, c in counts.items():
         check(c > 0, f"{n}: no launch on the training path")
-    for n in ("K4 band_conv_bwd", "K5 band_head_bwd"):
+    for n in ("K4 band_lists transpose", "K4 band_conv_bwd", "K5 band_head_bwd"):
         report[n]["launches"] = counts[n]
     phase("training path launches per step: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
 
@@ -615,6 +768,7 @@ def main():
     check(not bool(pyr["overflow"]), "reference pyramid overflowed")
     report = {}
     check_k1(pyr, spec, report)
+    check_lists(pyr, cfg, model, report)
     check_k2(pyr, cfg, model, report)
     check_k3(pyr, cfg, report)
     check_k4(pyr, cfg, model, report)
@@ -627,8 +781,13 @@ def main():
     sps = train_phase(cfg, report, smi)
 
     sources = {"K1 select": ("select.cu", "d3feat_tpu/ops/pallas/select.py:252"),
+               # the selection that K2's and K4's TPU kernels redo in every conv
+               "K2/K4 band_lists": ("band_lists.cu", "d3feat_tpu/ops/pallas/band_conv.py:351"),
                "K2 band_conv": ("band_conv.cu", "d3feat_tpu/ops/pallas/band_conv.py:351"),
                "K3 band_head": ("head.cu", "d3feat_tpu/ops/pallas/head.py:173"),
+               # the dx order of K4's TPU kernel, which walks each window's rows
+               "K4 band_lists transpose": ("band_lists.cu",
+                                           "d3feat_tpu/ops/pallas/band_conv.py:586"),
                "K4 band_conv_bwd": ("band_conv_bwd.cu",
                                     "d3feat_tpu/ops/pallas/band_conv.py:586"),
                "K5 band_head_bwd": ("head_bwd.cu", "d3feat_tpu/ops/pallas/head.py:304")}

@@ -175,32 +175,45 @@ def band_query_tiles(qb, sb, num_clouds: int, r: float, tile: int, s_rows: int,
     return q_rows, starts, ends, thr, ptie
 
 
-def band_conv_inputs(spec: BlockSpec, batch, config) -> dict:
+def band_conv_inputs(spec: BlockSpec, batch, config, impl: str = "auto") -> dict:
     """Everything the K2 call of one block needs besides its features and
     weights: sorted query rows and thresholds padded to the tile, support
     rows, tile windows, tile and extent (keyword arguments of
-    ``ops.band_conv.band_conv``)."""
+    ``ops.band_conv.band_conv``), and on the kernel path the search's
+    ``lists``. Every conv of one search (``conv{l}``, or ``pool{l}`` for
+    the strided ones) shares them: they are built once and kept in
+    ``batch["band_args"]`` under the search's name."""
+    from d3feat_tpu_torch.ops.band_lists import band_lists, uses_kernel
     from d3feat_tpu_torch.ops.neighbors import band_windows
     from d3feat_tpu_torch.ops.pyramid import level_band_cap
 
     l = spec.layer
-    q_level = l + 1 if spec.strided else l
-    qb, sb = batch["band"][q_level], batch["band"][l]
-    thr, ptie = batch["sel_thr"][f"pool{l}" if spec.strided else f"conv{l}"]
-    s_rows = batch["points"][l].shape[0]
-    n_q_rows = batch["points"][q_level].shape[0]
-    # strided blocks carry the wide pool band: the smaller tile keeps the
-    # window per tile bounded (same sizing as the pyramid's pool search)
-    tile = 128 if spec.strided else 256
-    num_clouds = len(batch["lengths"][0])
-    q_rows, starts, ends, thr, ptie = band_query_tiles(
-        qb, sb, num_clouds, spec.radius, tile, s_rows, thr, ptie)
-    band_cap = level_band_cap(s_rows, num_clouds, config.band_frac,
-                              tile=tile, ratio=-(-s_rows // n_q_rows))
-    starts, wends = band_windows(starts, ends, band_cap)
-    return dict(q_rows=q_rows.contiguous(), thr=thr.contiguous(), ptie=ptie.contiguous(),
-                s_rows=sb["s_rows"], starts=starts, wends=wends, query_tile=tile,
-                extent=spec.radius * config.KP_extent / config.conv_radius)
+    name = f"pool{l}" if spec.strided else f"conv{l}"
+    memo = batch.setdefault("band_args", {})
+    args = memo.get(name)
+    if args is None:
+        q_level = l + 1 if spec.strided else l
+        qb, sb = batch["band"][q_level], batch["band"][l]
+        thr, ptie = batch["sel_thr"][name]
+        s_rows = batch["points"][l].shape[0]
+        n_q_rows = batch["points"][q_level].shape[0]
+        # strided blocks carry the wide pool band: the smaller tile keeps the
+        # window per tile bounded (same sizing as the pyramid's pool search)
+        tile = 128 if spec.strided else 256
+        num_clouds = len(batch["lengths"][0])
+        q_rows, starts, ends, thr, ptie = band_query_tiles(
+            qb, sb, num_clouds, spec.radius, tile, s_rows, thr, ptie)
+        band_cap = level_band_cap(s_rows, num_clouds, config.band_frac,
+                                  tile=tile, ratio=-(-s_rows // n_q_rows))
+        starts, wends = band_windows(starts, ends, band_cap)
+        args = memo[name] = dict(q_rows=q_rows.contiguous(), thr=thr.contiguous(),
+                                 ptie=ptie.contiguous(), s_rows=sb["s_rows"], starts=starts,
+                                 wends=wends, query_tile=tile)
+    if "lists" not in args and uses_kernel(impl, args["q_rows"]):
+        args["lists"] = band_lists(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
+                                   args["starts"], args["wends"], query_tile=args["query_tile"],
+                                   impl=impl)
+    return dict(args, extent=spec.radius * config.KP_extent / config.conv_radius)
 
 
 def apply_band_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, config,
@@ -210,7 +223,7 @@ def apply_band_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, con
     already sorted). Differentiable in ``x`` and the conv weights."""
     from d3feat_tpu_torch.ops.band_conv import BandConvFn
 
-    args = band_conv_inputs(spec, batch, config)
+    args = band_conv_inputs(spec, batch, config, impl)
     band_pad = args["s_rows"].shape[0] - x.shape[0]
     x_sorted = torch.cat([x, x.new_zeros((band_pad, x.shape[1]))]).float().contiguous()
     out = BandConvFn.apply(x_sorted, conv.weights.contiguous(),

@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-arch=sm_90a", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC")
 
 # every kernel source under cuda/; the first load builds all that are missing
-KERNELS = ("select", "band_conv", "head", "band_conv_bwd", "head_bwd")
+KERNELS = ("select", "band_lists", "band_conv", "head", "band_conv_bwd", "head_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

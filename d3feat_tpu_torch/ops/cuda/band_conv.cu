@@ -3,151 +3,55 @@
 //
 // Replaces d3feat_tpu/ops/pallas/band_conv.py::_band_conv_kernel
 // (pallas_call in band_conv), forward, threshold mode. For each sorted
-// query q of a tile, the support rows of the tile's window [start, wend)
-// are selected by
-//     same cloud id  and  (d2 < thr[q]  or  (d2 == thr[q] and pos <= ptie[q]))
-// with d2 computed exactly as K1 computes it, which reproduces q's K-list.
-// Then, per kernel point kp,
+// query q, over the rows its list selects (band_lists.cu: the rows of its
+// tile's window with d2 < thr[q] or d2 == thr[q] and position <= ptie[q],
+// which reproduces q's K1 list), per kernel point kp
 //     w   = max(1 - sqrt(max(d2 + a + b, 0)) / extent, 0)
 //           (a = -2 s.k, b = 2 q.k + |k|^2, the reference's expansion)
-//     y  += (w^T x_band) W[kp]            (f32, FP32 FMA, no tensor cores)
-// and den = max(#selected rows with row-sum > 0, 1); out = y / den.
+//     y  += (w^T x_list) W[kp]
+// and den = max(#listed rows with row-sum > 0, 1); out = y / den.
 //
-// The TPU kernel multiplies dense [T x band] panels because its matrix
-// unit wants them; on this card the selection is sparse (<= K of ~1-2k
-// window rows), so each query keeps its selected rows as a list:
-//   phase 1: one warp per query scans the window 32 rows at a time,
-//            compacts the selected rows (ballot) into a shared-memory list
-//            in ascending position, and counts the active ones;
-//   phase 2: per kernel point, the influence weights of the listed rows,
-//            weighted[q][c] = sum_j w[q][j] x[pos_j][c] into shared memory,
-//            then acc[q][co] += sum_c weighted[q][c] W[kp][c][co], each
-//            thread holding 8 queries x 1 output column in registers.
-// A CTA owns 32 queries x 64 output columns. Bound: the FP32 FMAs of the
-// second product (Nq x KP x Cin x Cout) at the deep levels, the window scan
-// at level 0.
-//
-// The selection and the weights are band_lists.cuh's, shared with K4.
+// The TPU kernel multiplies dense [T x band] panels and redoes the
+// selection in every conv; here the lists are built once per search (the
+// list stage, shared by every conv of the search and by K4), and the
+// conv is three passes over them (band_products.cuh):
+//   1. row flags: act[r] = (sum_c x[r][c] > 0), for the density;
+//   2. the first product, per query: weighted [Nq, KP * Cin] =
+//      [16 x list] influence weights by the [list x Cin] gathered rows on
+//      the tensor cores (3xTF32), each gathered row read once for all 15
+//      kernel points; the density from the flags;
+//   3. the second product: out = weighted [Nq, KP * Cin] W [KP * Cin, Cout]
+//      / den on the tensor cores (3xTF32), 64 x 64 tiles staged through
+//      shared memory by cp.async, double-buffered; the reduction split
+//      into fixed slices where the tiles alone would not fill the card.
+// weighted is kept for K4 (dW = weighted^T gs). Bound: the second product
+// at the deep levels (3 TF32 products per f32 product), the gathers of the
+// first product and the weights at level 0.
 
 #include <cuda_runtime.h>
 
-#include "band_lists.cuh"
+#include "band_products.cuh"
 
-#define QT 32        // queries per CTA
-#define COLS 64      // output columns per CTA
-#define NTHREADS 256
-
-__global__ void __launch_bounds__(NTHREADS)
-band_conv_kernel(const float4* __restrict__ q, const float* __restrict__ thr,
-                 const float* __restrict__ ptie, const float4* __restrict__ s,
-                 const float* __restrict__ x, const float* __restrict__ W,
-                 const float* __restrict__ kp, const int* __restrict__ starts,
-                 const int* __restrict__ wends, int tile, int C, int Cout, int KP,
-                 float inv_extent, float* __restrict__ out, float* __restrict__ den_out) {
-  extern __shared__ float smem[];
-  float* weighted = smem;                  // [QT][C]
-  float* wbuf = weighted + QT * C;         // [QT][LCAP]
-  float* ld2 = wbuf + QT * LCAP;           // [QT][LCAP]
-  int* lpos = (int*)(ld2 + QT * LCAP);     // [QT][LCAP]
-  __shared__ int lcnt[QT];
-  __shared__ float lden[QT];
-  __shared__ float4 qs[QT];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * QT;
-
-  // phase 1: per-query selected-row lists
-  for (int qi = warp; qi < QT; qi += NTHREADS / 32) {
-    const int qg = q0 + qi;
-    const float4 qq = q[qg];
-    const float th = thr[qg], pt = ptie[qg];
-    const int t = qg / tile;
-    const int cnt = select_rows(s, qq, th, pt, starts[t], wends[t], lpos + qi * LCAP,
-                                ld2 + qi * LCAP);
-    int active = 0;
-    for (int j = 0; j < cnt; ++j) {
-      const float* xr = x + (size_t)lpos[qi * LCAP + j] * C;
-      float part = 0.f;
-      for (int c = lane; c < C; c += 32) part = __fadd_rn(part, xr[c]);
-      for (int o = 16; o; o >>= 1) part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
-      active += part > 0.f;
-    }
-    if (lane == 0) {
-      lcnt[qi] = cnt;
-      lden[qi] = fmaxf((float)active, 1.f);
-      qs[qi] = qq;
-    }
+extern "C" int band_conv_launch(const void* q, const void* s, const void* x, const void* W,
+                                const void* kp, const void* lpos, const void* ld2,
+                                const void* lcnt, int nq, int ns, int C, int Cout, int KP,
+                                float inv_extent, int ldw, int splits, int kc, void* act,
+                                void* wtd, void* part, void* out, void* den, void* stream) {
+  if (C < 1 || Cout < 1 || Cout % 4 || KP < 1 || KP > 16 || ldw < KP * C || ldw % 4 ||
+      splits < 1 || kc < 1 || kc % GBK)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (ns > 0) {
+    row_active_kernel<<<(unsigned)((ns + 7) / 8), 256, 0, st>>>((const float*)x, ns, C,
+                                                                 (int*)act);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  __syncthreads();
-
-  // phase 2: kernel-point products
-  const int col = threadIdx.x % COLS;
-  const int qgrp = threadIdx.x / COLS;    // 4 groups of 8 queries
-  const int co = blockIdx.y * COLS + col;
-  float acc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-
-  for (int k = 0; k < KP; ++k) {
-    const float kx = kp[3 * k], ky = kp[3 * k + 1], kz = kp[3 * k + 2];
-    const float kk = dot3(kx, ky, kz, kx, ky, kz);
-    for (int e = threadIdx.x; e < QT * LCAP; e += NTHREADS) {
-      const int qi = e / LCAP, j = e % LCAP;
-      if (j < lcnt[qi]) {
-        wbuf[e] = kp_weight(ld2[e], s[lpos[e]], qs[qi], kx, ky, kz, kk, inv_extent);
-      }
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < QT * C; e += NTHREADS) {
-      const int qi = e / C, c = e % C;
-      const int n = lcnt[qi];
-      const float* wr = wbuf + qi * LCAP;
-      const int* pr = lpos + qi * LCAP;
-      float v = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) v = __fmaf_rn(wr[j], x[(size_t)pr[j] * C + c], v);
-      weighted[e] = v;
-    }
-    __syncthreads();
-    if (co < Cout) {
-      const float* wk = W + (size_t)k * C * Cout + co;
-      const float* wq = weighted + qgrp * 8 * C;
-#pragma unroll 4
-      for (int c = 0; c < C; ++c) {
-        const float wv = wk[(size_t)c * Cout];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i] = __fmaf_rn(wq[i * C + c], wv, acc[i]);
-      }
-    }
-    __syncthreads();
-  }
-  if (co < Cout) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int qi = qgrp * 8 + i;
-      out[(size_t)(q0 + qi) * Cout + co] = __fdiv_rn(acc[i], lden[qi]);
-    }
-  }
-  if (blockIdx.y == 0 && threadIdx.x < QT) den_out[q0 + threadIdx.x] = lden[threadIdx.x];
-}
-
-extern "C" int band_conv_launch(const void* q, const void* thr, const void* ptie,
-                                const void* s, const void* x, const void* W,
-                                const void* kp, const void* starts, const void* wends,
-                                int nq, int tile, int C, int Cout, int KP,
-                                float inv_extent, void* out, void* den, void* stream) {
-  if (nq % QT || tile % QT || C < 1 || Cout < 1) return (int)cudaErrorInvalidValue;
-  if (nq == 0) return 0;
-  const size_t smem = ((size_t)QT * C + 3 * QT * LCAP) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        band_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(nq / QT, (Cout + COLS - 1) / COLS);
-  band_conv_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const float4*)q, (const float*)thr, (const float*)ptie, (const float4*)s,
-      (const float*)x, (const float*)W, (const float*)kp, (const int*)starts,
-      (const int*)wends, tile, C, Cout, KP, inv_extent, (float*)out, (float*)den);
-  return (int)cudaGetLastError();
+  if ((e = weighted_rows(q, s, x, kp, KP, lpos, ld2, lcnt, (const int*)act, nq, C, ldw,
+                         inv_extent, (float*)wtd, (float*)den, st)) != cudaSuccess)
+    return (int)e;
+  // out [nq, Cout] = weighted [nq, KP * C] W [KP * C, Cout], rows / den
+  return (int)gemm3<true, true>((const float*)wtd, ldw, (const float*)W, Cout, (float*)out,
+                                Cout, nq, Cout, KP * C, splits, kc, (float*)part,
+                                (const float*)den, st);
 }

@@ -1,6 +1,7 @@
 // Per-query selected-row lists and kernel-point influence weights, shared
-// by K2 (band_conv.cu) and K4 (band_conv_bwd.cu): both must select the
-// same rows and weigh them bit for bit alike.
+// by the list stage (band_lists.cu), K2 (band_conv.cu) and K4
+// (band_conv_bwd.cu): the lists are built once per search and both
+// kernels weigh the listed rows bit for bit alike.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -26,33 +27,33 @@ __device__ __forceinline__ float kp_weight(float d2, float4 sr, float4 qq, float
   return fmaxf(__fsub_rn(1.f, __fmul_rn(__fsqrt_rn(d2kp), inv_extent)), 0.f);
 }
 
-// Query qg's selected rows of its tile's window, by one warp: the rows of
-// [start, wend) with q's cloud id and (d2 < thr or d2 == thr and
-// position <= ptie), in ascending position, into lpos/ld2 (LCAP entries).
-// Returns the count (all lanes); the warp is synchronised on return.
-__device__ __forceinline__ int select_rows(const float4* __restrict__ s, float4 qq, float th,
-                                           float pt, int ws, int we, int* lpos, float* ld2) {
+// One warp appends query qq's selected rows among n staged window rows
+// (rows[0, n) stand for positions base + [0, n)): the rows with q's cloud
+// id and (d2 < thr or d2 == thr and position <= ptie), in ascending
+// position, into lpos/ld2 from entry cnt on (at most LCAP entries are
+// kept). Returns the new count, uncapped (all lanes).
+__device__ __forceinline__ int select_rows(const float4* rows, int base, int n, float4 qq,
+                                           float th, float pt, int* lpos, float* ld2,
+                                           int cnt) {
   const int lane = threadIdx.x & 31;
-  int cnt = 0;
-  for (int base = ws; base < we; base += 32) {
-    const int r = base + lane;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
     bool sel = false;
     float d2 = 0.f;
-    if (r < we) {
-      const float4 sr = s[r];
+    if (j < n) {
+      const float4 sr = rows[j];
       d2 = exact_d2(sr, qq.x, qq.y, qq.z);
-      sel = (sr.w == qq.w) && (d2 < th || (d2 == th && (float)r <= pt));
+      sel = (sr.w == qq.w) && (d2 < th || (d2 == th && (float)(base + j) <= pt));
     }
     const unsigned m = __ballot_sync(0xffffffffu, sel);
     if (sel) {
       const int idx = cnt + __popc(m & ((1u << lane) - 1u));
       if (idx < LCAP) {
-        lpos[idx] = r;
+        lpos[idx] = base + j;
         ld2[idx] = d2;
       }
     }
     cnt += __popc(m);
   }
-  __syncwarp();
-  return min(cnt, LCAP);
+  return cnt;
 }

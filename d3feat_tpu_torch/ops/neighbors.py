@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from d3feat_tpu_torch.ops.select import band_select
+from d3feat_tpu_torch.ops.select import band_select, fma_f32
 from d3feat_tpu_torch.ops.subsample import lengths_to_cloud_ids
 
 SHADOW_LIKE = 1.0e6
@@ -27,7 +27,8 @@ class SortedLevel:
     """Per-pyramid-level sorted state shared by every search at the level.
 
     Key = cid * KOFF + (proj - origin[cid]) as one float32 sort key (the
-    same op sequence as the reference, so the sorted order is identical);
+    same op sequence as the jitted reference, so the sorted order is
+    identical);
     the sort is stable, so ties keep row order and shadow rows come last.
     """
 
@@ -41,8 +42,11 @@ class SortedLevel:
         cid = lengths_to_cloud_ids(lengths, n)
         valid = cid < num_clouds
         cidc = torch.clamp(cid, max=num_clouds - 1).long()
-        p = points * axis[cidc]
-        proj = (p[:, 0] + p[:, 1]) + p[:, 2] - origin[cidc]
+        # the reference's sum(points * axis, 1), as XLA compiles it inside
+        # the jitted pyramid: a chain of fused multiply-adds
+        a = axis[cidc]
+        proj = fma_f32(points[:, 2], a[:, 2],
+                       fma_f32(points[:, 1], a[:, 1], points[:, 0] * a[:, 0])) - origin[cidc]
         key = cid.float() * self.KOFF + torch.clamp(proj, 0.0, self.KOFF - 1.0)
         key = torch.where(valid, key, torch.full_like(key, num_clouds * self.KOFF))
 

@@ -2,8 +2,11 @@
 ``d3feat_tpu.ops.subsample``).
 
 Every point is binned into a voxel of side ``voxel_size`` anchored at
-``floor(min_corner / dl) * dl`` per cloud; each occupied voxel emits the
-barycenter of its points. Output has a fixed capacity, is sorted by
+``floor(min_corner * (1 / dl)) * dl`` per cloud; each occupied voxel emits
+the barycenter of its points. The reference runs jitted with ``dl`` a
+constant, and XLA then multiplies by the float32 reciprocal ``1 / dl``
+where the source divides by ``dl``; this port multiplies likewise, since
+the two differ for points on a voxel plane. Output has a fixed capacity, is sorted by
 (cloud, z, y, x) voxel, and pads with shadow rows at ``SHADOW_COORD``.
 
 The sums use the reference's segmented doubling prefix over the sorted rows
@@ -54,6 +57,7 @@ def voxel_subsample(points: torch.Tensor, lengths: torch.Tensor, voxel_size: flo
     b = num_clouds
     dev = points.device
     dl = torch.tensor(float(voxel_size), dtype=torch.float32, device=dev)
+    inv_dl = torch.tensor(1.0, dtype=torch.float32, device=dev) / dl
 
     cid = lengths_to_cloud_ids(lengths, n)
     valid = cid < b
@@ -62,9 +66,9 @@ def voxel_subsample(points: torch.Tensor, lengths: torch.Tensor, voxel_size: flo
         torch.where((cid == c)[:, None], points, big).amin(0) for c in range(b)
     ])
     cid_c = torch.clamp(cid, max=b - 1).long()
-    origin = torch.floor(mins / dl) * dl
+    origin = torch.floor(mins * inv_dl) * dl
 
-    rel = (points - origin[cid_c]) / dl
+    rel = (points - origin[cid_c]) * inv_dl
     cell = torch.clamp(torch.floor(rel).to(torch.int32), 0, _MAX_CELLS - 1).long()
 
     # one int64 key = (cloud, z) high word, (y, x) low word; invalid last

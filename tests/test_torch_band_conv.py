@@ -1,7 +1,11 @@
 """K2: the port's band-KPConv twin vs the JAX Pallas kernel (threshold
 mode) in interpret mode, on the same sorted pyramid, windows, features and
 weights: outputs at atol 3e-5 / rtol 1e-4 (the JAX suite's own band-conv
-tolerance, tests/test_band_conv.py), density denominators exact."""
+tolerance, tests/test_band_conv.py), density denominators exact. The
+CUDA kernel's decomposition over the list stage's lists, emulated in plain
+PyTorch, is held to the same tolerances."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,17 +17,20 @@ from d3feat_tpu_torch.config import D3FeatConfig
 from d3feat_tpu_torch.models.blocks import BlockSpec, band_query_tiles
 from d3feat_tpu_torch.models.kernel_points import load_kernels
 from d3feat_tpu_torch.ops.band_conv import band_conv
+from d3feat_tpu_torch.ops.band_lists import band_lists
 from d3feat_tpu_torch.ops.neighbors import band_windows
 from d3feat_tpu_torch.ops.pyramid import level_band_cap
-from tests.torch_port_helpers import jax_pyramid, torch_batch_from_jax
+from tests.torch_port_helpers import band_conv_from_lists, jax_pyramid, torch_batch_from_jax
 
 # (search, support level, strided, cin, cout)
 CASES = [("conv0", 0, False, 1, 8), ("conv0", 0, False, 16, 16),
          ("pool0", 0, True, 8, 8), ("conv3", 3, False, 32, 24)]
 
 
-@pytest.mark.parametrize("name,l,strided,cin,cout", CASES)
-def test_band_conv_twin_matches_pallas(name, l, strided, cin, cout):
+@functools.lru_cache(maxsize=None)
+def _case(name, l, strided, cin, cout):
+    """(port keyword arguments of ``band_conv``, x, W, kernel points, JAX
+    out, JAX den) for one conv of the shared JAX pyramid."""
     jcfg, _, pyr = jax_pyramid(3)
     batch = torch_batch_from_jax(pyr, np.zeros((512, 1)))
     q_level = l + 1 if strided else l
@@ -56,12 +63,35 @@ def test_band_conv_twin_matches_pallas(name, l, strided, cin, cout):
         jnp.asarray(ends.numpy().astype(np.int32)), jnp.asarray(thr_p.numpy()),
         jnp.asarray(ptie_p.numpy()), band_cap=band_cap, query_tile=tile, interpret=True)
     ws, we = band_windows(starts, ends, band_cap)
-    tout, tden = band_conv(q_rows, thr_p, ptie_p, sb["s_rows"], torch.from_numpy(x),
-                           torch.from_numpy(w), torch.from_numpy(kp), ws, we,
-                           query_tile=tile, extent=extent)
-    assert np.array_equal(tden.numpy(), np.asarray(jden)[0])
-    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=3e-5, rtol=1e-4)
-    assert np.abs(np.asarray(jout)).max() > 0.1  # the comparison is not vacuous
+    port = dict(q_rows=q_rows.contiguous(), thr=thr_p, ptie=ptie_p, s_rows=sb["s_rows"],
+                starts=ws, wends=we, query_tile=tile, extent=extent)
+    return port, x, w, kp, np.asarray(jout), np.asarray(jden)[0]
+
+
+@pytest.mark.parametrize("name,l,strided,cin,cout", CASES)
+def test_band_conv_twin_matches_pallas(name, l, strided, cin, cout):
+    port, x, w, kp, jout, jden = _case(name, l, strided, cin, cout)
+    tout, tden = band_conv(x=torch.from_numpy(x), weights=torch.from_numpy(w),
+                           kernel_points=torch.from_numpy(kp), **port)
+    assert np.array_equal(tden.numpy(), jden)
+    np.testing.assert_allclose(tout.numpy(), jout, atol=3e-5, rtol=1e-4)
+    assert np.abs(jout).max() > 0.1  # the comparison is not vacuous
+
+
+@pytest.mark.parametrize("name,l,strided,cin,cout", CASES)
+def test_band_conv_from_lists_matches_pallas(name, l, strided, cin, cout):
+    """The kernels' decomposition (lists, first product per query, density
+    from the listed rows, then ``weighted W / den``) computes the TPU
+    kernel's function: same tolerances as the twin."""
+    port, x, w, kp, jout, jden = _case(name, l, strided, cin, cout)
+    lists = band_lists(**{k: v for k, v in port.items() if k != "extent"})
+    tout, tden, wtd = band_conv_from_lists(lists, port["q_rows"], port["s_rows"],
+                                           torch.from_numpy(x), torch.from_numpy(w),
+                                           torch.from_numpy(kp), port["extent"])
+    assert wtd.shape == (port["q_rows"].shape[0], 15 * cin)
+    assert np.array_equal(tden.numpy(), jden)
+    np.testing.assert_allclose(tout.numpy(), jout, atol=3e-5, rtol=1e-4)
+    assert np.abs(jout).max() > 0.1
 
 
 def test_band_conv_eligibility_at_bench_config():

@@ -5,7 +5,9 @@
 that test (250 + 200 points, capacity 512, Cin 8, Cout 16, 15 kernel
 points, 64-query tiles) and the strided pool0 conv of the shared JAX
 pyramid. The twin's explicit products are also held against PyTorch
-autograd through the forward twin ``band_conv_plain`` at 1e-5."""
+autograd through the forward twin ``band_conv_plain`` at 1e-5, and the CUDA
+kernels' decomposition over the list stage's lists, emulated in plain
+PyTorch, against the same JAX VJP."""
 
 import functools
 
@@ -20,9 +22,10 @@ from d3feat_tpu.ops.neighbors import SortedLevel, make_level_frame, radius_neigh
 from d3feat_tpu.ops.pallas.band_conv import band_conv_ad
 from d3feat_tpu_torch.models.blocks import band_query_tiles
 from d3feat_tpu_torch.ops.band_conv import BandConvFn, band_conv_plain
+from d3feat_tpu_torch.ops.band_lists import band_lists
 from d3feat_tpu_torch.ops.neighbors import band_windows
 from d3feat_tpu_torch.ops.pyramid import level_band_cap
-from tests.torch_port_helpers import jax_pyramid, torch_batch_from_jax
+from tests.torch_port_helpers import band_conv_bwd_from_lists, band_conv_from_lists, jax_pyramid
 
 GRAD_TOL = dict(atol=5e-4, rtol=1e-3)
 
@@ -102,8 +105,9 @@ def _port_grads(port, x_sorted, w, kp, cot, impl="plain"):
     return [g.numpy() for g in torch.autograd.grad(loss, (x, wt))]
 
 
-@pytest.mark.parametrize("name", ["standalone", "pool0"])
-def test_band_conv_bwd_twin_matches_pallas_vjp(name):
+@functools.lru_cache(maxsize=None)
+def _jax_grads(name):
+    """(dx, dW) of the JAX ``band_conv_ad`` VJP for the case's cotangent."""
     jx, port, x_sorted, w, kp, cot = _case(name)
     n_rows = jx["s_packed"].shape[0]
 
@@ -116,10 +120,40 @@ def test_band_conv_bwd_twin_matches_pallas_vjp(name):
         return jnp.sum(out[: cot.shape[0]] * cot)
 
     jdx, jdw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x_sorted), jnp.asarray(w))
+    return np.asarray(jdx), np.asarray(jdw)
+
+
+@pytest.mark.parametrize("name", ["standalone", "pool0"])
+def test_band_conv_bwd_twin_matches_pallas_vjp(name):
+    jx, port, x_sorted, w, kp, cot = _case(name)
+    jdx, jdw = _jax_grads(name)
     tdx, tdw = _port_grads(port, x_sorted, w, kp, cot)
     np.testing.assert_allclose(tdx, np.asarray(jdx), **GRAD_TOL)
     np.testing.assert_allclose(tdw, np.asarray(jdw), **GRAD_TOL)
     assert np.abs(tdx).max() > 1e-2 and np.abs(tdw).max() > 1e-2  # not vacuous
+
+
+@pytest.mark.parametrize("name", ["standalone", "pool0"])
+def test_band_conv_bwd_from_lists_matches_pallas_vjp(name):
+    """The kernels' backward decomposition (dW = weighted^T gs; G = sum of
+    w gs gathered over the transposed lists, dx = G W^T), emulated in plain
+    PyTorch from the list stage's lists and the forward's density, against
+    the JAX VJP."""
+    _, port, x_sorted, w, kp, cot = _case(name)
+    jdx, jdw = _jax_grads(name)
+    ns = port["s_rows"].shape[0]
+    x = _pad(torch.from_numpy(x_sorted), ns)
+    lists = band_lists(**{k: v for k, v in port.items() if k != "extent"})
+    _, den, _ = band_conv_from_lists(lists, port["q_rows"], port["s_rows"], x,
+                                     torch.from_numpy(w), torch.from_numpy(kp), port["extent"])
+    g = torch.zeros((port["q_rows"].shape[0], w.shape[2]))
+    g[: cot.shape[0]] = torch.from_numpy(cot)
+    dx, dw = band_conv_bwd_from_lists(lists, port["q_rows"], port["s_rows"], x,
+                                      torch.from_numpy(w), torch.from_numpy(kp),
+                                      g / den[:, None], port["extent"])
+    np.testing.assert_allclose(dx[: x_sorted.shape[0]].numpy(), jdx, **GRAD_TOL)
+    np.testing.assert_allclose(dw.numpy(), jdw, **GRAD_TOL)
+    assert np.abs(jdx).max() > 1e-2 and np.abs(jdw).max() > 1e-2  # not vacuous
 
 
 @pytest.mark.parametrize("name", ["standalone", "pool0"])

@@ -80,3 +80,29 @@ def test_search_matches_jax(name):
         jthr, jptie = pyr["sel_thr"][name]
         assert np.array_equal(res[2].numpy(), jthr)
         assert np.array_equal(res[3].numpy(), jptie)
+
+
+def test_sorted_level_keys_match_jitted_jax_on_eval_fragments():
+    """Level 0 of a real pair (eval-cache group 10): inside the jitted
+    pyramid XLA compiles the key's projection ``sum(points * axis, 1)`` as a
+    chain of fused multiply-adds; on a diagonal banding axis that moves the
+    last bit of some keys, and with it the order of near-equal ones."""
+    import jax
+
+    from d3feat_tpu.ops.neighbors import SortedLevel as JSortedLevel
+    from tests.test_torch_subsample import _eval_group
+
+    pts, lens = _eval_group()
+    axis, origin = make_level_frame(torch.from_numpy(pts), torch.from_numpy(lens), 2)
+    assert bool((axis != 0).all(1).any())  # a diagonal axis: every coordinate counts
+
+    def j_keys(p, n, a, o):
+        lv = JSortedLevel(p, n, 2, a, o, band_pad=256)
+        return lv.key_sorted, lv.order
+
+    jkey, jorder = jax.jit(j_keys)(jnp.asarray(pts), jnp.asarray(lens),
+                                   jnp.asarray(axis.numpy()), jnp.asarray(origin.numpy()))
+    lv = SortedLevel(torch.from_numpy(pts), torch.from_numpy(lens), 2, axis, origin,
+                     band_pad=256)
+    assert np.array_equal(lv.key_sorted.numpy(), np.asarray(jkey))
+    assert np.array_equal(lv.order.numpy(), np.asarray(jorder))

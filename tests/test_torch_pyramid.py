@@ -67,3 +67,43 @@ def test_deeper_lists_differ_only_on_the_boundary(seed):
         _boundary_only(tp["pools"][l].numpy(), pyr["pools"][l], q, pyr["points"][l],
                        pyr["sel_thr"][f"pool{l}"][0])
         assert np.array_equal(tp["upsamples"][l].numpy(), pyr["upsamples"][l])
+
+
+@pytest.mark.slow
+def test_pyramid_matches_jitted_jax_on_eval_fragments():
+    """The whole pyramid on a real pair (eval-cache group 10 at the bench
+    capacities) against the jitted JAX band pyramid: lengths and overflow
+    flags exact, points within 1e-6, level 0 bit for bit, deeper lists
+    differing only on the selection boundary."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from d3feat_tpu.config import D3FeatConfig as JConfig, PyramidCaps as JCaps
+    from d3feat_tpu.ops import build_pyramid as j_build_pyramid
+    from d3feat_tpu.ops import make_pyramid_spec as j_make_pyramid_spec
+    from tests.test_torch_subsample import EVAL_CAPS, _eval_group
+
+    pts, lens = _eval_group()
+    jcfg = JConfig(experiment_id="eval-group")
+    jcfg.caps = JCaps(points=EVAL_CAPS, neighbors=(40,) * 5, corr=128)
+    jspec = dataclasses.replace(j_make_pyramid_spec(jcfg, num_clouds=2), force_band_export=True)
+    pyr = jax.jit(lambda p, n: j_build_pyramid(p, n, spec=jspec))(jnp.asarray(pts),
+                                                                   jnp.asarray(lens))
+    pyr = jax.tree.map(np.array, pyr)
+    tp = build_pyramid(torch.from_numpy(pts), torch.from_numpy(lens),
+                       spec=make_pyramid_spec(torch_config(jcfg)))
+    assert bool(tp["overflow"]) == bool(pyr["overflow"]) is False
+    for l in range(5):
+        assert np.array_equal(tp["lengths"][l].numpy(), pyr["lengths"][l]), l
+        np.testing.assert_allclose(tp["points"][l].numpy(), pyr["points"][l], rtol=0, atol=1e-6)
+    assert np.array_equal(tp["neighbors"][0].numpy(), pyr["neighbors"][0])
+    for l in range(1, 5):
+        _boundary_only(tp["neighbors"][l].numpy(), pyr["neighbors"][l],
+                       pyr["points"][l].astype(np.float64), pyr["points"][l],
+                       pyr["sel_thr"][f"conv{l}"][0])
+    for l in range(4):
+        _boundary_only(tp["pools"][l].numpy(), pyr["pools"][l],
+                       pyr["points"][l + 1].astype(np.float64), pyr["points"][l],
+                       pyr["sel_thr"][f"pool{l}"][0])

@@ -68,3 +68,38 @@ def test_cloud_ids_and_mask_match_jax(lengths):
                           np.asarray(jsub.lengths_to_cloud_ids(jnp.asarray(lens), n)))
     assert np.array_equal(tsub.lengths_to_mask(torch.from_numpy(lens), n).numpy(),
                           np.asarray(jsub.lengths_to_mask(jnp.asarray(lens), n)))
+
+
+# --- against the reference as it runs: jitted, the voxel size a constant ---
+
+EVAL_GROUP = 10  # eval-cache fragments 20 and 21, paired as chip_smoke pairs them
+EVAL_CAPS = tuple(2 * c for c in (16384, 8192, 2048, 768, 256))  # the bench capacities
+
+
+def _eval_group(group=EVAL_GROUP):
+    from d3feat_tpu_torch.data.pack import load_eval_fragments, pack_fragments
+
+    frags = load_eval_fragments(12000, 16000)
+    b = pack_fragments(frags[2 * group:2 * group + 2], point_capacity=EVAL_CAPS[0],
+                       num_clouds=2)
+    return b["points"], b["lengths"]
+
+
+def test_voxel_subsample_matches_jitted_jax_on_eval_fragments():
+    """Level 0 -> 1 (voxel 0.06) on a real pair: XLA compiles ``/ dl`` as a
+    multiply by ``1 / dl``, which moves points that lie on a voxel plane
+    into the next voxel; the port must bin them as the jitted reference."""
+    import functools
+
+    import jax
+
+    pts, lens = _eval_group()
+    dl = 0.06
+    jfn = jax.jit(functools.partial(jsub.voxel_subsample, voxel_size=dl,
+                                    out_capacity=EVAL_CAPS[1], num_clouds=2, occupancy_cap=64))
+    j = jfn(jnp.asarray(pts), jnp.asarray(lens))
+    t = tsub.voxel_subsample(torch.from_numpy(pts), torch.from_numpy(lens), dl,
+                             out_capacity=EVAL_CAPS[1], num_clouds=2, occupancy_cap=64)
+    assert np.asarray(j.lengths).tolist() == t.lengths.tolist()
+    assert bool(j.overflow) == bool(t.overflow) is False
+    np.testing.assert_allclose(t.points.numpy(), np.asarray(j.points), rtol=0, atol=1e-6)

@@ -115,3 +115,64 @@ def torch_batch_from_jax(pyr, features_sorted):
         "overflow": t(pyr["overflow"]),
         "features": t(np.asarray(features_sorted, np.float32)),
     }
+
+
+# --- plain emulations of the kernels' list decomposition (K2 and K4 on the
+# lists of ``ops.band_lists``), which the CUDA kernels compute on the card ---
+
+
+def weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent):
+    """[Nq_pad, KP * Cin] first product per query over its listed rows:
+    ``weighted[q, kp * Cin + c] = sum_j w_kp(q, lpos[q, j]) x[lpos[q, j], c]``."""
+    from d3feat_tpu_torch.ops.band_conv import _BIG, kp_weights
+
+    valid = lists.lpos >= 0                                           # [Nq, L]
+    pos = lists.lpos.clamp(min=0).long()
+    d2m = torch.where(valid, lists.ld2, _BIG)[:, None, :]            # [Nq, 1, L]
+    rows, q = s_rows[pos], q_rows[:, None, :]
+    xg = x[pos] * valid[..., None]                                    # [Nq, L, C]
+    kpn = kernel_points.shape[0]
+    w = [kp_weights(d2m, rows, q, kernel_points[k], extent) for k in range(kpn)]
+    return torch.cat([torch.bmm(wk, xg) for wk in w], 1).reshape(q_rows.shape[0], -1)
+
+
+def band_conv_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, extent):
+    """(out, den, weighted) of K2 from the lists: the first product, the
+    density from the listed rows' feature sums, then ``weighted W / den``."""
+    kpn, c, cout = weights.shape
+    wtd = weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent)
+    valid = lists.lpos >= 0
+    active = (x.sum(-1) > 0.0)[lists.lpos.clamp(min=0).long()] & valid
+    den = torch.clamp(active.sum(1).float(), min=1.0)
+    out = (wtd @ weights.reshape(kpn * c, cout)) / den[:, None]
+    return out, den, wtd
+
+
+def band_conv_bwd_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, gs, extent,
+                             need_dx=True):
+    """(dx or None, dW) of K4 from the lists: ``dW = weighted^T gs``, and
+    ``G[r, kp] = sum_q w_kp(q, r) gs[q]`` gathered over the transposed
+    lists (each support row's listed entries, ascending query order), then
+    ``dx = G W^T``."""
+    from d3feat_tpu_torch.ops.band_conv import kp_weights
+    from d3feat_tpu_torch.ops.band_lists import LCAP
+
+    kpn, c, cout = weights.shape
+    ns = s_rows.shape[0]
+    wtd = weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent)
+    dw = (wtd.T @ gs).reshape(kpn, c, cout)
+    if not need_dx:
+        return None, dw
+    row_ptr, pairs = lists.transpose(ns)
+    n_ent = int(row_ptr[-1])
+    f = pairs[:n_ent].long()
+    r = torch.repeat_interleave(torch.arange(ns, device=f.device),
+                                (row_ptr[1:] - row_ptr[:-1]).long())
+    qi = f // LCAP
+    d2 = lists.ld2.reshape(-1)[f][:, None, None]                      # [E, 1, 1]
+    rows, q = s_rows[r][:, None, :], q_rows[qi][:, None, :]
+    w = torch.stack([kp_weights(d2, rows, q, kernel_points[k], extent)[:, 0, 0]
+                     for k in range(kpn)], 1)                         # [E, KP]
+    g_rows = gs.new_zeros((ns, kpn, cout)).index_add_(0, r, w[:, :, None] * gs[qi][:, None, :])
+    dx = g_rows.reshape(ns, kpn * cout) @ weights.permute(0, 2, 1).reshape(kpn * cout, c)
+    return dx, dw
