@@ -14,15 +14,16 @@ or of the JAX package. Phases, each announced with the elapsed seconds:
 2. build: the kernel sources ``d3feat_tpu_torch/ops/cuda/*.cu`` with
    ``nvcc``, one process per source, all started together;
 3. kernels vs twins on one real pyramid (two eval-cache fragments at the
-   bench capacities): K1 bit for bit (positions, d2, thr, ptie of all 13
-   searches); the list stage of K2/K4 and its transpose bit for bit on the
-   9 searches the convs use; K2 at all 14 convs (atol 3e-5, rtol 1e-4,
-   density exact); K3 (sums atol 1e-6, counts exact); K4 at all 14 convs
-   from the forward's lists and weighted rows and a seeded cotangent (dx
-   and dW at atol 5e-4, rtol 1e-3); K5 (atol 1e-5). Kernel and twin times
-   by CUDA events (a call's launches, the host's launch work included),
-   kernel device time by ``torch.profiler``, and each bound; K2's and K4's
-   sums over the 14 convs;
+   bench capacities): K1 bit for bit (positions, d2, thr, ptie) on all 13
+   searches, each timed; the list stage of K2/K4 and its transpose bit for
+   bit on the 9 searches the convs use; K2 at all 14 convs (atol 3e-5,
+   rtol 1e-4, density exact); K3 from conv0's lists (sums atol 1e-6,
+   counts exact); K4 at all 14 convs from the forward's lists and weighted
+   rows and a seeded cotangent (dx and dW at atol 5e-4, rtol 1e-3); K5
+   (atol 1e-5). Kernel and twin times by CUDA events (a call's launches,
+   the host's launch work included), kernel device time by
+   ``torch.profiler``, and each bound; K1's sums over the 13 searches, K2's
+   and K4's over the 14 convs;
 4. serving path: ``FeatureExtractor(batch_fragments=2)`` with the r5
    weights on the eval-cache fragments of 12k-16k points: launch counts of
    one counted call, output checks, the same batch through the twins on
@@ -167,47 +168,84 @@ def sorted_levels(pyr, spec):
     return levels
 
 
-def check_k1(pyr, spec, report):
-    import torch
-    from d3feat_tpu_torch.ops.pyramid import level_band_cap, level_search
+def k1_searches(spec, levels):
+    """(name, query level, support level, radius, K) of the pyramid's 13
+    searches, in the order ``build_pyramid`` runs them."""
+    out = []
+    for l in range(spec.num_levels):
+        r = spec.radii[l]
+        out.append((f"conv{l}", levels[l], levels[l], r, spec.neighbor_caps[l]))
+        if l + 1 < spec.num_levels:
+            out.append((f"pool{l}", levels[l + 1], levels[l], r, spec.neighbor_caps[l]))
+            out.append((f"up{l}", levels[l], levels[l + 1], 2.0 * r, 1))
+    return out
+
+
+def k1_args(q, s, r, k, spec):
+    """The K1 call of one search as ``pyramid.level_search`` makes it:
+    (q_rows, s_rows, starts, wends, keyword arguments)."""
     from d3feat_tpu_torch.ops.neighbors import search_windows
+    from d3feat_tpu_torch.ops.pyramid import level_band_cap
+
+    ratio = -(-s.n // q.n)
+    qt = 128 if (ratio > 1 or s.n < 256) else 256
+    band_cap = level_band_cap(s.n, spec.num_clouds, spec.band_frac, tile=qt, ratio=ratio)
+    q_rows, starts, wends, r2, _ = search_windows(q, s, r, query_tile=qt, band_cap=band_cap)
+    return q_rows, s.s_rows, starts, wends, dict(query_tile=qt, r2=r2, max_k=min(k, band_cap))
+
+
+def check_k1(pyr, spec, report):
+    """K1 bit for bit against its twin on every search of the pyramid (13
+    at the default config), through ``level_search`` (positions, overflow,
+    thr, ptie) and raw (positions, d2), each search timed (kernel and twin
+    by events, kernel device time) beside its bound; its ms in the kernels
+    line is the sum over the searches of one extraction call."""
+    import torch
+    from d3feat_tpu_torch.ops.pyramid import level_search
     from d3feat_tpu_torch.ops.select import band_select
 
     levels = sorted_levels(pyr, spec)
-    searches = []
-    for l in range(spec.num_levels):
-        r = spec.radii[l]
-        searches.append((f"conv{l}", levels[l], levels[l], r, spec.neighbor_caps[l]))
-        if l + 1 < spec.num_levels:
-            searches.append((f"pool{l}", levels[l + 1], levels[l], r, spec.neighbor_caps[l]))
-            searches.append((f"up{l}", levels[l], levels[l + 1], 2.0 * r, 1))
+    tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, bytes=0.0)
+    conv0 = None
+    searches = k1_searches(spec, levels)
     for name, q, s, r, k in searches:
         got = level_search(q, s, r, k, spec, impl="kernel")
         ref = level_search(q, s, r, k, spec, impl="plain")
         for i, (a, b) in enumerate(zip(got, ref)):
             check(torch.equal(a, b), f"K1 {name}: kernel output {i} differs from the twin")
-    check(torch.equal(level_search(levels[0], levels[0], spec.radii[0], 40, spec)[0],
-                      pyr["neighbors"][0]), "K1 conv0: lists differ from the pyramid's")
+        q_rows, s_rows, starts, wends, kw = k1_args(q, s, r, k, spec)
+        kp, kd = band_select(q_rows, s_rows, starts, wends, impl="kernel", **kw)
+        pp, pd = band_select(q_rows, s_rows, starts, wends, impl="plain", **kw)
+        check(torch.equal(kp, pp) and torch.equal(kd, pd), f"K1 {name}: raw outputs differ")
 
-    # raw outputs and times at the largest search (conv0)
-    qt = 256
-    band_cap = level_band_cap(levels[0].n, spec.num_clouds, spec.band_frac, tile=qt)
-    q_rows, starts, wends, r2, _ = search_windows(levels[0], levels[0], spec.radii[0],
-                                                  query_tile=qt, band_cap=band_cap)
-    kw = dict(query_tile=qt, r2=r2, max_k=40)
-    s_rows = levels[0].s_rows
-    kp, kd = band_select(q_rows, s_rows, starts, wends, impl="kernel", **kw)
-    pp, pd = band_select(q_rows, s_rows, starts, wends, impl="plain", **kw)
-    check(torch.equal(kp, pp) and torch.equal(kd, pd), "K1 conv0: raw outputs differ")
-    ms = cuda_ms(lambda: band_select(q_rows, s_rows, starts, wends, impl="kernel", **kw))
-    plain_ms = cuda_ms(lambda: band_select(q_rows, s_rows, starts, wends, impl="plain", **kw))
-    args = dict(starts=starts, wends=wends, query_tile=qt)
-    b_ms, b_by = bound(nbytes(q_rows, s_rows, starts, wends, kp, kd),
-                       D2_OPS * window_rows(args))
-    report["K1 select"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=None)
-    phase(f"K1 select: 13 searches bit-exact vs twin; conv0 {q_rows.shape[0]} queries x 40: "
-          f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        def run(impl):
+            return band_select(q_rows, s_rows, starts, wends, impl=impl, **kw)
+
+        ms, dev_ms = cuda_ms(lambda: run("kernel")), device_ms(lambda: run("kernel"))
+        plain_ms = cuda_ms(lambda: run("plain"), reps=3)
+        nb = nbytes(q_rows, s_rows, starts, wends, kp, kd)
+        ops = D2_OPS * window_rows(dict(starts=starts, wends=wends, query_tile=kw["query_tile"]))
+        b_ms, b_by = bound(nb, ops)
+        for f, v in (("ms", ms), ("dev_ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                     ("ops", ops), ("bytes", nb)):
+            tot[f] += v
+        if name == "conv0":
+            conv0 = (ms, dev_ms, plain_ms, b_ms, b_by)
+        phase(f"K1 select {name} ({q_rows.shape[0]} queries x {kw['max_k']}, tile "
+              f"{kw['query_tile']}, {int((wends - starts).clamp(min=0).max())} rows in the widest "
+              f"window): bit-exact vs twin; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    check(torch.equal(level_search(levels[0], levels[0], spec.radii[0],
+                                   spec.neighbor_caps[0], spec)[0],
+                      pyr["neighbors"][0]), "K1 conv0: lists differ from the pyramid's")
+    phase(f"K1 select conv0: kernel {conv0[0]:.4f} ms (device {conv0[1]:.4f} ms), twin "
+          f"{conv0[2]:.3f} ms, bound {conv0[3]:.4f} ms ({conv0[4]})")
+    phase(f"K1 select, sum over the {len(searches)} searches of one extraction call: kernel "
+          f"{tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin {tot['plain_ms']:.3f} ms, "
+          f"bound {tot['bound_ms']:.4f} ms")
+    report["K1 select"] = dict(max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                               bound_ms=tot["bound_ms"],
+                               bound_by=bound(tot["bytes"], tot["ops"])[1], library_ms=None)
 
 
 def conv_cases(pyr, cfg, model):
@@ -361,16 +399,22 @@ def check_k2(pyr, cfg, model, report, device="cuda"):
 
 
 def check_k3(pyr, cfg, report, device="cuda"):
+    """K3 against its twin on the level-0 band (sums atol 1e-6, counts
+    exact), timed by events and by device time, with the bound of the
+    route that reads conv0's lists beside that of the route that selects
+    from the windows."""
     import torch
     from d3feat_tpu_torch.models.kpfcnn import band_head_inputs
     from d3feat_tpu_torch.ops.head import band_head
 
     args = band_head_inputs(pyr, cfg)
+    lists = pyr["band_args"]["conv0"]["lists"]  # built by the convs' checks
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     n_valid = int(pyr["lengths"][0].sum())
-    x = torch.zeros((args["s_rows"].shape[0], cfg.output_dim), device=device)
-    x[:n_valid] = torch.rand((n_valid, cfg.output_dim), generator=gen, device=device)
+    c = cfg.output_dim
+    x = torch.zeros((args["s_rows"].shape[0], c), device=device)
+    x[:n_valid] = torch.rand((n_valid, c), generator=gen, device=device)
     x[:n_valid:11] = 0.0  # listed but not counted
     ks, kc = band_head(x=x, impl="kernel", **args)
     ps, pc = band_head(x=x, impl="plain", **args)
@@ -378,14 +422,19 @@ def check_k3(pyr, cfg, report, device="cuda"):
     check(torch.equal(kc, pc), "K3: counts differ from the twin")
     check(err <= 1e-6, f"K3: max |kernel - twin| = {err}")
     ms = cuda_ms(lambda: band_head(x=x, impl="kernel", **args))
+    dev_ms = device_ms(lambda: band_head(x=x, impl="kernel", **args))
     plain_ms = cuda_ms(lambda: band_head(x=x, impl="plain", **args), reps=3)
-    ops = D2_OPS * window_rows(args) + int(kc.sum()) * cfg.output_dim
-    b_ms, b_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
-                              x, ks, kc), ops)
+    pairs = int(lists.lcnt.sum())
+    # the lists' route: lists read up to their counts, x once, sums and counts written
+    b_ms, b_by = bound(4 * pairs + nbytes(lists.lcnt, x, ks, kc), pairs * c)
+    # the windows' route: every window row tested against every query of its tile
+    w_ms, w_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
+                              x, ks, kc), D2_OPS * window_rows(args) + pairs * c)
     report["K3 band_head"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, library_ms=None)
-    phase(f"K3 band_head ({args['q_rows'].shape[0]} queries x {cfg.output_dim}): max err "
-          f"{err:.3g}; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    phase(f"K3 band_head ({args['q_rows'].shape[0]} queries x {c}, {pairs} listed rows): max "
+          f"err {err:.3g}; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}) from the lists, {w_ms:.4f} ms ({w_by}) from the windows")
 
 
 def check_k4(pyr, cfg, model, report, device="cuda"):
@@ -455,9 +504,9 @@ def check_k4(pyr, cfg, model, report, device="cuda"):
 def check_k5(pyr, cfg, report, device="cuda"):
     import torch
     from d3feat_tpu_torch.models.kpfcnn import band_head_inputs
-    from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
+    from d3feat_tpu_torch.ops.head import band_head_bwd
 
-    args = band_head_inputs(pyr, cfg)
+    args = {k: v for k, v in band_head_inputs(pyr, cfg).items() if k != "lists"}
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     nq, c = args["q_rows"].shape[0], cfg.output_dim
@@ -470,8 +519,7 @@ def check_k5(pyr, cfg, report, device="cuda"):
     check(torch.allclose(kdx, pdx, atol=1e-5, rtol=0), f"K5: max |kernel - twin| = {err}")
     ms = cuda_ms(lambda: band_head_bwd(g=g, impl="kernel", **args))
     plain_ms = cuda_ms(lambda: band_head_bwd(g=g, impl="plain", **args), reps=3)
-    ones = torch.ones((args["s_rows"].shape[0], 1), device=device)
-    pairs = int(band_head(x=ones, impl="kernel", **args)[1].sum())  # selected pairs
+    pairs = int(pyr["band_args"]["conv0"]["lists"].lcnt.sum())  # selected pairs
     ops = D2_OPS * window_rows(args) + pairs * c
     b_ms, b_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
                               g, kdx), ops)

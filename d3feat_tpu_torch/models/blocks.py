@@ -175,34 +175,34 @@ def band_query_tiles(qb, sb, num_clouds: int, r: float, tile: int, s_rows: int,
     return q_rows, starts, ends, thr, ptie
 
 
-def band_conv_inputs(spec: BlockSpec, batch, config, impl: str = "auto") -> dict:
-    """Everything the K2 call of one block needs besides its features and
-    weights: sorted query rows and thresholds padded to the tile, support
-    rows, tile windows, tile and extent (keyword arguments of
-    ``ops.band_conv.band_conv``), and on the kernel path the search's
-    ``lists``. Every conv of one search (``conv{l}``, or ``pool{l}`` for
-    the strided ones) shares them: they are built once and kept in
-    ``batch["band_args"]`` under the search's name."""
+def search_inputs(batch, config, layer: int, strided: bool, radius: float,
+                  impl: str = "auto") -> dict:
+    """The band kernels' arguments of one search (``conv{layer}``, or
+    ``pool{layer}`` when ``strided``): sorted query rows and thresholds
+    padded to the tile, support rows, tile windows and tile (keyword
+    arguments of ``ops.band_conv.band_conv`` besides the features, weights
+    and extent), and on the kernel path the search's ``lists``. Built once
+    and kept in ``batch["band_args"]`` under the search's name, so every
+    conv of the search, and the head for ``conv0``, share them."""
     from d3feat_tpu_torch.ops.band_lists import band_lists, uses_kernel
     from d3feat_tpu_torch.ops.neighbors import band_windows
     from d3feat_tpu_torch.ops.pyramid import level_band_cap
 
-    l = spec.layer
-    name = f"pool{l}" if spec.strided else f"conv{l}"
+    name = f"pool{layer}" if strided else f"conv{layer}"
     memo = batch.setdefault("band_args", {})
     args = memo.get(name)
     if args is None:
-        q_level = l + 1 if spec.strided else l
-        qb, sb = batch["band"][q_level], batch["band"][l]
+        q_level = layer + 1 if strided else layer
+        qb, sb = batch["band"][q_level], batch["band"][layer]
         thr, ptie = batch["sel_thr"][name]
-        s_rows = batch["points"][l].shape[0]
+        s_rows = batch["points"][layer].shape[0]
         n_q_rows = batch["points"][q_level].shape[0]
         # strided blocks carry the wide pool band: the smaller tile keeps the
         # window per tile bounded (same sizing as the pyramid's pool search)
-        tile = 128 if spec.strided else 256
+        tile = 128 if strided else 256
         num_clouds = len(batch["lengths"][0])
         q_rows, starts, ends, thr, ptie = band_query_tiles(
-            qb, sb, num_clouds, spec.radius, tile, s_rows, thr, ptie)
+            qb, sb, num_clouds, radius, tile, s_rows, thr, ptie)
         band_cap = level_band_cap(s_rows, num_clouds, config.band_frac,
                                   tile=tile, ratio=-(-s_rows // n_q_rows))
         starts, wends = band_windows(starts, ends, band_cap)
@@ -213,6 +213,13 @@ def band_conv_inputs(spec: BlockSpec, batch, config, impl: str = "auto") -> dict
         args["lists"] = band_lists(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
                                    args["starts"], args["wends"], query_tile=args["query_tile"],
                                    impl=impl)
+    return dict(args)
+
+
+def band_conv_inputs(spec: BlockSpec, batch, config, impl: str = "auto") -> dict:
+    """Everything the K2 call of one block needs besides its features and
+    weights: its search's ``search_inputs`` and the kernel extent."""
+    args = search_inputs(batch, config, spec.layer, spec.strided, spec.radius, impl)
     return dict(args, extent=spec.radius * config.KP_extent / config.conv_radius)
 
 

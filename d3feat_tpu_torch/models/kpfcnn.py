@@ -127,27 +127,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def band_head_inputs(batch, config) -> dict:
-    """Everything the K3 call needs besides the features: level-0 sorted
-    query rows with their conv0 thresholds padded to the 256-row tile,
-    support rows and tile windows (keyword arguments of
-    ``ops.head.band_head``)."""
-    from d3feat_tpu_torch.models.blocks import band_query_tiles
-    from d3feat_tpu_torch.ops.neighbors import band_windows
-    from d3feat_tpu_torch.ops.pyramid import level_band_cap
+def band_head_inputs(batch, config, impl: str = "auto") -> dict:
+    """Everything the K3 call needs besides the features: conv0's search
+    arguments (``models.blocks.search_inputs``: level-0 sorted query rows
+    with their conv0 thresholds padded to the 256-row tile, support rows,
+    tile windows, and on the kernel path conv0's lists), shared with the
+    level-0 convs (keyword arguments of ``ops.head.band_head``)."""
+    from d3feat_tpu_torch.models.blocks import search_inputs
 
-    b0 = batch["band"][0]
-    thr, ptie = batch["sel_thr"]["conv0"]
-    s_rows = batch["points"][0].shape[0]
-    num_clouds = len(batch["lengths"][0])
     r0 = config.first_subsampling_dl * config.conv_radius
-    tile = 256
-    q_rows, starts, ends, thr, ptie = band_query_tiles(
-        b0, b0, num_clouds, r0, tile, s_rows, thr, ptie)
-    starts, wends = band_windows(starts, ends, level_band_cap(
-        s_rows, num_clouds, config.band_frac, tile=tile, ratio=1))
-    return dict(q_rows=q_rows.contiguous(), thr=thr.contiguous(), ptie=ptie.contiguous(),
-                s_rows=b0["s_rows"], starts=starts, wends=wends, query_tile=tile)
+    return search_inputs(batch, config, 0, False, r0, impl)
 
 
 def detection_scores(batch, features: torch.Tensor, *, config, train: bool = False,
@@ -175,7 +164,7 @@ def detection_scores(batch, features: torch.Tensor, *, config, train: bool = Fal
     else:
         f = f / (f.amax() + 1e-6)
 
-    args = band_head_inputs(batch, config)
+    args = band_head_inputs(batch, config, impl)
     s_rows = f.shape[0]
     band_pad = args["s_rows"].shape[0] - s_rows
     x_pad = torch.cat([f.float(), f.new_zeros((band_pad, f.shape[1]))]).contiguous()

@@ -138,6 +138,10 @@ def _list_args(lists, q_rows):
     return build.ptr(lists.lpos), build.ptr(lists.ld2), build.ptr(lists.lcnt)
 
 
+_CONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
+    ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+
+
 def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends,
                      *, query_tile: int, extent: float, lists, keep_weighted=False):
     """Launch the K2 CUDA kernel (same contract as ``band_conv_plain``),
@@ -159,10 +163,7 @@ def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, start
     part = torch.empty((splits, nq, cout), dtype=f32, device=dev) if splits > 1 else None
     out = torch.empty((nq, cout), dtype=f32, device=dev)
     den = torch.empty((nq,), dtype=f32, device=dev)
-    fn = build.load("band_conv").band_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
-    fn.restype = ctypes.c_int
+    fn = build.launcher("band_conv", "band_conv_launch", _CONV_ARGS)
     rc = fn(build.ptr(q_rows), build.ptr(s_rows), build.ptr(x), build.ptr(weights),
             build.ptr(kernel_points), *list_ptrs, nq, ns, c, cout, kpn,
             inv_extent_f32(extent), ldw, splits, kc, build.ptr(act), build.ptr(wtd),
@@ -225,6 +226,10 @@ def band_conv_bwd_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points, st
     return dx, dw
 
 
+_CONV_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
+    ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+
+
 def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends,
                          gs, *, query_tile: int, extent: float, need_dx: bool = True,
                          lists, weighted):
@@ -260,10 +265,7 @@ def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, s
     else:
         dx = None
         dx_ptrs = out_ptrs = (None, None)
-    fn = build.load("band_conv_bwd").band_conv_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
-    fn.restype = ctypes.c_int
+    fn = build.launcher("band_conv_bwd", "band_conv_bwd_launch", _CONV_BWD_ARGS)
     rc = fn(build.ptr(q_rows), build.ptr(s_rows), build.ptr(weights), build.ptr(kernel_points),
             build.ptr(gs), ld2_ptr, *dx_ptrs, nq, ns, c, cout, kpn, inv_extent_f32(extent), ldw,
             splits, kc, dx_splits, dx_kc, build.ptr(weighted),

@@ -58,6 +58,9 @@ def transpose_lists_plain(lists: BandLists, n_rows: int):
     return row_ptr, pairs
 
 
+_TRANSPOSE_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+
+
 def transpose_lists_kernel(lists: BandLists, n_rows: int):
     """Launch the transpose kernels (same contract as ``transpose_lists_plain``)."""
     i32 = torch.int32
@@ -69,9 +72,7 @@ def transpose_lists_kernel(lists: BandLists, n_rows: int):
     row_ptr = torch.empty((n_rows + 1,), dtype=i32, device=dev)
     filled = torch.empty((nq * LCAP,), dtype=i32, device=dev)
     pairs = torch.zeros((nq * LCAP,), dtype=i32, device=dev)
-    fn = build.load("band_lists").band_lists_transpose_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-    fn.restype = ctypes.c_int
+    fn = build.launcher("band_lists", "band_lists_transpose_launch", _TRANSPOSE_ARGS)
     rc = fn(build.ptr(lists.lpos), build.ptr(lists.lcnt), nq, n_rows, build.ptr(counts[0]),
             build.ptr(counts[1]), build.ptr(row_ptr), build.ptr(filled), build.ptr(pairs),
             build.stream_of(lists.lpos))
@@ -117,6 +118,9 @@ def band_lists_plain(q_rows, thr, ptie, s_rows, starts, wends, *, query_tile: in
     return BandLists(lpos, ld2, cnt.to(torch.int32))
 
 
+_LISTS_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+
+
 def band_lists_kernel(q_rows, thr, ptie, s_rows, starts, wends, *, query_tile: int):
     """Launch the list-stage CUDA kernel (same contract as ``band_lists_plain``)."""
     f32, i32 = torch.float32, torch.int32
@@ -130,9 +134,7 @@ def band_lists_kernel(q_rows, thr, ptie, s_rows, starts, wends, *, query_tile: i
     lpos = torch.empty((nq, LCAP), dtype=i32, device=dev)
     ld2 = torch.empty((nq, LCAP), dtype=f32, device=dev)
     lcnt = torch.empty((nq,), dtype=i32, device=dev)
-    fn = build.load("band_lists").band_lists_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    fn = build.launcher("band_lists", "band_lists_launch", _LISTS_ARGS)
     rc = fn(build.ptr(q_rows), build.ptr(thr), build.ptr(ptie), build.ptr(s_rows),
             build.ptr(starts), build.ptr(wends), nq, query_tile, build.ptr(lpos),
             build.ptr(ld2), build.ptr(lcnt), build.stream_of(q_rows))

@@ -18,7 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "ops", "cuda")
@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-arch=sm_90a", "-fmad=false",
 KERNELS = ("select", "band_lists", "band_conv", "head", "band_conv_bwd", "head_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LAUNCHERS: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -100,6 +101,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         _LIBS[name] = lib
     return lib
+
+
+def launcher(name: str, symbol: str, argtypes) -> Callable[..., int]:
+    """The ``extern "C"`` launcher ``symbol`` of ``ops/cuda/<name>.cu``,
+    bound once: its argument types and ``int`` result type are set when it
+    is first asked for, not on every call."""
+    fn = _LAUNCHERS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LAUNCHERS[(name, symbol)] = fn
+    return fn
 
 
 def check(rc: int, what: str) -> None:

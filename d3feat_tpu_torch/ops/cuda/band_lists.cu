@@ -14,8 +14,8 @@
 //
 // Design: a CTA owns QB consecutive queries of one tile and streams the
 // tile's window through shared memory in CHUNK-row stages (cp.async,
-// double-buffered), so the window is read once per CTA rather than once
-// per query. Each warp then tests its queries against the staged rows,
+// double-buffered, window_stage.cuh), so the window is read once per CTA
+// rather than once per query. Each warp then tests its queries against the staged rows,
 // 32 at a time, and appends the selected ones by ballot compaction.
 // Bound: the d2 tests, QB x window rows per CTA (operations); the bytes
 // are the window rows (L2-resident, re-read by the tile / QB CTAs of a
@@ -32,15 +32,10 @@
 #include <cuda_runtime.h>
 
 #include "band_lists.cuh"
+#include "window_stage.cuh"
 
-#define QB 32        // queries per CTA (a slice of one tile)
-#define CHUNK 256    // window rows per shared-memory stage
+#define QB 32  // queries per CTA (a slice of one tile)
 #define NTHREADS 256
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
 
 __global__ void __launch_bounds__(NTHREADS)
 band_lists_kernel(const float4* __restrict__ q, const float* __restrict__ thr,
@@ -61,21 +56,12 @@ band_lists_kernel(const float4* __restrict__ q, const float* __restrict__ thr,
     pts[threadIdx.x] = ptie[q0 + threadIdx.x];
     cnts[threadIdx.x] = 0;
   }
-  const int nch = we > ws ? (we - ws + CHUNK - 1) / CHUNK : 0;
-  auto stage = [&](int c) {
-    const int r = ws + c * CHUNK + threadIdx.x;
-    if (r < we) cp_async16(&rows[c & 1][threadIdx.x], s + r);
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  if (nch > 0) stage(0);
+  const int nch = window_chunks(ws, we);
+  if (nch > 0) stage_chunk(rows[0], s, ws, we);
   for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) {
-      stage(c + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
+    const bool more = c + 1 < nch;
+    if (more) stage_chunk(rows[(c + 1) & 1], s, ws + (c + 1) * CHUNK, we);
+    wait_chunk(more);
     const int base = ws + c * CHUNK, n = min(CHUNK, we - base);
     for (int qi = warp; qi < QB; qi += NTHREADS / 32) {
       const size_t o = (size_t)(q0 + qi) * LCAP;

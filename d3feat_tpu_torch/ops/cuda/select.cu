@@ -1,101 +1,163 @@
 // K1: band radius select for Hopper (sm_90a).
 //
 // Replaces d3feat_tpu/ops/pallas/select.py::_select_kernel (pallas_call in
-// band_select). For each query of a tile of T sorted queries, walk the
-// tile's window of sorted support rows [start, wend) and keep the K
-// candidates (same cloud id, d2 <= r2) of smallest squared distance,
-// ascending, ties by ascending position. Empty slots: position Ns_pad - 1,
-// d2 = 3e38.
+// band_select). For each query of a tile of sorted queries, the K
+// candidates (same cloud id, d2 <= r2) of smallest squared distance among
+// the tile's window of sorted support rows [start, wend), ascending, ties
+// by ascending position. Empty slots: position Ns_pad - 1, d2 = 3e38.
+// d2 is float32 in one fixed op order (d2.cuh, shared with the kernels
+// that recover these lists from their threshold bit for bit).
 //
-// d2 is float32 in one fixed op order (d2.cuh, shared with K2 and K3,
-// which compare against the threshold derived from it bit for bit).
+// Order without tie rules: a candidate at position p with squared distance
+// d2 >= 0 is the 64-bit key (bits(d2) << 32) | p, every other row the key
+// NONE. For non-negative floats the unsigned order of the keys is exactly
+// "ascending d2, ties by ascending position", and positions are distinct,
+// so no two candidate keys are equal.
 //
-// Bound: neither bytes (each support row is 16 B, each output 8 B per
-// slot) nor FLOPs are large; the work is T x window compares per tile.
-// Design: one CTA per query tile, one thread per query, the window streamed
-// through shared memory in 256-row chunks (every thread reads the same row:
-// a broadcast), and a per-thread sorted top-K kept in registers by an
-// unrolled shift-insert network (the TPU kernel's insertion, per query).
+// Design: a CTA owns QB consecutive queries of one tile (QB set by the
+// wrapper from the search's size, so the small deep-level searches still
+// spread over the card) and stages the tile's window once through shared
+// memory (window_stage.cuh). A warp serves QPW of them: it reads 32 window
+// rows at a time (one per lane, once for all its queries) and, per query,
+// keeps the K smallest keys sorted across the lanes, two per lane (slots
+// 2 lane and 2 lane + 1). A ballot of key < the current K-th key skips a
+// 32-row step that holds no candidate for the query (most steps, once its
+// list is full); otherwise each new key, in lane order, is inserted into
+// the distributed list: every slot takes its predecessor, the new key or
+// itself, from one shuffle of the neighbouring lane's upper slot. 64 slots
+// are kept whatever K is, so keys that land past K are harmless. K = 1 (the
+// upsample searches) keeps one running minimum per lane and reduces it
+// over the warp at the end.
+//
+// Bound: the d2 tests, query x window row pairs (operations); the bytes
+// (window rows re-read from L2 by the tile / QB CTAs of a tile, the K
+// outputs) are small.
 
 #include <cuda_runtime.h>
 
 #include "d2.cuh"
+#include "window_stage.cuh"
 
-#define CHUNK 256
-#define KMAX 64
+#define KMAX 64  // two slots per lane
 #define EMPTY_D2 3.0e38f
+#define NONE 0xffffffffffffffffull
+#define FULL 0xffffffffu
 
-// KT >= K entries are kept in registers (the list is unrolled at compile
-// time); keeping more than K smallest leaves the first K unchanged.
-template <int KT>
-__global__ void select_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
-                              const int* __restrict__ starts, const int* __restrict__ wends,
-                              int K, float r2, int empty,
-                              int* __restrict__ out_pos, float* __restrict__ out_d2) {
-  __shared__ float4 rows[CHUNK];
-  const int tile = blockIdx.x;
-  const int qi = tile * blockDim.x + threadIdx.x;
-  const float4 qq = q[qi];
-  const int start = starts[tile];
-  const int wend = wends[tile];
+typedef unsigned long long u64;
 
-  float dk[KT];
-  int pk[KT];
+template <int QPW, bool TOP1>
+__global__ void __launch_bounds__(256)
+select_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
+              const int* __restrict__ starts, const int* __restrict__ wends, int tile, int K,
+              float r2, int empty, int* __restrict__ out_pos, float* __restrict__ out_d2) {
+  __shared__ __align__(16) float4 rows[2][CHUNK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * (blockDim.x >> 5) * QPW;
+  const int t = q0 / tile;
+  const int ws = starts[t], we = wends[t];
+  const int qw = q0 + warp * QPW;  // this warp's first query
+  const int kl = (K - 1) >> 1;     // lane and slot of the K-th key
+  const bool kodd = (K - 1) & 1;
+
+  float4 qq[QPW];
+  u64 lo[QPW], hi[QPW], kth[QPW];  // slots 2 lane, 2 lane + 1; K-th key
 #pragma unroll
-  for (int k = 0; k < KT; ++k) { dk[k] = EMPTY_D2; pk[k] = empty; }
+  for (int i = 0; i < QPW; ++i) {
+    qq[i] = q[qw + i];
+    lo[i] = hi[i] = kth[i] = NONE;
+  }
 
-  for (int base = start; base < wend; base += CHUNK) {
-    const int n = min(CHUNK, wend - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) rows[i] = s[base + i];
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float4 sr = rows[j];
-      const float d2 = exact_d2(sr, qq.x, qq.y, qq.z);
-      if (sr.w == qq.w && d2 <= r2 && d2 < dk[KT - 1]) {
-        // shift-insert: d2 lands after every kept entry <= d2 (ties keep
-        // arrival order, and rows arrive in ascending position)
-        const int pos = base + j;
+  const int nch = window_chunks(ws, we);
+  if (nch > 0) stage_chunk(rows[0], s, ws, we);
+  for (int c = 0; c < nch; ++c) {
+    const bool more = c + 1 < nch;
+    if (more) stage_chunk(rows[(c + 1) & 1], s, ws + (c + 1) * CHUNK, we);
+    wait_chunk(more);
+    const int base = ws + c * CHUNK, n = min(CHUNK, we - base);
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      const int j = j0 + lane;
+      const bool in = j < n;
+      float4 sr = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in) sr = rows[c & 1][j];
 #pragma unroll
-        for (int k = KT - 1; k > 0; --k) {
-          const bool shift = d2 < dk[k - 1];
-          const bool here = !shift && d2 < dk[k];
-          dk[k] = shift ? dk[k - 1] : (here ? d2 : dk[k]);
-          pk[k] = shift ? pk[k - 1] : (here ? pos : pk[k]);
+      for (int i = 0; i < QPW; ++i) {
+        const float d2 = exact_d2(sr, qq[i].x, qq[i].y, qq[i].z);
+        const u64 key = (in && sr.w == qq[i].w && d2 <= r2)
+                            ? ((u64)__float_as_uint(d2) << 32) | (unsigned)(base + j)
+                            : NONE;
+        if (TOP1) {
+          lo[i] = key < lo[i] ? key : lo[i];
+          continue;
         }
-        if (d2 < dk[0]) { dk[0] = d2; pk[0] = pos; }
+        unsigned m = __ballot_sync(FULL, key < kth[i]);
+        if (!m) continue;
+        do {
+          const int b = __ffs(m) - 1;
+          m &= m - 1u;
+          const u64 x = __shfl_sync(FULL, key, b);
+          u64 prev = __shfl_up_sync(FULL, hi[i], 1);
+          if (lane == 0) prev = 0;  // slot 0 has no predecessor
+          const u64 nhi = x < lo[i] ? lo[i] : (x < hi[i] ? x : hi[i]);
+          lo[i] = x < prev ? prev : (x < lo[i] ? x : lo[i]);
+          hi[i] = nhi;
+        } while (m);
+        kth[i] = __shfl_sync(FULL, kodd ? hi[i] : lo[i], kl);
+      }
+    }
+    __syncthreads();  // the buffer is staged again two chunks on
+  }
+
+#pragma unroll
+  for (int i = 0; i < QPW; ++i) {
+    const size_t o = (size_t)(qw + i) * K;
+    if (TOP1) {
+      u64 v = lo[i];
+      for (int off = 16; off; off >>= 1) {
+        const u64 w = __shfl_xor_sync(FULL, v, off);
+        v = w < v ? w : v;
+      }
+      lo[i] = v;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 2 * lane + h;
+      const u64 key = h ? hi[i] : lo[i];
+      if (k < K) {
+        out_pos[o + k] = key == NONE ? empty : (int)(unsigned)key;
+        out_d2[o + k] = key == NONE ? EMPTY_D2 : __uint_as_float((unsigned)(key >> 32));
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < KT; ++k) {
-    if (k < K) {
-      out_pos[(size_t)qi * K + k] = pk[k];
-      out_d2[(size_t)qi * K + k] = dk[k];
-    }
-  }
 }
 
-template <int KT>
-static int launch(const void* q, const void* s, const void* starts, const void* wends,
-                  int n_tiles, int tile, int K, float r2, int empty, void* out_pos,
-                  void* out_d2, cudaStream_t stream) {
-  select_kernel<KT><<<n_tiles, tile, 0, stream>>>(
-      (const float4*)q, (const float4*)s, (const int*)starts, (const int*)wends,
-      K, r2, empty, (int*)out_pos, (float*)out_d2);
+template <int QPW, bool TOP1>
+static int launch(int blocks, int threads, const void* q, const void* s, const void* starts,
+                  const void* wends, int tile, int K, float r2, int empty, void* out_pos,
+                  void* out_d2, cudaStream_t st) {
+  select_kernel<QPW, TOP1><<<blocks, threads, 0, st>>>(
+      (const float4*)q, (const float4*)s, (const int*)starts, (const int*)wends, tile, K, r2,
+      empty, (int*)out_pos, (float*)out_d2);
   return (int)cudaGetLastError();
 }
 
+// qb queries per CTA, one of 1, 2, 4, 8, 16, 32, dividing the tile:
+// min(qb, 8) warps of qb / warps queries each
 extern "C" int select_launch(const void* q, const void* s, const void* starts,
-                             const void* wends, int n_tiles, int tile, int K,
-                             float r2, int empty, void* out_pos, void* out_d2,
-                             void* stream) {
-  if (K < 1 || K > KMAX || tile < 1 || tile > 1024) return (int)cudaErrorInvalidValue;
-  if (n_tiles == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (K == 1) return launch<1>(q, s, starts, wends, n_tiles, tile, K, r2, empty, out_pos, out_d2, st);
-  if (K <= 16) return launch<16>(q, s, starts, wends, n_tiles, tile, K, r2, empty, out_pos, out_d2, st);
-  if (K <= 32) return launch<32>(q, s, starts, wends, n_tiles, tile, K, r2, empty, out_pos, out_d2, st);
-  if (K <= 48) return launch<48>(q, s, starts, wends, n_tiles, tile, K, r2, empty, out_pos, out_d2, st);
-  return launch<64>(q, s, starts, wends, n_tiles, tile, K, r2, empty, out_pos, out_d2, st);
+                             const void* wends, int nq, int tile, int qb, int K, float r2,
+                             int empty, void* out_pos, void* out_d2, void* stream) {
+  if (K < 1 || K > KMAX || tile < 1 || nq % tile || qb < 1 || qb > 32 || (qb & (qb - 1)) ||
+      tile % qb)
+    return (int)cudaErrorInvalidValue;
+  if (nq == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int warps = qb < 8 ? qb : 8, qpw = qb / warps, blocks = nq / qb, threads = warps * 32;
+#define SELECT_LAUNCH(QPW)                                                                    \
+  return K == 1 ? launch<QPW, true>(blocks, threads, q, s, starts, wends, tile, K, r2, empty, \
+                                    out_pos, out_d2, st)                                      \
+                : launch<QPW, false>(blocks, threads, q, s, starts, wends, tile, K, r2, empty, \
+                                     out_pos, out_d2, st)
+  if (qpw == 1) SELECT_LAUNCH(1);
+  if (qpw == 2) SELECT_LAUNCH(2);
+  SELECT_LAUNCH(4);
+#undef SELECT_LAUNCH
 }

@@ -8,7 +8,10 @@ whose feature sum is non-zero. K5 ports ``_band_head_bwd_call``: the
 transposed sum ``dx[r] = sum of g[q] over the queries q that list r``.
 
 The kernels are ``ops/cuda/head.cu`` and ``ops/cuda/head_bwd.cu``;
-``band_head_plain`` and ``band_head_bwd_plain`` are their twins.
+``band_head_plain`` and ``band_head_bwd_plain`` are their twins. K3's
+kernel reads the lists that conv0's list stage built for the same search
+(``ops/band_lists.py``) where its twin selects from the windows; K5's
+kernel still selects from the windows.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from d3feat_tpu_torch.ops import build
 from d3feat_tpu_torch.ops.band_conv import threshold_select
+from d3feat_tpu_torch.ops.band_lists import LCAP, uses_kernel
 from d3feat_tpu_torch.ops.select import add_windows, covering_tiles, tile_windows
 
 C_MAX = 128  # channels per lane-strided warp in the kernel
@@ -42,41 +46,46 @@ def band_head_plain(q_rows, thr, ptie, s_rows, x, starts, wends, *, query_tile: 
     return fsum.reshape(nq, -1), cnt.reshape(nq)
 
 
-def band_head_kernel(q_rows, thr, ptie, s_rows, x, starts, wends, *, query_tile: int):
-    """Launch the K3 CUDA kernel (same contract as ``band_head_plain``)."""
-    f32, i32 = torch.float32, torch.int32
-    for t, dt, name in ((q_rows, f32, "q_rows"), (thr, f32, "thr"), (ptie, f32, "ptie"),
-                        (s_rows, f32, "s_rows"), (x, f32, "x"), (starts, i32, "starts"),
-                        (wends, i32, "wends")):
-        build.require(t, dt, name)
-    nq = q_rows.shape[0]
+_HEAD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+
+
+def band_head_kernel(x, lists):
+    """Launch the K3 CUDA kernel: the contract of ``band_head_plain``,
+    computed from the search's ``lists`` (``ops.band_lists.BandLists`` of
+    the same queries, thresholds and windows), which the thresholds select."""
+    build.require(x, torch.float32, "x")
+    build.require(lists.lpos, torch.int32, "lpos")
+    build.require(lists.lcnt, torch.int32, "lcnt")
+    nq = lists.lcnt.shape[0]
     c = x.shape[1]
-    if (nq % query_tile or query_tile % 8 or starts.shape[0] != nq // query_tile
-            or x.shape[0] != s_rows.shape[0] or c > C_MAX):
-        raise ValueError("band_head: bad tile/shape arguments")
-    fsum = torch.empty((nq, c), dtype=f32, device=q_rows.device)
-    cnt = torch.empty((nq,), dtype=f32, device=q_rows.device)
-    fn = build.load("head").band_head_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    rc = fn(build.ptr(q_rows), build.ptr(thr), build.ptr(ptie), build.ptr(s_rows),
-            build.ptr(x), build.ptr(starts), build.ptr(wends), nq, query_tile, c,
-            build.ptr(fsum), build.ptr(cnt), build.stream_of(q_rows))
+    if nq % 8 or lists.lpos.shape != (nq, LCAP) or c > C_MAX:
+        raise ValueError("band_head: bad list/shape arguments")
+    ns = x.shape[0]
+    flag = torch.empty((ns,), dtype=torch.uint8, device=x.device)  # rows with a non-zero sum
+    fsum = torch.empty((nq, c), dtype=torch.float32, device=x.device)
+    cnt = torch.empty((nq,), dtype=torch.float32, device=x.device)
+    fn = build.launcher("head", "band_head_launch", _HEAD_ARGS)
+    rc = fn(build.ptr(lists.lpos), build.ptr(lists.lcnt), build.ptr(x), nq, ns, c,
+            build.ptr(flag), build.ptr(fsum), build.ptr(cnt), build.stream_of(x))
     build.check(rc, "band_head_kernel")
     band_head.launches += 1
     return fsum, cnt
 
 
 def band_head(q_rows, thr, ptie, s_rows, x, starts, wends, *, query_tile: int,
-              impl: str = "auto"):
+              impl: str = "auto", lists=None):
     """(fsum [Nq_pad, C] float32, cnt [Nq_pad] float32): per-query sums of
     the listed feature rows and the count of listed non-zero rows.
-    Arguments as in ``ops.band_conv.band_conv``."""
-    if impl == "plain" or (impl == "auto" and not q_rows.is_cuda):
+    Arguments as in ``ops.band_conv.band_conv``: the twin selects from the
+    windows, the kernel reads the search's ``lists`` (kernels only)."""
+    if not uses_kernel(impl, q_rows):
         return band_head_plain(q_rows, thr, ptie, s_rows, x, starts, wends,
                                query_tile=query_tile)
-    return band_head_kernel(q_rows, thr, ptie, s_rows, x, starts, wends,
-                            query_tile=query_tile)
+    if lists is None:
+        raise ValueError("band_head kernel: no lists (ops.band_lists.band_lists of conv0)")
+    if lists.lcnt.shape[0] != q_rows.shape[0] or x.shape[0] != s_rows.shape[0]:
+        raise ValueError("band_head: lists or features of another search")
+    return band_head_kernel(x, lists)
 
 
 band_head.launches = 0
@@ -99,6 +108,9 @@ def band_head_bwd_plain(q_rows, thr, ptie, s_rows, g, starts, wends, *, query_ti
     return add_windows(part, pos, inside, s_rows.shape[0])
 
 
+_HEAD_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+
+
 def band_head_bwd_kernel(q_rows, thr, ptie, s_rows, g, starts, wends, *, query_tile: int):
     """Launch the K5 CUDA kernel (same contract as ``band_head_bwd_plain``)."""
     f32, i32 = torch.float32, torch.int32
@@ -113,9 +125,7 @@ def band_head_bwd_kernel(q_rows, thr, ptie, s_rows, g, starts, wends, *, query_t
         raise ValueError("band_head_bwd: bad tile/shape arguments")
     first, end = covering_tiles(starts, wends, ns)
     dx = torch.empty((ns, c), dtype=f32, device=g.device)
-    fn = build.load("head_bwd").band_head_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
+    fn = build.launcher("head_bwd", "band_head_bwd_launch", _HEAD_BWD_ARGS)
     rc = fn(build.ptr(q_rows), build.ptr(thr), build.ptr(ptie), build.ptr(s_rows),
             build.ptr(g), build.ptr(starts), build.ptr(wends), build.ptr(first),
             build.ptr(end), ns, query_tile, c, build.ptr(dx), build.stream_of(g))
@@ -129,7 +139,7 @@ def band_head_bwd(q_rows, thr, ptie, s_rows, g, starts, wends, *, query_tile: in
     """dx [Ns_pad, C] float32: the cotangent of ``band_head``'s sums
     ``g`` [Nq_pad, C] carried back to the support rows. ``impl`` as in
     ``band_head``."""
-    if impl == "plain" or (impl == "auto" and not q_rows.is_cuda):
+    if not uses_kernel(impl, q_rows):
         return band_head_bwd_plain(q_rows, thr, ptie, s_rows, g, starts, wends,
                                    query_tile=query_tile)
     return band_head_bwd_kernel(q_rows, thr, ptie, s_rows, g, starts, wends,
@@ -145,7 +155,8 @@ class BandHeadFn(torch.autograd.Function):
     ``x``; the count is piecewise constant, its cotangent is dropped.
 
     ``apply(x, args, impl)`` with ``args`` the keyword arguments of
-    ``band_head`` besides ``x`` (``models.kpfcnn.band_head_inputs``)."""
+    ``band_head`` besides ``x`` (``models.kpfcnn.band_head_inputs``, with
+    conv0's ``lists`` on the kernel path, which only the forward reads)."""
 
     @staticmethod
     def forward(ctx, x, args, impl):

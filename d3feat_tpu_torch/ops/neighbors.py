@@ -168,10 +168,12 @@ def search_windows(q_level: SortedLevel, s_level: SortedLevel, radius: float, *,
     """K1 inputs of one search: (padded query rows, per-tile window
     ``starts``/``wends``, r^2, overflow). A tile's window spans the support
     keys within ``radius + EPS`` of its queries' keys; ``overflow`` is set
-    when a window is wider than ``band_cap``."""
+    when a window is wider than ``band_cap``. r^2 is the float32 square of
+    the float32 radius, held in a Python float: computed on the host, so no
+    launch has to wait on the device to read it."""
     if s_level.band_pad < band_cap:
         raise ValueError("level band_pad < band_cap")
-    r = torch.tensor(float(radius), dtype=torch.float32, device=q_level.key_sorted.device)
+    r = torch.tensor(float(radius), dtype=torch.float32)  # 0-dim, on the host
     kmin, kmax = tile_key_bounds(q_level.key_sorted, query_tile, q_level.num_clouds)
     margin = r + SortedLevel.EPS
     starts = torch.searchsorted(s_level.key_sorted, kmin - margin)
@@ -179,7 +181,7 @@ def search_windows(q_level: SortedLevel, s_level: SortedLevel, radius: float, *,
     starts = torch.clamp((starts // 8) * 8, max=s_level.n)
     overflow = ((ends - starts) > band_cap).any()
     starts, wends = band_windows(starts, ends, band_cap)
-    return pad_query_rows(q_level.q_rows, query_tile), starts, wends, r * r, overflow
+    return pad_query_rows(q_level.q_rows, query_tile), starts, wends, float(r * r), overflow
 
 
 def radius_neighbors_sorted(q_level: SortedLevel, s_level: SortedLevel, radius: float,
@@ -205,7 +207,7 @@ def radius_neighbors_sorted(q_level: SortedLevel, s_level: SortedLevel, radius: 
         out = torch.cat([out, out.new_full((nq, max_k - out.shape[1]), ns)], 1)
     if not with_threshold:
         return out, overflow
-    thr = torch.minimum(d2[:nq, -1], r2)
+    thr = torch.clamp(d2[:nq, -1], max=r2)
     ptie = torch.where(d2[:nq] == thr[:, None], pos[:nq].float(),
                        torch.tensor(-1.0, device=d2.device)).amax(1)
     return out, overflow, thr, ptie

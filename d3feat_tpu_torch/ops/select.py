@@ -18,7 +18,7 @@ import torch
 from d3feat_tpu_torch.ops import build
 
 EMPTY_D2 = 3.0e38
-KMAX = 64  # per-thread top-K capacity of the kernel
+KMAX = 64  # top-K capacity of the kernel: two slots per lane of a warp
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -115,6 +115,22 @@ def select_plain(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: i
     return out_pos, out_d2
 
 
+def select_block(nq: int, query_tile: int) -> int:
+    """Queries per CTA of the K1 kernel for a search of ``nq`` padded
+    queries: 32 (8 warps of 4) from 8192 queries on, 8 (8 warps of 1) from
+    2048, else 2 (2 warps of 1), so every search of the bench pyramid runs
+    on at least 256 CTAs; halved until it divides the tile (a CTA's queries
+    share one window)."""
+    qb = 32 if nq >= 8192 else 8 if nq >= 2048 else 2
+    while query_tile % qb:
+        qb //= 2
+    return qb
+
+
+_SELECT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int] + [
+    ctypes.c_void_p] * 3
+
+
 def select_kernel(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: int):
     """Launch the K1 CUDA kernel (same contract as ``select_plain``)."""
     for t, dt, name in ((q_rows, torch.float32, "q_rows"), (s_rows, torch.float32, "s_rows"),
@@ -125,13 +141,9 @@ def select_kernel(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: 
         raise ValueError("band_select: bad tile/shape arguments")
     out_pos = torch.empty((nq, max_k), dtype=torch.int32, device=q_rows.device)
     out_d2 = torch.empty((nq, max_k), dtype=torch.float32, device=q_rows.device)
-    lib = build.load("select")
-    fn = lib.select_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    rc = fn(build.ptr(q_rows), build.ptr(s_rows), build.ptr(starts), build.ptr(wends),
-            nq // query_tile, query_tile, max_k, float(r2), s_rows.shape[0] - 1,
+    fn = build.launcher("select", "select_launch", _SELECT_ARGS)
+    rc = fn(build.ptr(q_rows), build.ptr(s_rows), build.ptr(starts), build.ptr(wends), nq,
+            query_tile, select_block(nq, query_tile), max_k, float(r2), s_rows.shape[0] - 1,
             build.ptr(out_pos), build.ptr(out_d2), build.stream_of(q_rows))
     build.check(rc, "select_kernel")
     band_select.launches += 1
