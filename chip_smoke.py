@@ -20,10 +20,12 @@ or of the JAX package. Phases, each announced with the elapsed seconds:
    rtol 1e-4, density exact); K3 from conv0's lists (sums atol 1e-6,
    counts exact); K4 at all 14 convs from the forward's lists and weighted
    rows and a seeded cotangent (dx and dW at atol 5e-4, rtol 1e-3); K5
-   (atol 1e-5). Kernel and twin times by CUDA events (a call's launches,
-   the host's launch work included), kernel device time by
-   ``torch.profiler``, and each bound; K1's sums over the 13 searches, K2's
-   and K4's over the 14 convs;
+   from the transpose of conv0's lists (atol 1e-5). Kernel and twin times
+   by CUDA events (a call's launches, the host's launch work included),
+   kernel device time by ``torch.profiler``, and each bound; K1's sums over
+   the 13 searches, K2's and K4's over the 14 convs; for K3's sums and K5,
+   the time of one cuSPARSE SpMM (``torch.sparse.mm``) of the same lists
+   as a CSR matrix of ones, as the library's yardstick;
 4. serving path: ``FeatureExtractor(batch_fragments=2)`` with the r5
    weights on the eval-cache fragments of 12k-16k points: launch counts of
    one counted call, output checks, the same batch through the twins on
@@ -31,7 +33,8 @@ or of the JAX package. Phases, each announced with the elapsed seconds:
 5. training path: ``make_train_step`` at full width from a copy of the r5
    weights on the first ground-truth-posed eval-cache pair that fits the
    bench capacities (correspondences within 0.0375, 128 of them): launch
-   counts of one counted step, that step's loss and gradients against a
+   counts of one counted step (one transpose per search, one K5 launch),
+   that step's loss and gradients against a
    step through the twins (loss rtol 1e-3, gradients atol 5e-3, rtol
    5e-3), then 10 more kernel steps (finite, none skipped, no overflow)
    and train steps/s;
@@ -137,6 +140,19 @@ def nbytes(*tensors):
 def window_rows(args):
     """Window rows walked, summed over the queries of every tile."""
     return int((args["wends"] - args["starts"]).clamp(min=0).sum()) * args["query_tile"]
+
+
+def csr_spmm(crow, col, shape, dense):
+    """(ms by events, device ms, result) of one cuSPARSE SpMM: the CSR
+    matrix of ones with rows ``crow``/``col`` (built outside the timed
+    call) times ``dense``, ``torch.sparse.mm``: a library's yardstick for a
+    kernel that sums listed rows, never called by the port."""
+    import torch
+
+    a = torch.sparse_csr_tensor(crow, col, torch.ones(col.shape[0], device=dense.device),
+                                size=shape, check_invariants=True)
+    run = lambda: torch.sparse.mm(a, dense)  # noqa: E731
+    return cuda_ms(run), device_ms(run), run()
 
 
 def bench_config():
@@ -430,11 +446,18 @@ def check_k3(pyr, cfg, report, device="cuda"):
     # the windows' route: every window row tested against every query of its tile
     w_ms, w_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
                               x, ks, kc), D2_OPS * window_rows(args) + pairs * c)
+    # the sums alone as a library call: the lists as a CSR [Nq_pad, Ns_pad] times x
+    live = torch.arange(lists.lpos.shape[1], device=device)[None, :] < lists.lcnt[:, None]
+    crow = torch.cat([lists.lcnt.new_zeros(1), lists.lcnt.cumsum(0, dtype=torch.int32)])
+    lib_ms, lib_dev, lib = csr_spmm(crow, lists.lpos[live], (ks.shape[0], x.shape[0]), x)
+    lib_err = float((lib - ps).abs().max())
     report["K3 band_head"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, library_ms=None)
+                                  bound_by=b_by, library_ms=lib_ms)
     phase(f"K3 band_head ({args['q_rows'].shape[0]} queries x {c}, {pairs} listed rows): max "
           f"err {err:.3g}; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}) from the lists, {w_ms:.4f} ms ({w_by}) from the windows")
+          f"bound {b_ms:.4f} ms ({b_by}) from the lists, {w_ms:.4f} ms ({w_by}) from the "
+          f"windows; SpMM of the sums {lib_ms:.4f} ms (device {lib_dev:.4f} ms, max diff "
+          f"{lib_err:.3g} from the twin)")
 
 
 def check_k4(pyr, cfg, model, report, device="cuda"):
@@ -502,14 +525,26 @@ def check_k4(pyr, cfg, model, report, device="cuda"):
 
 
 def check_k5(pyr, cfg, report, device="cuda"):
+    """K5 against its twin on the level-0 band (atol 1e-5), from the
+    transpose of conv0's lists that the train step shares with K4 (held
+    bit for bit against the twin's transpose first: K5 equals its twin bit
+    for bit only on ascending entries), timed by events and by device time,
+    with the bound of the route that reads the transpose beside that of the
+    route that selects from the windows, and one SpMM of the transpose."""
     import torch
     from d3feat_tpu_torch.models.kpfcnn import band_head_inputs
+    from d3feat_tpu_torch.ops.band_lists import LCAP, transpose_lists_plain
     from d3feat_tpu_torch.ops.head import band_head_bwd
 
-    args = {k: v for k, v in band_head_inputs(pyr, cfg).items() if k != "lists"}
+    args = band_head_inputs(pyr, cfg)
+    lists = args["lists"]  # conv0's, built by the convs' checks
+    ns, nq, c = args["s_rows"].shape[0], args["q_rows"].shape[0], cfg.output_dim
+    row_ptr, pairs = lists.transpose(ns)  # kept with the lists: the one K5 reads
+    check(all(torch.equal(a, b) for a, b in zip((row_ptr, pairs),
+                                                transpose_lists_plain(lists, ns))),
+          "K5: conv0's transpose differs from the twin's")
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
-    nq, c = args["q_rows"].shape[0], cfg.output_dim
     n_valid = int(pyr["lengths"][0].sum())
     g = torch.zeros((nq, c), device=device)
     g[:n_valid] = torch.randn((n_valid, c), generator=gen, device=device)
@@ -517,16 +552,25 @@ def check_k5(pyr, cfg, report, device="cuda"):
     pdx = band_head_bwd(g=g, impl="plain", **args)
     err = float((kdx - pdx).abs().max())
     check(torch.allclose(kdx, pdx, atol=1e-5, rtol=0), f"K5: max |kernel - twin| = {err}")
+    check(float(pdx.abs().max()) > 1.0, "K5: vacuous comparison")
     ms = cuda_ms(lambda: band_head_bwd(g=g, impl="kernel", **args))
+    dev_ms = device_ms(lambda: band_head_bwd(g=g, impl="kernel", **args))
     plain_ms = cuda_ms(lambda: band_head_bwd(g=g, impl="plain", **args), reps=3)
-    pairs = int(pyr["band_args"]["conv0"]["lists"].lcnt.sum())  # selected pairs
-    ops = D2_OPS * window_rows(args) + pairs * c
-    b_ms, b_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
-                              g, kdx), ops)
+    n_ent = int(row_ptr[-1])  # listed pairs
+    # the transpose's route: row_ptr and the entries read, g once, dx written
+    b_ms, b_by = bound(4 * n_ent + nbytes(row_ptr, g, kdx), n_ent * c)
+    # the windows' route: every window row tested against every query of its tile
+    w_ms, w_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
+                              g, kdx), D2_OPS * window_rows(args) + n_ent * c)
+    lib_ms, lib_dev, lib = csr_spmm(row_ptr, pairs[:n_ent] // LCAP, (ns, nq), g)
+    lib_err = float((lib - pdx).abs().max())
     report["K5 band_head_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                      bound_by=b_by, library_ms=None)
-    phase(f"K5 band_head_bwd ({nq} queries x {c}): max err {err:.3g}; kernel {ms:.3f} ms, "
-          f"twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+                                      bound_by=b_by, library_ms=lib_ms)
+    phase(f"K5 band_head_bwd ({nq} queries x {c}, {n_ent} listed pairs): max err {err:.3g}; "
+          f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}) from the transpose, {w_ms:.4f} ms ({w_by}) from the "
+          f"windows; SpMM {lib_ms:.4f} ms (device {lib_dev:.4f} ms, max diff {lib_err:.3g} "
+          f"from the twin)")
 
 
 def topk_agree(a, b, k, atol):
@@ -733,6 +777,13 @@ def train_phase(cfg, report, card, device="cuda"):
     counts = {n: w.launches for n, w in wrappers.items()}
     for n, c in counts.items():
         check(c > 0, f"{n}: no launch on the training path")
+    searches = {(sp.layer, sp.strided) for sp, blk in zip(model.specs.encoder, model.encoder)
+                if hasattr(blk, "conv")}
+    check(counts["K4 band_lists transpose"] == len(searches),
+          f"train step: {counts['K4 band_lists transpose']} transposes for {len(searches)} "
+          f"searches (K5 and K4 share conv0's)")
+    check(counts["K5 band_head_bwd"] == 1,
+          f"train step: K5 launched {counts['K5 band_head_bwd']} times")
     for n in ("K4 band_lists transpose", "K4 band_conv_bwd", "K5 band_head_bwd"):
         report[n]["launches"] = counts[n]
     phase("training path launches per step: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
@@ -847,8 +898,9 @@ def main():
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    phase("library_ms is null for every kernel: no single PyTorch call computes any of them "
-          "(each includes the threshold selection of its rows)")
+    phase("library_ms: K3's sums and K5 by one cuSPARSE SpMM of their lists as a CSR of "
+          "ones; null for the others, which no single PyTorch call computes (each includes "
+          "the threshold selection of its rows)")
     print(json.dumps({"fragments_per_s": fps, "train_steps_per_s": sps, "card": smi}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

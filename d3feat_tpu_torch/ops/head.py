@@ -8,10 +8,10 @@ whose feature sum is non-zero. K5 ports ``_band_head_bwd_call``: the
 transposed sum ``dx[r] = sum of g[q] over the queries q that list r``.
 
 The kernels are ``ops/cuda/head.cu`` and ``ops/cuda/head_bwd.cu``;
-``band_head_plain`` and ``band_head_bwd_plain`` are their twins. K3's
-kernel reads the lists that conv0's list stage built for the same search
-(``ops/band_lists.py``) where its twin selects from the windows; K5's
-kernel still selects from the windows.
+``band_head_plain`` and ``band_head_bwd_plain`` are their twins, which
+select from the windows. The kernels read the lists that conv0's list
+stage built for the same search (``ops/band_lists.py``): K3 the lists, K5
+their transpose, which K4's conv0 backward shares.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 from d3feat_tpu_torch.ops import build
 from d3feat_tpu_torch.ops.band_conv import threshold_select
 from d3feat_tpu_torch.ops.band_lists import LCAP, uses_kernel
-from d3feat_tpu_torch.ops.select import add_windows, covering_tiles, tile_windows
+from d3feat_tpu_torch.ops.select import add_windows, tile_windows
 
 C_MAX = 128  # channels per lane-strided warp in the kernel
 
@@ -108,42 +108,44 @@ def band_head_bwd_plain(q_rows, thr, ptie, s_rows, g, starts, wends, *, query_ti
     return add_windows(part, pos, inside, s_rows.shape[0])
 
 
-_HEAD_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+_HEAD_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 
 
-def band_head_bwd_kernel(q_rows, thr, ptie, s_rows, g, starts, wends, *, query_tile: int):
-    """Launch the K5 CUDA kernel (same contract as ``band_head_bwd_plain``)."""
-    f32, i32 = torch.float32, torch.int32
-    for t, dt, name in ((q_rows, f32, "q_rows"), (thr, f32, "thr"), (ptie, f32, "ptie"),
-                        (s_rows, f32, "s_rows"), (g, f32, "g"), (starts, i32, "starts"),
-                        (wends, i32, "wends")):
-        build.require(t, dt, name)
+def band_head_bwd_kernel(g, row_ptr, pairs, query_tile: int):
+    """Launch the K5 CUDA kernel: the contract of ``band_head_bwd_plain``,
+    computed from the transpose (``row_ptr``, ``pairs``) of the search's
+    lists (``ops.band_lists.transpose_lists``)."""
+    build.require(g, torch.float32, "g")
+    build.require(row_ptr, torch.int32, "row_ptr")
+    build.require(pairs, torch.int32, "pairs")
     nq, c = g.shape
-    ns = s_rows.shape[0]
-    if (nq % query_tile or q_rows.shape[0] != nq or starts.shape[0] != nq // query_tile
-            or c > C_MAX):
+    ns = row_ptr.shape[0] - 1
+    if nq % query_tile or pairs.shape != (nq * LCAP,) or c > C_MAX:
         raise ValueError("band_head_bwd: bad tile/shape arguments")
-    first, end = covering_tiles(starts, wends, ns)
-    dx = torch.empty((ns, c), dtype=f32, device=g.device)
+    dx = torch.empty((ns, c), dtype=torch.float32, device=g.device)
     fn = build.launcher("head_bwd", "band_head_bwd_launch", _HEAD_BWD_ARGS)
-    rc = fn(build.ptr(q_rows), build.ptr(thr), build.ptr(ptie), build.ptr(s_rows),
-            build.ptr(g), build.ptr(starts), build.ptr(wends), build.ptr(first),
-            build.ptr(end), ns, query_tile, c, build.ptr(dx), build.stream_of(g))
+    rc = fn(build.ptr(row_ptr), build.ptr(pairs), build.ptr(g), ns, query_tile, c,
+            build.ptr(dx), build.stream_of(g))
     build.check(rc, "band_head_bwd_kernel")
     band_head_bwd.launches += 1
     return dx
 
 
 def band_head_bwd(q_rows, thr, ptie, s_rows, g, starts, wends, *, query_tile: int,
-                  impl: str = "auto"):
+                  impl: str = "auto", lists=None):
     """dx [Ns_pad, C] float32: the cotangent of ``band_head``'s sums
-    ``g`` [Nq_pad, C] carried back to the support rows. ``impl`` as in
-    ``band_head``."""
+    ``g`` [Nq_pad, C] carried back to the support rows. ``impl`` and
+    ``lists`` as in ``band_head``: the kernel reads the lists' transpose,
+    built once and shared with K4's conv0 backward."""
     if not uses_kernel(impl, q_rows):
         return band_head_bwd_plain(q_rows, thr, ptie, s_rows, g, starts, wends,
                                    query_tile=query_tile)
-    return band_head_bwd_kernel(q_rows, thr, ptie, s_rows, g, starts, wends,
-                                query_tile=query_tile)
+    if lists is None:
+        raise ValueError("band_head_bwd kernel: no lists (ops.band_lists.band_lists of conv0)")
+    if lists.lcnt.shape[0] != q_rows.shape[0] or g.shape[0] != q_rows.shape[0]:
+        raise ValueError("band_head_bwd: lists or cotangent of another search")
+    row_ptr, pairs = lists.transpose(s_rows.shape[0], impl="kernel")
+    return band_head_bwd_kernel(g, row_ptr, pairs, query_tile)
 
 
 band_head_bwd.launches = 0
@@ -156,7 +158,8 @@ class BandHeadFn(torch.autograd.Function):
 
     ``apply(x, args, impl)`` with ``args`` the keyword arguments of
     ``band_head`` besides ``x`` (``models.kpfcnn.band_head_inputs``, with
-    conv0's ``lists`` on the kernel path, which only the forward reads)."""
+    conv0's ``lists`` on the kernel path, which the forward reads and the
+    backward reads transposed)."""
 
     @staticmethod
     def forward(ctx, x, args, impl):
@@ -170,5 +173,5 @@ class BandHeadFn(torch.autograd.Function):
         a = ctx.args
         dx = band_head_bwd(a["q_rows"], a["thr"], a["ptie"], a["s_rows"],
                            g_fsum.float().contiguous(), a["starts"], a["wends"],
-                           query_tile=a["query_tile"], impl=ctx.impl)
+                           query_tile=a["query_tile"], impl=ctx.impl, lists=a.get("lists"))
         return dx, None, None
