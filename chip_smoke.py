@@ -20,16 +20,25 @@ or of the JAX package. Phases, each announced with the elapsed seconds:
    rtol 1e-4, density exact); K3 from conv0's lists (sums atol 1e-6,
    counts exact); K4 at all 14 convs from the forward's lists and weighted
    rows and a seeded cotangent (dx and dW at atol 5e-4, rtol 1e-3); K5
-   from the transpose of conv0's lists (atol 1e-5). Kernel and twin times
+   from the transpose of conv0's lists (atol 1e-5). Then the bf16 panels
+   of K2 and K4 (``compute_dtype="bfloat16"``) at all 14 convs: against
+   their bf16 twins, which round where the kernels round (out, dx and dW
+   within relative L2 1e-4, density exact), and against the f32 kernels
+   (relative L2 1e-2, the JAX suite's bf16 bound). Kernel and twin times
    by CUDA events (a call's launches, the host's launch work included),
-   kernel device time by ``torch.profiler``, and each bound; K1's sums over
-   the 13 searches, K2's and K4's over the 14 convs; for K3's sums and K5,
-   the time of one cuSPARSE SpMM (``torch.sparse.mm``) of the same lists
-   as a CSR matrix of ones, as the library's yardstick;
+   kernel device time by ``torch.profiler``, and each bound (bf16 products
+   at the BF16 tensor-core rate); K1's sums over the 13 searches, K2's and
+   K4's over the 14 convs; for K3's sums and K5, the time of one cuSPARSE
+   SpMM (``torch.sparse.mm``) of the same lists as a CSR matrix of ones,
+   as the library's yardstick;
 4. serving path: ``FeatureExtractor(batch_fragments=2)`` with the r5
    weights on the eval-cache fragments of 12k-16k points: launch counts of
    one counted call, output checks, the same batch through the twins on
-   the card, and fragments/s over 20 calls after warm-up;
+   the card, and fragments/s over 20 calls after warm-up; then the same
+   in bf16: one counted call (K2's bf16 kernel, never its f32 one),
+   descriptors within relative L2 1e-2 of the bf16 twins', finite, unit
+   norm, no overflow; their distance to the f32 path and the top-250
+   overlap (printed, not gated); fragments/s;
 5. training path: ``make_train_step`` at full width from a copy of the r5
    weights on the first ground-truth-posed eval-cache pair that fits the
    bench capacities (correspondences within 0.0375, 128 of them): launch
@@ -37,17 +46,25 @@ or of the JAX package. Phases, each announced with the elapsed seconds:
    that step's loss and gradients against a
    step through the twins (loss rtol 1e-3, gradients atol 5e-3, rtol
    5e-3), then 10 more kernel steps (finite, none skipped, no overflow)
-   and train steps/s;
-6. with ``--profile``, device time by kernel and the device busy share
-   over 4 extraction calls and over 3 train steps (``torch.profiler``);
-7. one JSON line with every kernel's numbers, then the result line.
+   and train steps/s; then one bf16 step (K4's bf16 kernel, never the f32
+   K2 or K4) against one bf16 twin step: loss rtol 1e-2, finite, not
+   skipped, the flat gradient within twice the distance of a twin step
+   from weights one f32 ulp away (the bf16 step's own noise; or within
+   1e-2 where that is smaller) and nearer the twins' than the f32 step's;
+6. the port's bench (``d3feat_tpu_torch.bench``): its measuring function
+   in f32 and in bf16 on one shared set of ``scan_fragment`` fragments
+   (no overflow), each printing its JSON line (a smoke check: the
+   baseline is the bench's command line, in a fresh process);
+7. with ``--profile``, device time by kernel and the device busy share
+   over 4 extraction calls (f32 and bf16) and over 3 train steps
+   (``torch.profiler``);
+8. one JSON line with every kernel's numbers, then the result line.
 
 Any failed check exits non-zero before the result line.
 """
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -62,6 +79,9 @@ NUM_NODE = 128               # correspondences per pair (the reference's num_nod
 PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3, data sheet
 PEAK_FP32_S = 67e12          # H100 SXM FP32 outside the tensor cores, data sheet
 PEAK_3XTF32_S = 495e12 / 3   # H100 SXM dense TF32 tensor cores, 3 products per f32 product
+PEAK_BF16_S = 989e12         # H100 SXM dense BF16 tensor cores, data sheet
+BF16_TWIN_L2 = 1e-4          # bf16 kernels vs their bf16 twins (same rounding points), rel. L2
+BF16_L2 = 1e-2               # bf16 vs f32: the JAX suite's bound (tests/test_band_conv.py:139-195)
 D2_OPS = 8  # per query-row pair: 3 subtractions, 1 multiply, 2 fused multiply-adds
 
 
@@ -125,12 +145,20 @@ def device_ms(fn, reps=5):
     return sum(ms for ms, _, _ in device_events(prof)) / reps
 
 
-def bound(nbytes, ops, tc_ops=0):
+def bound(nbytes, ops, tc_ops=0, tc_rate=PEAK_3XTF32_S):
     """(least milliseconds, what bounds them): bytes at the memory rate, or
-    ``ops`` at the FP32 rate plus ``tc_ops`` (f32-accurate products on the
-    tensor cores as 3xTF32) at a third of the TF32 rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S + tc_ops / PEAK_3XTF32_S
+    ``ops`` at the FP32 rate plus ``tc_ops`` tensor-core operations at
+    ``tc_rate`` (f32-accurate products as 3xTF32: a third of the TF32 rate;
+    bf16 panels: the BF16 rate)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S + tc_ops / tc_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+PANELS = {"float32": ("", PEAK_3XTF32_S), "bfloat16": (" bf16", PEAK_BF16_S)}
 
 
 def nbytes(*tensors):
@@ -357,25 +385,31 @@ def check_lists(pyr, cfg, model, report):
                            bound_by=bound(tot[k]["bytes"], tot[k]["ops"])[1], library_ms=None)
 
 
-def k2_work(spec, conv, args, pyr):
+def k2_work(spec, conv, args, pyr, panel="float32"):
     """(FP32 operations, tensor-core products) of one K2 call on its lists:
     the influence weights (~12 operations a pair and kernel point), the
-    first product [pairs x Cin] and the second [queries x KP * Cin x Cout]
-    (the first product of a single input feature runs on FP32 FMA)."""
+    first product [pairs x Cin] and the second [queries x KP * Cin x Cout],
+    twice in bf16 (the hi and the lo rows; the first product of a single
+    input feature runs on FP32 FMA)."""
     kpn, cin, cout = conv.weights.shape
     pairs = conv_pairs(spec, pyr)
     q_live = int((args["q_rows"][:, 3] >= 0).sum())
     first = 2 * kpn * pairs * cin
     simt = kpn * 12 * pairs + (first if cin < 8 else 0)
-    return simt, (0 if cin < 8 else first) + 2 * q_live * kpn * cin * cout
+    rows = 2 if panel == "bfloat16" else 1
+    return simt, (0 if cin < 8 else first) + rows * 2 * q_live * kpn * cin * cout
 
 
-def check_k2(pyr, cfg, model, report, device="cuda"):
+def check_k2(pyr, cfg, model, report, device="cuda", panel="float32"):
     """K2 against its twin at every conv of the forward; its ms in the
-    kernels line is the sum over the 14 convs of one extraction call."""
+    kernels line is the sum over the 14 convs of one extraction call. With
+    ``panel="bfloat16"``, the bf16 kernel against the bf16 twin (relative
+    L2 ``BF16_TWIN_L2``, density exact) and against the f32 kernel
+    (``BF16_L2``)."""
     import torch
     from d3feat_tpu_torch.ops.band_conv import band_conv
 
+    tag, tc_rate = PANELS[panel]
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     worst = 0.0
@@ -383,35 +417,43 @@ def check_k2(pyr, cfg, model, report, device="cuda"):
     for spec, conv, args in conv_cases(pyr, cfg, model):
         kpn, cin, cout = conv.weights.shape
         x = conv_features(spec, pyr, args, cin, gen, device)
-        kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points)
+        kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points,
+                  panel_dtype=panel)
         ko, kden = band_conv(impl="kernel", **kw)
         po, pden = band_conv(impl="plain", **kw)
-        check(torch.equal(kden, pden), f"K2 {conv_label(spec, conv, args)}: density differs "
-              f"from the twin")
+        label = f"K2{tag} {conv_label(spec, conv, args)}"
+        check(torch.equal(kden, pden), f"{label}: density differs from the twin")
         err = float((ko - po).abs().max())
-        check(torch.allclose(ko, po, atol=3e-5, rtol=1e-4),
-              f"K2 {conv_label(spec, conv, args)}: max |kernel - twin| = {err}")
+        if panel == "float32":
+            check(torch.allclose(ko, po, atol=3e-5, rtol=1e-4),
+                  f"{label}: max |kernel - twin| = {err}")
+            note = ""
+        else:
+            f32 = band_conv(impl="kernel", **dict(kw, panel_dtype="float32"))[0]
+            e_twin, e_f32 = rel_l2(ko, po), rel_l2(ko, f32)
+            check(e_twin < BF16_TWIN_L2, f"{label}: relative L2 {e_twin} from the bf16 twin")
+            check(e_f32 < BF16_L2, f"{label}: relative L2 {e_f32} from the f32 kernel")
+            note = f", relative L2 {e_twin:.3g} from the twin, {e_f32:.3g} from f32"
         worst = max(worst, err)
         ms = cuda_ms(lambda: band_conv(impl="kernel", **kw))
         dev_ms = device_ms(lambda: band_conv(impl="kernel", **kw))
         plain_ms = cuda_ms(lambda: band_conv(impl="plain", **kw), reps=3)
-        ops, tc = k2_work(spec, conv, args, pyr)
+        ops, tc = k2_work(spec, conv, args, pyr, panel)
         nb = (nbytes(args["q_rows"], args["s_rows"], x, conv.weights, conv.kernel_points, ko,
                      kden) + list_nbytes(args["lists"]))
-        b_ms, b_by = bound(nb, ops, tc)
+        b_ms, b_by = bound(nb, ops, tc, tc_rate)
         for k, v in (("ms", ms), ("dev_ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                      ("ops", ops), ("tc", tc), ("bytes", nb)):
             tot[k] += v
-        phase(f"K2 band_conv {conv_label(spec, conv, args)}: max err {err:.3g}; kernel "
-              f"{ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, bound "
+        phase(f"K2 band_conv{tag} {conv_label(spec, conv, args)}: max err {err:.3g}{note}; "
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, bound "
               f"{b_ms:.4f} ms ({b_by})")
-    phase(f"K2 band_conv, sum over the {len(conv_cases(pyr, cfg, model))} convs of one "
+    phase(f"K2 band_conv{tag}, sum over the {len(conv_cases(pyr, cfg, model))} convs of one "
           f"extraction call: kernel {tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin "
           f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
-    report["K2 band_conv"] = dict(max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
-                                  bound_ms=tot["bound_ms"],
-                                  bound_by=bound(tot["bytes"], tot["ops"], tot["tc"])[1],
-                                  library_ms=None)
+    report[f"K2 band_conv{tag}"] = dict(
+        max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+        bound_by=bound(tot["bytes"], tot["ops"], tot["tc"], tc_rate)[1], library_ms=None)
 
 
 def check_k3(pyr, cfg, report, device="cuda"):
@@ -460,14 +502,17 @@ def check_k3(pyr, cfg, report, device="cuda"):
           f"{lib_err:.3g} from the twin)")
 
 
-def check_k4(pyr, cfg, model, report, device="cuda"):
+def check_k4(pyr, cfg, model, report, device="cuda", panel="float32"):
     """K4 against its twin at every conv of the backward (the first, on the
     input features, without dx as in the train step), from the lists and
     the weighted rows of the forward as the train step runs it; its ms in
-    the kernels line is the sum over the 14 convs of one train step."""
+    the kernels line is the sum over the 14 convs of one train step. With
+    ``panel="bfloat16"``, dx and dW of the bf16 kernel against the bf16
+    twin (relative L2 ``BF16_TWIN_L2``) and the f32 kernel (``BF16_L2``)."""
     import torch
     from d3feat_tpu_torch.ops.band_conv import band_conv_bwd, band_conv_kernel
 
+    tag, tc_rate = PANELS[panel]
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
     worst = 0.0
@@ -480,48 +525,70 @@ def check_k4(pyr, cfg, model, report, device="cuda"):
         gs = torch.zeros((nq, cout), device=device)
         gs[:n_q] = torch.randn((n_q, cout), generator=gen, device=device) * 1e-2
         need_dx = ci > 0
-        kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points)
+        kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points,
+                  panel_dtype=panel)
         wtd = band_conv_kernel(keep_weighted=True, **kw)[2]
+        f32 = dict(kw, panel_dtype="float32")
+        wtd32 = band_conv_kernel(keep_weighted=True, **f32)[2] if panel != "float32" else None
         kw.update(gs=gs, need_dx=need_dx)
+        f32.update(gs=gs, need_dx=need_dx)
         kdx, kdw = band_conv_bwd(impl="kernel", weighted=wtd, **kw)
         pdx, pdw = band_conv_bwd(impl="plain", **kw)
+        label = f"K4{tag} {conv_label(spec, conv, args)}"
         err = float((kdw - pdw).abs().max())
-        ok = torch.allclose(kdw, pdw, atol=5e-4, rtol=1e-3)
         if need_dx:
             err = max(err, float((kdx - pdx).abs().max()))
-            ok = ok and torch.allclose(kdx, pdx, atol=5e-4, rtol=1e-3)
-        check(ok, f"K4 {conv_label(spec, conv, args)}: max |kernel - twin| = {err}")
-        check(float(pdw.abs().max()) > 1e-3, f"K4 {conv_label(spec, conv, args)}: vacuous "
-              f"comparison")
+        if panel == "float32":
+            ok = torch.allclose(kdw, pdw, atol=5e-4, rtol=1e-3)
+            if need_dx:
+                ok = ok and torch.allclose(kdx, pdx, atol=5e-4, rtol=1e-3)
+            check(ok, f"{label}: max |kernel - twin| = {err}")
+            note = ""
+        else:
+            fdx, fdw = band_conv_bwd(impl="kernel", weighted=wtd32, **f32)
+            outs = [("dW", kdw, pdw, fdw)] + ([("dx", kdx, pdx, fdx)] if need_dx else [])
+            errs = {n: (rel_l2(k, p), rel_l2(k, f)) for n, k, p, f in outs}
+            for n, (e_twin, e_f32) in errs.items():
+                check(e_twin < BF16_TWIN_L2, f"{label}: {n} relative L2 {e_twin} from the twin")
+                check(e_f32 < BF16_L2, f"{label}: {n} relative L2 {e_f32} from the f32 kernel")
+            note = "".join(f", {n} relative L2 {a:.3g} from the twin, {b:.3g} from f32"
+                           for n, (a, b) in errs.items())
+        check(float(pdw.abs().max()) > 1e-3, f"{label}: vacuous comparison")
         worst = max(worst, err)
         ms = cuda_ms(lambda: band_conv_bwd(impl="kernel", weighted=wtd, **kw))
         dev_ms = device_ms(lambda: band_conv_bwd(impl="kernel", weighted=wtd, **kw))
         plain_ms = cuda_ms(lambda: band_conv_bwd(impl="plain", **kw), reps=3)
         pairs = conv_pairs(spec, pyr)
         q_live = int((args["q_rows"][:, 3] >= 0).sum())
-        # dW on the tensor cores [queries x KP * Cin x Cout]; with dx, the
-        # gather (influence weights and [pairs x Cout] per kernel point) and
-        # dx = G W^T on the tensor cores over the listed support rows
+        # f32: dW on the tensor cores [queries x KP * Cin x Cout]; with dx,
+        # the gather (influence weights and [pairs x Cout] per kernel point)
+        # and dx = G W^T on the tensor cores over the listed support rows.
+        # bf16: dW over the hi and the lo rows; with dx, V = gs W^T on the
+        # tensor cores [queries x Cout x KP * Cin] and the gather
+        # (influence weights and [pairs x KP * Cin])
         row_ptr = args["lists"].transpose(args["s_rows"].shape[0])[0]
         rows_live = int((row_ptr[1:] > row_ptr[:-1]).sum())
-        tc = 2 * kpn * cin * cout * (q_live + (rows_live if need_dx else 0))
-        ops = kpn * (12 + 2 * cout) * pairs if need_dx else 0
+        if panel == "float32":
+            tc = 2 * kpn * cin * cout * (q_live + (rows_live if need_dx else 0))
+            ops = kpn * (12 + 2 * cout) * pairs if need_dx else 0
+        else:
+            tc = 2 * kpn * cin * cout * (2 * q_live + (q_live if need_dx else 0))
+            ops = kpn * (12 + 2 * cin) * pairs if need_dx else 0
         nb = (nbytes(args["q_rows"], args["s_rows"], conv.weights, conv.kernel_points, gs, wtd,
                      kdw, *((kdx,) if need_dx else ())) + list_nbytes(args["lists"]))
-        b_ms, b_by = bound(nb, ops, tc)
+        b_ms, b_by = bound(nb, ops, tc, tc_rate)
         for k, v in (("ms", ms), ("dev_ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                      ("ops", ops), ("tc", tc), ("bytes", nb)):
             tot[k] += v
-        phase(f"K4 band_conv_bwd {conv_label(spec, conv, args)}{'' if need_dx else ', no dx'}: "
-              f"max err {err:.3g}; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin "
-              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    phase(f"K4 band_conv_bwd, sum over the {ci + 1} convs of one train step: kernel "
+        phase(f"K4 band_conv_bwd{tag} {conv_label(spec, conv, args)}"
+              f"{'' if need_dx else ', no dx'}: max err {err:.3g}{note}; kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    phase(f"K4 band_conv_bwd{tag}, sum over the {ci + 1} convs of one train step: kernel "
           f"{tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin {tot['plain_ms']:.3f} ms, "
           f"bound {tot['bound_ms']:.4f} ms")
-    report["K4 band_conv_bwd"] = dict(max_abs_err=worst, ms=tot["ms"],
-                                      plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-                                      bound_by=bound(tot["bytes"], tot["ops"], tot["tc"])[1],
-                                      library_ms=None)
+    report[f"K4 band_conv_bwd{tag}"] = dict(
+        max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+        bound_by=bound(tot["bytes"], tot["ops"], tot["tc"], tc_rate)[1], library_ms=None)
 
 
 def check_k5(pyr, cfg, report, device="cuda"):
@@ -607,11 +674,13 @@ def main_path(cfg, model, frags, report, device="cuda"):
 
     for w in wrappers.values():
         w.launches = 0
+    band_conv.launches_bf16 = 0
     ex._steps.clear()
     out = ex.extract_many(groups[0])  # one extraction call: the counted main-path run
     torch.cuda.synchronize()
     check(list(ex._steps) == [(cfg.caps.points[0], 2)],
           "main path: the counted call overflowed the bench bucket")
+    check(band_conv.launches_bf16 == 0, "main path: f32 serving launched K2's bf16 kernel")
     for name, w in wrappers.items():
         report[name]["launches"] = w.launches
         check(w.launches > 0, f"{name}: no launch on the main path")
@@ -661,6 +730,80 @@ def main_path(cfg, model, frags, report, device="cuda"):
           f"gate top-{cfg.eval_gate_topm})")
     if "--profile" in sys.argv:
         profile(lambda i: ex.extract_many(groups[i % len(groups)]), 4, "extraction calls")
+    return fps, out
+
+
+def bf16_config(cfg):
+    from d3feat_tpu_torch.config import D3FeatConfig
+
+    bcfg = D3FeatConfig.from_dict(cfg.to_dict())
+    bcfg.compute_dtype = "bfloat16"
+    return bcfg
+
+
+def top_set(scores):
+    import numpy as np
+
+    return set(np.argsort(-scores, kind="stable")[:TOPK].tolist())
+
+
+def serve_bf16(cfg, model, frags, report, f32_out, device="cuda"):
+    """The serving path with ``compute_dtype="bfloat16"`` on the r5 weights
+    and the f32 main path's batch: one counted call (K2's bf16 kernel
+    launched, its f32 kernel never), the descriptors against the bf16
+    twins on the card (relative L2 ``BF16_L2``; finite, unit norm, no
+    overflow) and against the f32 kernel path (relative L2 and top-250
+    overlap: measured, not gated), then fragments/s."""
+    import numpy as np
+    import torch
+    from d3feat_tpu_torch.eval.extract import FeatureExtractor
+    from d3feat_tpu_torch.ops.band_conv import band_conv
+
+    bcfg = bf16_config(cfg)
+    ex = FeatureExtractor(bcfg, model, batch_fragments=2, device=device)
+    groups = [frags[i:i + 2] for i in range(0, len(frags) - 1, 2)]
+    for i in range(WARMUP):
+        ex.extract_many(groups[i % len(groups)])
+    torch.cuda.synchronize()
+
+    band_conv.launches = band_conv.launches_bf16 = 0
+    ex._steps.clear()
+    out = ex.extract_many(groups[0])  # the counted run of the bf16 serving path
+    torch.cuda.synchronize()
+    check(list(ex._steps) == [(cfg.caps.points[0], 2)],
+          "bf16 serving: the counted call overflowed the bench bucket")
+    check(band_conv.launches_bf16 > 0 and band_conv.launches == 0,
+          f"bf16 serving: K2 launched {band_conv.launches_bf16} times in bf16, "
+          f"{band_conv.launches} in f32")
+    report["K2 band_conv bf16"]["launches"] = band_conv.launches_bf16
+    phase(f"bf16 serving launches per call: K2 bf16 {band_conv.launches_bf16}, K2 f32 0")
+
+    twin = FeatureExtractor(bcfg, model, batch_fragments=2, on_overflow="raise", impl="plain",
+                            device=device)
+    out_p = twin.extract_many(groups[0])
+    for (d, s), (dp, _), (df, sf), frag in zip(out, out_p, f32_out, groups[0]):
+        check(d.shape == (len(frag), cfg.output_dim) and np.isfinite(d).all()
+              and np.isfinite(s).all(), "bf16 serving: output shape or non-finite values")
+        norms = np.abs(np.linalg.norm(d, axis=1) - 1.0).max()
+        check(norms < 1e-5, f"bf16 serving: norms off by {norms}")
+        e_twin = float(np.linalg.norm(d - dp) / np.linalg.norm(dp))
+        check(e_twin < BF16_L2, f"bf16 serving: descriptors at relative L2 {e_twin} from the "
+              f"bf16 twins")
+        e_f32 = float(np.linalg.norm(d - df) / np.linalg.norm(df))
+        overlap = len(top_set(s) & top_set(sf))
+        phase(f"bf16 fragment of {len(frag)} points: descriptors at relative L2 {e_twin:.4g} "
+              f"from the bf16 twins on the card; {e_f32:.4g} from the f32 kernel path, top-{TOPK} "
+              f"overlap {overlap}/{TOPK} (measured, not gated)")
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(ITERS):
+        ex.extract_many(groups[i % len(groups)])
+    torch.cuda.synchronize()
+    fps = 2 * ITERS / (time.perf_counter() - t)
+    phase(f"bf16 throughput: {fps:.3f} fragments/s ({ITERS} calls of 2 fragments)")
+    if "--profile" in sys.argv:
+        profile(lambda i: ex.extract_many(groups[i % len(groups)]), 4, "bf16 extraction calls")
     return fps
 
 
@@ -734,7 +877,18 @@ def training_pair(cfg, spec, device="cuda"):
     fail("no eval-cache pair fits the bench capacities without overflow")
 
 
-def train_phase(cfg, report, card, device="cuda"):
+def r5_model(cfg, device="cuda"):
+    """A model of ``cfg`` with the r5 weights."""
+    from d3feat_tpu_torch.compat.weights import load_npz
+    from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
+
+    model = init_kpfcnn(cfg, device=device)
+    load_npz(model, os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                                 "model_best_acc_r5.npz"))
+    return model
+
+
+def train_phase(cfg, report, card, batch, device="cuda"):
     """The training path at full width from a copy of the r5 weights: one
     counted kernel step against one twin step from the same state, then
     ``TRAIN_STEPS`` more kernel steps. Returns train steps/s."""
@@ -742,8 +896,6 @@ def train_phase(cfg, report, card, device="cuda"):
     import math
 
     import torch
-    from d3feat_tpu_torch.compat.weights import load_npz
-    from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
     from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
     from d3feat_tpu_torch.ops.band_lists import band_lists, transpose_lists
     from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
@@ -753,12 +905,7 @@ def train_phase(cfg, report, card, device="cuda"):
     from d3feat_tpu_torch.train.step import TrainState, make_train_step
 
     spec = make_pyramid_spec(cfg)
-    batch, (name, n0, n1, n_corr) = training_pair(cfg, spec, device)
-    phase(f"training pair {name}: {n0} + {n1} points, {n_corr} correspondences within "
-          f"{CORR_RADIUS}, {NUM_NODE} used")
-    model = init_kpfcnn(cfg, device=device)  # its own copy: extraction keeps the r5 weights
-    load_npz(model, os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
-                                 "model_best_acc_r5.npz"))
+    model = r5_model(cfg, device)  # its own copy: extraction keeps the r5 weights
     twin_model = copy.deepcopy(model)
     state = TrainState(model, make_optimizer(cfg, model))
     twin_state = TrainState(twin_model, make_optimizer(cfg, twin_model))
@@ -820,6 +967,106 @@ def train_phase(cfg, report, card, device="cuda"):
     return sps
 
 
+def train_bf16(cfg, report, batch, device="cuda"):
+    """One counted train step with ``compute_dtype="bfloat16"`` from the r5
+    weights (K4's bf16 kernel launched, the f32 K2 and K4 never) against
+    one step through the bf16 twins from the same state: loss rtol
+    ``BF16_L2``, finite, not skipped. The gradients are held to the noise
+    of the bf16 step measured in the same run: the linear layers round
+    their products to bf16 (as JAX's ``bf16 @ bf16``), so where two
+    programs' f32 sums differ in the last bit (the kernels' and the twins'
+    differ in summation order only) a rounding can flip, and the flips
+    decide near-ties of the max pools and the loss's hardest pairs. The
+    witness is a second twin step from the same weights moved by one f32
+    ulp each: the kernel step's flat gradient must lie within twice that
+    step's distance to the twins' (or within ``BF16_L2`` where the step is
+    not that sensitive), and nearer the twins' than the f32 step of the
+    same state lies."""
+    import copy
+    import math
+
+    import torch
+    from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
+    from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
+    from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
+    from d3feat_tpu_torch.train.step import TrainState, make_train_step
+
+    bcfg = bf16_config(cfg)
+    spec = make_pyramid_spec(bcfg)
+    model = r5_model(bcfg, device)
+    twin_model, nudged_model, f32_model = (copy.deepcopy(model) for _ in range(3))
+    with torch.no_grad():
+        for t in nudged_model.parameters():
+            t.copy_(torch.nextafter(t, torch.full_like(t, math.inf)))
+    state = TrainState(model, make_optimizer(bcfg, model))
+    torch.cuda.synchronize()
+    for w in (band_conv, band_conv_bwd):
+        w.launches = w.launches_bf16 = 0
+    state, m = make_train_step(bcfg, spec)(state, batch, 0)  # the counted bf16 training run
+    torch.cuda.synchronize()
+    check(band_conv_bwd.launches_bf16 > 0 and band_conv_bwd.launches == 0
+          and band_conv.launches == 0 and band_conv.launches_bf16 > 0,
+          f"bf16 train step: K2 launched {band_conv.launches_bf16} times in bf16, "
+          f"{band_conv.launches} in f32; K4 {band_conv_bwd.launches_bf16} in bf16, "
+          f"{band_conv_bwd.launches} in f32")
+    report["K4 band_conv_bwd bf16"]["launches"] = band_conv_bwd.launches_bf16
+    phase(f"bf16 training launches per step: K2 bf16 {band_conv.launches_bf16}, K4 bf16 "
+          f"{band_conv_bwd.launches_bf16}, f32 0")
+    twin_step = make_train_step(bcfg, spec, impl="plain")
+    _, tm = twin_step(TrainState(twin_model, make_optimizer(bcfg, twin_model)), batch, 0)
+    _, nm = twin_step(TrainState(nudged_model, make_optimizer(bcfg, nudged_model)), batch, 0)
+    _, fm = make_train_step(cfg, spec)(TrainState(f32_model, make_optimizer(cfg, f32_model)),
+                                       batch, 0)
+    check(math.isfinite(m.loss) and m.skipped == 0.0 and tm.skipped == 0.0,
+          f"bf16 train step: loss {m.loss}, skipped {m.skipped}, twins' skipped {tm.skipped}")
+    check(abs(m.loss - tm.loss) <= BF16_L2 * abs(tm.loss),
+          f"bf16 train step: loss {m.loss} vs twins' {tm.loss}")
+    grads = [dict((n, t.grad) for n, t in train_tensors(mm))
+             for mm in (model, twin_model, nudged_model, f32_model)]
+    names = sorted(grads[0])
+    flat = [torch.cat([g[n].reshape(-1) for n in names]) for g in grads]
+    check(bool(torch.isfinite(flat[0]).all()), "bf16 train step: non-finite gradients")
+    e_twin, noise, floor = (rel_l2(flat[i], flat[1]) for i in (0, 2, 3))
+    check(e_twin < max(2.0 * noise, BF16_L2) and e_twin < floor,
+          f"bf16 train step: gradients at relative L2 {e_twin} from the bf16 twins'; the "
+          f"twins' step from weights one ulp away lies at {noise}, the f32 step at {floor}")
+    leaves = sorted(((rel_l2(grads[0][n], grads[1][n]), rel_l2(grads[2][n], grads[1][n]), n)
+                     for n in names if float(grads[1][n].norm()) > 0.0), reverse=True)
+    under = sum(e < BF16_L2 for e, _, _ in leaves)
+    phase(f"bf16 train step vs bf16 twins on the card: loss {m.loss:.6f} vs {tm.loss:.6f} "
+          f"(one ulp away {nm.loss:.6f}, f32 {fm.loss:.6f}); flat gradient at relative L2 "
+          f"{e_twin:.4g} from the twins'; the twins' step from weights one ulp away at "
+          f"{noise:.4g}, the f32 step at {floor:.4g}; {under} of {len(leaves)} leaves within "
+          f"{BF16_L2}; worst: " + ", ".join(f"{n} {e:.3g} (one ulp away {u:.3g})"
+                                           for e, u, n in leaves[:3]))
+
+
+def bench_phase(card):
+    """The port's bench (``d3feat_tpu_torch.bench.run_bench``) in f32 and
+    in bf16 on one shared set of ``scan_fragment`` fragments; returns the
+    two JSON lines. A smoke check of the bench's function (it runs, no
+    overflow): after this script's other phases in the same process it
+    reads lower than the bench's command line, a fresh process, whose
+    lines are the port's baseline (PERF.md)."""
+    import numpy as np
+    from d3feat_tpu_torch import bench
+
+    t = time.perf_counter()
+    n = (bench.WARMUP + bench.ITERS) * 2
+    frags = bench.draw_fragments(np.random.default_rng(0), n)
+    phase(f"bench: {n} scan_fragment fragments of {bench.N_MIN}-{bench.N_MAX} points drawn in "
+          f"{time.perf_counter() - t:.1f} s")
+    lines = []
+    for bf16 in (False, True):
+        line, overflowed = bench.run_bench(frags, bench.bench_config(bf16=bf16, frags=2), frags=2)
+        check(not overflowed, f"bench ({line['compute_dtype']}): pyramid capacity overflow")
+        check(line["card"] == card, f"bench: card {line['card']!r}")
+        phase(f"bench {line['compute_dtype']}: {line['value']} fragments/s (smoke check, "
+              f"not the baseline)")
+        lines.append(line)
+    return lines
+
+
 def main():
     import torch
 
@@ -829,6 +1076,7 @@ def main():
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    from d3feat_tpu_torch.bench import card_name
     from d3feat_tpu_torch.compat.weights import load_npz
     from d3feat_tpu_torch.data.pack import load_eval_fragments, pack_fragments
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
@@ -837,13 +1085,13 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full FP32 everywhere
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products of the unary layers accumulate in f32, as the JAX package's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     phase("device")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card_name("cuda")
     print(smi, flush=True)
     phase(f"torch {torch.__version__} cuda {torch.version.cuda}; {kind} x {count}")
 
@@ -872,12 +1120,24 @@ def main():
     check_k3(pyr, cfg, report)
     check_k4(pyr, cfg, model, report)
     check_k5(pyr, cfg, report)
+    phase("bf16 kernels vs bf16 twins")
+    check_k2(pyr, cfg, model, report, panel="bfloat16")
+    check_k4(pyr, cfg, model, report, panel="bfloat16")
     del pyr
 
     phase("serving path")
-    fps = main_path(cfg, model, frags, report)
+    fps, f32_out = main_path(cfg, model, frags, report)
+    phase("serving path, bf16")
+    fps_bf16 = serve_bf16(cfg, model, frags, report, f32_out)
     phase("training path")
-    sps = train_phase(cfg, report, smi)
+    batch, (name, n0, n1, n_corr) = training_pair(cfg, make_pyramid_spec(cfg))
+    phase(f"training pair {name}: {n0} + {n1} points, {n_corr} correspondences within "
+          f"{CORR_RADIUS}, {NUM_NODE} used")
+    sps = train_phase(cfg, report, smi, batch)
+    phase("training path, bf16")
+    train_bf16(cfg, report, batch)
+    phase("bench")
+    bench_lines = bench_phase(smi)
 
     sources = {"K1 select": ("select.cu", "d3feat_tpu/ops/pallas/select.py:252"),
                # the selection that K2's and K4's TPU kernels redo in every conv
@@ -889,7 +1149,10 @@ def main():
                                            "d3feat_tpu/ops/pallas/band_conv.py:586"),
                "K4 band_conv_bwd": ("band_conv_bwd.cu",
                                     "d3feat_tpu/ops/pallas/band_conv.py:586"),
-               "K5 band_head_bwd": ("head_bwd.cu", "d3feat_tpu/ops/pallas/head.py:304")}
+               "K5 band_head_bwd": ("head_bwd.cu", "d3feat_tpu/ops/pallas/head.py:304"),
+               "K2 band_conv bf16": ("band_conv.cu", "d3feat_tpu/ops/pallas/band_conv.py:351"),
+               "K4 band_conv_bwd bf16": ("band_conv_bwd.cu",
+                                         "d3feat_tpu/ops/pallas/band_conv.py:586")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[name]
@@ -901,8 +1164,10 @@ def main():
     phase("library_ms: K3's sums and K5 by one cuSPARSE SpMM of their lists as a CSR of "
           "ones; null for the others, which no single PyTorch call computes (each includes "
           "the threshold selection of its rows)")
-    print(json.dumps({"fragments_per_s": fps, "train_steps_per_s": sps, "card": smi}),
-          flush=True)
+    for line in bench_lines:
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"fragments_per_s": fps, "fragments_per_s_bf16": fps_bf16,
+                      "train_steps_per_s": sps, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": count}}), flush=True)

@@ -8,6 +8,11 @@ Modules carry the JAX package's parameter names, so a parameter's
 (``encoder.1.unary1.linear.w``). Linear weights are stored ``[in, out]``.
 Pooling appends a zero feature row, so all-shadow neighborhoods pool to
 zero.
+
+Every block's forward takes ``compute_dtype`` (``torch.float32`` or
+``torch.bfloat16``, the model config's ``compute_dtype``): in bf16 the
+linear layers multiply bf16 operands and the band KPConvs run bf16
+panels, as the JAX package's blocks do; everything else stays f32.
 """
 
 from __future__ import annotations
@@ -84,7 +89,10 @@ def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
 
 
 class Linear(nn.Module):
-    """``x @ w + b`` with torch ``nn.Linear``'s default init, ``w`` [in, out]."""
+    """``x @ w + b`` with torch ``nn.Linear``'s default init, ``w`` [in, out].
+    In bf16 the product of the bf16 operands is itself bf16 (f32
+    accumulation rounded once), then widened before the bias, as JAX's
+    ``apply_linear`` computes ``bf16 @ bf16``."""
 
     def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator):
         super().__init__()
@@ -93,8 +101,10 @@ class Linear(nn.Module):
         u = torch.rand((out_dim,), generator=generator, device=generator.device)
         self.b = nn.Parameter((u * 2.0 - 1.0) * bound)
 
-    def forward(self, x):
-        return x @ self.w + self.b
+    def forward(self, x, compute_dtype=torch.float32):
+        if compute_dtype == torch.float32:
+            return x @ self.w + self.b
+        return (x.to(compute_dtype) @ self.w.to(compute_dtype)).float() + self.b
 
 
 class Norm(nn.Module):
@@ -116,8 +126,8 @@ class Unary(nn.Module):
         self.linear = Linear(in_dim, out_dim, generator)
         self.norm = Norm(out_dim, generator.device)
 
-    def forward(self, x, relu: bool = True):
-        y = self.norm(self.linear(x))
+    def forward(self, x, relu: bool = True, compute_dtype=torch.float32):
+        y = self.norm(self.linear(x, compute_dtype))
         return leaky_relu(y) if relu else y
 
 
@@ -179,13 +189,14 @@ def search_inputs(batch, config, layer: int, strided: bool, radius: float,
                   impl: str = "auto") -> dict:
     """The band kernels' arguments of one search (``conv{layer}``, or
     ``pool{layer}`` when ``strided``): sorted query rows and thresholds
-    padded to the tile, support rows, tile windows and tile (keyword
-    arguments of ``ops.band_conv.band_conv`` besides the features, weights
-    and extent), and on the kernel path the search's ``lists``. Built once
+    padded to the tile, support rows, tile windows, tile and the windows'
+    chunk rows (keyword arguments of ``ops.band_conv.band_conv`` besides
+    the features, weights and extent), and on the kernel path the search's
+    ``lists``. Built once
     and kept in ``batch["band_args"]`` under the search's name, so every
     conv of the search, and the head for ``conv0``, share them."""
     from d3feat_tpu_torch.ops.band_lists import band_lists, uses_kernel
-    from d3feat_tpu_torch.ops.neighbors import band_windows
+    from d3feat_tpu_torch.ops.neighbors import band_windows, pick_chunk
     from d3feat_tpu_torch.ops.pyramid import level_band_cap
 
     name = f"pool{layer}" if strided else f"conv{layer}"
@@ -208,7 +219,7 @@ def search_inputs(batch, config, layer: int, strided: bool, radius: float,
         starts, wends = band_windows(starts, ends, band_cap)
         args = memo[name] = dict(q_rows=q_rows.contiguous(), thr=thr.contiguous(),
                                  ptie=ptie.contiguous(), s_rows=sb["s_rows"], starts=starts,
-                                 wends=wends, query_tile=tile)
+                                 wends=wends, query_tile=tile, chunk=pick_chunk(band_cap))
     if "lists" not in args and uses_kernel(impl, args["q_rows"]):
         args["lists"] = band_lists(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
                                    args["starts"], args["wends"], query_tile=args["query_tile"],
@@ -224,13 +235,15 @@ def band_conv_inputs(spec: BlockSpec, batch, config, impl: str = "auto") -> dict
 
 
 def apply_band_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, config,
-                      impl: str = "auto") -> torch.Tensor:
+                      impl: str = "auto", compute_dtype=torch.float32) -> torch.Tensor:
     """Rigid KPConv of one block through the K2 band kernel (K4 in the
     backward), in the pyramid's sorted space (features, points and lists
-    already sorted). Differentiable in ``x`` and the conv weights."""
+    already sorted), on bf16 panels when ``compute_dtype`` is bf16.
+    Differentiable in ``x`` and the conv weights."""
     from d3feat_tpu_torch.ops.band_conv import BandConvFn
 
-    args = band_conv_inputs(spec, batch, config, impl)
+    panel = "bfloat16" if compute_dtype == torch.bfloat16 else "float32"
+    args = dict(band_conv_inputs(spec, batch, config, impl), panel_dtype=panel)
     band_pad = args["s_rows"].shape[0] - x.shape[0]
     x_sorted = torch.cat([x, x.new_zeros((band_pad, x.shape[1]))]).float().contiguous()
     out = BandConvFn.apply(x_sorted, conv.weights.contiguous(),
@@ -250,12 +263,13 @@ class _ConvBlock(nn.Module):
         self.spec = spec
         self.config = config
 
-    def _conv(self, x, batch, impl):
+    def _conv(self, x, batch, impl, compute_dtype):
         if not band_conv_eligible(self.spec, batch, self.config):
             raise NotImplementedError(
                 f"block {self.spec.name} at layer {self.spec.layer} is not covered by the "
                 f"band KPConv; the gather KPConv is not ported yet")
-        return apply_band_kpconv(self.conv, self.spec, x, batch, self.config, impl)
+        return apply_band_kpconv(self.conv, self.spec, x, batch, self.config, impl,
+                                 compute_dtype)
 
 
 class SimpleBlock(_ConvBlock):
@@ -264,8 +278,8 @@ class SimpleBlock(_ConvBlock):
         self.conv = KPConv(kernel_points, spec.in_dim, spec.out_dim // 2, generator)
         self.norm = Norm(spec.out_dim // 2, generator.device)
 
-    def forward(self, x, batch, impl="auto"):
-        return leaky_relu(self.norm(self._conv(x, batch, impl)))
+    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32):
+        return leaky_relu(self.norm(self._conv(x, batch, impl, compute_dtype)))
 
 
 class ResnetBBlock(_ConvBlock):
@@ -280,14 +294,14 @@ class ResnetBBlock(_ConvBlock):
         if spec.in_dim != spec.out_dim:
             self.shortcut = Unary(spec.in_dim, spec.out_dim, generator)
 
-    def forward(self, x, batch, impl="auto"):
-        spec = self.spec
-        h = self.unary1(x) if hasattr(self, "unary1") else x
-        h = leaky_relu(self.norm_conv(self._conv(h, batch, impl)))
-        h = self.unary2(h, relu=False)
+    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32):
+        spec, cd = self.spec, compute_dtype
+        h = self.unary1(x, compute_dtype=cd) if hasattr(self, "unary1") else x
+        h = leaky_relu(self.norm_conv(self._conv(h, batch, impl, cd)))
+        h = self.unary2(h, relu=False, compute_dtype=cd)
         shortcut = max_pool(x, batch["pools"][spec.layer]) if spec.strided else x
         if hasattr(self, "shortcut"):
-            shortcut = self.shortcut(shortcut, relu=False)
+            shortcut = self.shortcut(shortcut, relu=False, compute_dtype=cd)
         return leaky_relu(h + shortcut)
 
 
@@ -296,8 +310,8 @@ class UnaryBlock(Unary):
         super().__init__(spec.in_dim, spec.out_dim, generator)
         self.spec = spec
 
-    def forward(self, x, batch=None, impl="auto"):
-        return super().forward(x, relu=True)
+    def forward(self, x, batch=None, impl="auto", compute_dtype=torch.float32):
+        return super().forward(x, relu=True, compute_dtype=compute_dtype)
 
 
 class LastUnaryBlock(nn.Module):
@@ -306,8 +320,8 @@ class LastUnaryBlock(nn.Module):
         self.spec = spec
         self.linear = Linear(spec.in_dim, config.output_dim, generator)
 
-    def forward(self, x, batch=None, impl="auto"):
-        return self.linear(x)
+    def forward(self, x, batch=None, impl="auto", compute_dtype=torch.float32):
+        return self.linear(x, compute_dtype)
 
 
 class NearestUpsampleBlock(nn.Module):
@@ -315,7 +329,7 @@ class NearestUpsampleBlock(nn.Module):
         super().__init__()
         self.spec = spec
 
-    def forward(self, x, batch, impl="auto"):
+    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32):
         # decoder block at level l pools from level l + 1 via upsamples[l - 1]
         return closest_pool(x, batch["upsamples"][self.spec.layer - 1])
 

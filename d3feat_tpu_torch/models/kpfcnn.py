@@ -132,11 +132,14 @@ def band_head_inputs(batch, config, impl: str = "auto") -> dict:
     arguments (``models.blocks.search_inputs``: level-0 sorted query rows
     with their conv0 thresholds padded to the 256-row tile, support rows,
     tile windows, and on the kernel path conv0's lists), shared with the
-    level-0 convs (keyword arguments of ``ops.head.band_head``)."""
+    level-0 convs (keyword arguments of ``ops.head.band_head``; the convs'
+    bf16 chunk rows left out)."""
     from d3feat_tpu_torch.models.blocks import search_inputs
 
     r0 = config.first_subsampling_dl * config.conv_radius
-    return search_inputs(batch, config, 0, False, r0, impl)
+    args = search_inputs(batch, config, 0, False, r0, impl)
+    del args["chunk"]
+    return args
 
 
 def detection_scores(batch, features: torch.Tensor, *, config, train: bool = False,
@@ -197,19 +200,22 @@ def detection_scores(batch, features: torch.Tensor, *, config, train: bool = Fal
 
 
 def apply_kpfcnn(model: KPFCNN, batch, *, train: bool = False, per_cloud_norm: bool = False,
-                 impl: str = "auto") -> KPFCNNOutput:
+                 impl: str = "auto", compute_dtype=torch.float32) -> KPFCNNOutput:
     """Forward over a sorted-space pyramid ``batch`` (with ``features`` in
     the pyramid's level-0 sorted order). With ``train`` it is the training
     forward, differentiable in the model's parameters (every band KPConv
     through ``ops.band_conv.BandConvFn``, K2 forward and K4 backward, the
     head through ``ops.head.BandHeadFn``, K3 and K5) with the training
     detector head (no local-max gate); without, the eval forward, which
-    records no gradients."""
+    records no gradients. ``compute_dtype`` ``torch.bfloat16`` runs the
+    blocks' products on bf16 operands (``models.blocks``); the head and
+    the normalisation stay f32."""
     with torch.set_grad_enabled(train and torch.is_grad_enabled()):
-        return _forward(model, batch, train, per_cloud_norm, impl)
+        return _forward(model, batch, train, per_cloud_norm, impl, compute_dtype)
 
 
-def _forward(model: KPFCNN, batch, train: bool, per_cloud_norm: bool, impl: str):
+def _forward(model: KPFCNN, batch, train: bool, per_cloud_norm: bool, impl: str,
+             compute_dtype):
     specs = model.specs
     mask0 = batch["masks"][0]
     x = batch["features"].float() * mask0[:, None]
@@ -217,11 +223,11 @@ def _forward(model: KPFCNN, batch, train: bool, per_cloud_norm: bool, impl: str)
     for i, block in enumerate(model.encoder):
         if i in specs.encoder_skips:
             skips.append(x)
-        x = block(x, batch, impl=impl)
+        x = block(x, batch, impl=impl, compute_dtype=compute_dtype)
     for i, block in enumerate(model.decoder):
         if i in specs.decoder_concats:
             x = torch.cat([x, skips.pop()], 1)
-        x = block(x, batch, impl=impl)
+        x = block(x, batch, impl=impl, compute_dtype=compute_dtype)
     x = x * mask0[:, None]
     scores = detection_scores(batch, x, config=model.config, train=train,
                               per_cloud_norm=per_cloud_norm, impl=impl)

@@ -56,11 +56,17 @@ class StepMetrics(NamedTuple):
     overflow: float  # 1.0 when a pyramid level overflowed its capacity
 
 
-def _check_config(config):
-    if config.compute_dtype != "float32":
-        raise NotImplementedError("only compute_dtype='float32' is ported")
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _compute_dtype(config) -> torch.dtype:
+    """The config's ``compute_dtype`` as a torch dtype; raises on the
+    settings that are not ported."""
+    if config.compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype: {config.compute_dtype!r}")
     if config.use_batch_norm:
         raise NotImplementedError("batch norm is not ported yet (use_batch_norm=True)")
+    return _COMPUTE_DTYPES[config.compute_dtype]
 
 
 def _forward_losses(model, batch, config, pyramid_spec, *, train: bool, impl: str,
@@ -71,7 +77,7 @@ def _forward_losses(model, batch, config, pyramid_spec, *, train: bool, impl: st
         batch["points"], batch["lengths"], spec=pyramid_spec, impl=impl)
     order0, inv0 = pyr["band"][0]["order"], pyr["band"][0]["inv"]
     full = dict(pyr, features=permute_rows(batch["features"], order0))
-    out = apply_kpfcnn(model, full, train=train, impl=impl)
+    out = apply_kpfcnn(model, full, train=train, impl=impl, compute_dtype=_compute_dtype(config))
 
     corr = batch["corr"].long()
     anc_idx = inv0[corr[:, 0]]
@@ -104,7 +110,7 @@ def make_train_step(config, pyramid_spec=None, impl: str = "auto"):
     ``pyramid``: a sorted-space pyramid of those points built elsewhere,
     used instead of building one. ``impl`` selects kernels or their plain
     twins (see ``ops.select.band_select``)."""
-    _check_config(config)
+    _compute_dtype(config)
     pyramid_spec = pyramid_spec or make_pyramid_spec(config)
 
     def train_step(state: TrainState, batch, epoch, pyramid=None):
@@ -134,7 +140,7 @@ def make_eval_step(config, pyramid_spec=None, impl: str = "auto"):
     """Validation step ``eval_step(model, batch, pyramid=None) ->
     StepMetrics``: the same losses with the eval detector head, no
     gradients."""
-    _check_config(config)
+    _compute_dtype(config)
     pyramid_spec = pyramid_spec or make_pyramid_spec(config)
 
     @torch.no_grad()
@@ -156,7 +162,7 @@ def make_extract_step(config, pyramid_spec=None, num_clouds: int = 2, impl: str 
     model's device. Scores use per-cloud max normalisation, so fragments
     batched on the cloud axis do not perturb each other. ``impl`` selects
     kernels or their plain twins (see ``ops.select.band_select``)."""
-    _check_config(config)
+    compute_dtype = _compute_dtype(config)
     pyramid_spec = pyramid_spec or make_pyramid_spec(config, num_clouds=num_clouds)
 
     @torch.no_grad()
@@ -164,7 +170,8 @@ def make_extract_step(config, pyramid_spec=None, num_clouds: int = 2, impl: str 
         pyr = build_pyramid(batch["points"], batch["lengths"], spec=pyramid_spec, impl=impl)
         order0, inv0 = pyr["band"][0]["order"], pyr["band"][0]["inv"]
         full = dict(pyr, features=permute_rows(batch["features"], order0))
-        out = apply_kpfcnn(model, full, per_cloud_norm=True, impl=impl)
+        out = apply_kpfcnn(model, full, per_cloud_norm=True, impl=impl,
+                           compute_dtype=compute_dtype)
         # back to the caller's original row order
         return (permute_rows(out.features, inv0), permute_rows(out.scores, inv0),
                 pyr["overflow"])

@@ -39,6 +39,9 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
+for m in ("d3feat_tpu_torch.bench", "d3feat_tpu_torch.data.synthetic",
+          "d3feat_tpu_torch.data.threedmatch"):
+    assert m in mods, m
 print(len(mods))
 '''
 

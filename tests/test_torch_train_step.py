@@ -14,7 +14,7 @@ parameters (``params_from_numpy``).
 (d) a NaN in one input feature: both report ``skipped`` 1; the port's
     parameters, optimizer state and step count stay as they were;
 (e) the eval step's metrics equal JAX's at rtol 1e-5;
-(f) the settings not ported yet (bfloat16 compute, batch norm) raise."""
+(f) the setting not ported yet (batch norm) raises."""
 
 import jax
 import jax.numpy as jnp
@@ -164,7 +164,7 @@ def test_eval_step_matches_jax(jax_steps):
         np.testing.assert_allclose(getattr(tm, f), float(getattr(jm, f)), rtol=1e-5, err_msg=f)
 
 
-@pytest.mark.parametrize("field,value", [("compute_dtype", "bfloat16"), ("use_batch_norm", True)])
+@pytest.mark.parametrize("field,value", [("use_batch_norm", True)])
 def test_unported_settings_raise(field, value):
     tcfg = torch_config(jax_config(LAYERS, **{field: value}))
     for make in (make_train_step, make_eval_step):

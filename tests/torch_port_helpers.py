@@ -121,46 +121,86 @@ def torch_batch_from_jax(pyr, features_sorted):
 # lists of ``ops.band_lists``), which the CUDA kernels compute on the card ---
 
 
-def weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent):
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent, chunk=None,
+                        starts=None, tile=None):
     """[Nq_pad, KP * Cin] first product per query over its listed rows:
-    ``weighted[q, kp * Cin + c] = sum_j w_kp(q, lpos[q, j]) x[lpos[q, j], c]``."""
+    ``weighted[q, kp * Cin + c] = sum_j w_kp(q, lpos[q, j]) x[lpos[q, j], c]``.
+
+    With ``chunk`` (the bf16 panels), x and the weights rounded to bf16, each
+    list cut at the chunks of ``chunk`` rows from its tile's window start
+    (``starts``, ``tile``), each piece rounded to bf16 and the pieces added
+    in f32 (``S``): [2 * Nq_pad, KP * Cin], the rows ``bf16(S)`` then
+    ``bf16(S - bf16(S))``."""
     from d3feat_tpu_torch.ops.band_conv import _BIG, kp_weights
 
+    nq = q_rows.shape[0]
     valid = lists.lpos >= 0                                           # [Nq, L]
     pos = lists.lpos.clamp(min=0).long()
     d2m = torch.where(valid, lists.ld2, _BIG)[:, None, :]            # [Nq, 1, L]
     rows, q = s_rows[pos], q_rows[:, None, :]
-    xg = x[pos] * valid[..., None]                                    # [Nq, L, C]
+    rnd = (lambda t: t) if chunk is None else _bf16
+    xg = rnd(x)[pos] * valid[..., None]                               # [Nq, L, C]
     kpn = kernel_points.shape[0]
-    w = [kp_weights(d2m, rows, q, kernel_points[k], extent) for k in range(kpn)]
-    return torch.cat([torch.bmm(wk, xg) for wk in w], 1).reshape(q_rows.shape[0], -1)
+    w = [rnd(kp_weights(d2m, rows, q, kernel_points[k], extent)) for k in range(kpn)]
+    if chunk is None:
+        return torch.cat([torch.bmm(wk, xg) for wk in w], 1).reshape(nq, -1)
+    ws = starts.long().repeat_interleave(tile)[:, None]
+    cid = torch.where(valid, (pos - ws) // chunk, -1)
+    total = torch.zeros((nq, kpn, x.shape[1]))
+    for c in range(int(cid.max()) + 1):
+        m = (cid == c).float()[:, None, :]
+        total = total + _bf16(torch.cat([torch.bmm(wk * m, xg) for wk in w], 1))
+    hi = _bf16(total)
+    return torch.cat([hi.reshape(nq, -1), _bf16(total - hi).reshape(nq, -1)])
 
 
-def band_conv_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, extent):
+def band_conv_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, extent, chunk=None,
+                         starts=None, tile=None):
     """(out, den, weighted) of K2 from the lists: the first product, the
-    density from the listed rows' feature sums, then ``weighted W / den``."""
+    density from the listed rows' feature sums, then ``weighted W / den``
+    (with ``chunk``, the bf16 panels: ``(hi W + lo W) / den``)."""
     kpn, c, cout = weights.shape
-    wtd = weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent)
+    nq = q_rows.shape[0]
+    wtd = weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent, chunk, starts,
+                              tile)
+    rnd = (lambda t: t) if chunk is None else _bf16
     valid = lists.lpos >= 0
-    active = (x.sum(-1) > 0.0)[lists.lpos.clamp(min=0).long()] & valid
+    active = (rnd(x).sum(-1) > 0.0)[lists.lpos.clamp(min=0).long()] & valid
     den = torch.clamp(active.sum(1).float(), min=1.0)
-    out = (wtd @ weights.reshape(kpn * c, cout)) / den[:, None]
+    wr = rnd(weights).reshape(kpn * c, cout)
+    if chunk is None:
+        out = (wtd @ wr) / den[:, None]
+    else:
+        out = (wtd[:nq] @ wr + wtd[nq:] @ wr) / den[:, None]
     return out, den, wtd
 
 
 def band_conv_bwd_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, gs, extent,
-                             need_dx=True):
+                             need_dx=True, chunk=None, starts=None, tile=None):
     """(dx or None, dW) of K4 from the lists: ``dW = weighted^T gs``, and
     ``G[r, kp] = sum_q w_kp(q, r) gs[q]`` gathered over the transposed
     lists (each support row's listed entries, ascending query order), then
-    ``dx = G W^T``."""
+    ``dx = G W^T``. With ``chunk`` (the bf16 panels): ``dW = hi^T gs + lo^T
+    gs`` and ``dx[r] = sum_q sum_kp w_kp(q, r) V[q, kp]`` gathered over the
+    same pairs, ``V = bf16(gs W^T)``, gs, W and the weights rounded to
+    bf16."""
     from d3feat_tpu_torch.ops.band_conv import kp_weights
     from d3feat_tpu_torch.ops.band_lists import LCAP
 
     kpn, c, cout = weights.shape
-    ns = s_rows.shape[0]
-    wtd = weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent)
-    dw = (wtd.T @ gs).reshape(kpn, c, cout)
+    ns, nq = s_rows.shape[0], q_rows.shape[0]
+    rnd = (lambda t: t) if chunk is None else _bf16
+    wtd = weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent, chunk, starts,
+                              tile)
+    gs = rnd(gs)
+    if chunk is None:
+        dw = (wtd.T @ gs).reshape(kpn, c, cout)
+    else:
+        dw = (wtd[:nq].T @ gs + wtd[nq:].T @ gs).reshape(kpn, c, cout)
     if not need_dx:
         return None, dw
     row_ptr, pairs = lists.transpose(ns)
@@ -171,8 +211,11 @@ def band_conv_bwd_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, g
     qi = f // LCAP
     d2 = lists.ld2.reshape(-1)[f][:, None, None]                      # [E, 1, 1]
     rows, q = s_rows[r][:, None, :], q_rows[qi][:, None, :]
-    w = torch.stack([kp_weights(d2, rows, q, kernel_points[k], extent)[:, 0, 0]
+    w = torch.stack([rnd(kp_weights(d2, rows, q, kernel_points[k], extent))[:, 0, 0]
                      for k in range(kpn)], 1)                         # [E, KP]
+    if chunk is not None:
+        v = _bf16(gs @ _bf16(weights).reshape(kpn * c, cout).T).reshape(nq, kpn, c)
+        return gs.new_zeros((ns, c)).index_add_(0, r, (w[:, :, None] * v[qi]).sum(1)), dw
     g_rows = gs.new_zeros((ns, kpn, cout)).index_add_(0, r, w[:, :, None] * gs[qi][:, None, :])
     dx = g_rows.reshape(ns, kpn * cout) @ weights.permute(0, 2, 1).reshape(kpn * cout, c)
     return dx, dw
