@@ -6,9 +6,10 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py            # add --profile for a device-time breakdown
 
 It needs one CUDA device, ``nvcc`` (the CUDA toolkit), the committed r5
-weights (``artifacts/model_best_acc_r5.npz``) and the committed eval-cache
-fragments and poses (``artifacts/eval_cache``); it imports nothing of JAX
-or of the JAX package. Phases, each announced with the elapsed seconds:
+weights (``artifacts/model_best_acc_r5.npz``), the committed eval-cache
+fragments and poses (``artifacts/eval_cache``) and the JAX recall
+reference (``tests/torch_port_recall_r5.json``); it imports nothing of
+JAX or of the JAX package. Phases, each announced with the elapsed seconds:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: the kernel sources ``d3feat_tpu_torch/ops/cuda/*.cu`` with
@@ -55,14 +56,32 @@ or of the JAX package. Phases, each announced with the elapsed seconds:
    in f32 and in bf16 on one shared set of ``scan_fragment`` fragments
    (no overflow), each printing its JSON line (a smoke check: the
    baseline is the bench's command line, in a fresh process);
-7. with ``--profile``, device time by kernel and the device busy share
+7. registration recall (``d3feat_tpu_torch.final_recall``'s pass) on the
+   4 axis scenes of ``artifacts/eval_cache`` (48 fragments, 68 gt pairs)
+   with the r5 weights on the r5 npz's own config:
+   ``FeatureExtractor(batch_fragments=2, on_overflow="warn")``, then the
+   protocol at 250 keypoints, 0.10 and 5 % per scene. In f32: one counted
+   call (K1, K2 f32 and K3 launched, no twin called in the pass), per
+   scene gt pairs, matched pairs, recall, average inlier ratio and the
+   groups that overflowed, the mean recall and the seconds for the 48
+   fragments; held against the JAX package's answer
+   (``tests/torch_port_recall_r5.json``): gt pairs equal, overflowed
+   groups equal on the band route, the matched state of every pair equal
+   except where the reference ratio lies within one correspondence of 5 %
+   (printed), equal correspondence and inlier counts where both fragments
+   select the same top-250 sets; the top-250 overlap per fragment
+   printed. Then the same in bf16 (K2's bf16 kernel, never its f32 one;
+   finite), printed beside f32, not gated on recall; one JSON line
+   ``{"recall": ...}``;
+8. with ``--profile``, device time by kernel and the device busy share
    over 4 extraction calls (f32 and bf16) and over 3 train steps
    (``torch.profiler``);
-8. one JSON line with every kernel's numbers, then the result line.
+9. one JSON line with every kernel's numbers, then the result line.
 
 Any failed check exits non-zero before the result line.
 """
 
+import contextlib
 import json
 import os
 import sys
@@ -1041,6 +1060,196 @@ def train_bf16(cfg, report, batch, device="cuda"):
                                            for e, u, n in leaves[:3]))
 
 
+RECALL_SEEDS = (424242, 424243, 424244, 424245)  # the axis scenes of artifacts/eval_cache
+RECALL_REFERENCE = os.path.join("tests", "torch_port_recall_r5.json")
+RATIO_THRESHOLD = 0.05  # a pair is matched above this inlier ratio (reference test.py:78)
+
+
+@contextlib.contextmanager
+def count_twins():
+    """``{name: calls}`` of the kernels' plain twins (K1, the list stage, K2
+    and K3) inside the ``with`` block: the wrappers call them through their
+    module globals, which this patches."""
+    from d3feat_tpu_torch.ops import band_conv, band_lists, head, select
+
+    calls, saved = {}, []
+    for mod, name in ((select, "select_plain"), (band_lists, "band_lists_plain"),
+                      (band_conv, "band_conv_plain"), (head, "band_head_plain")):
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        calls[name] = 0
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def recall_scenes():
+    """{seed: (fragments, poses)} of the 4 axis scenes of the eval cache."""
+    from d3feat_tpu_torch.data.pack import EVAL_CACHE
+    from d3feat_tpu_torch.eval.scene_cache import cache_path, load_scene
+
+    return {str(seed): load_scene(cache_path(EVAL_CACHE, seed, 12, "axis", 2.0))
+            for seed in RECALL_SEEDS}
+
+
+def recall_pass(cfg, model, scenes, device="cuda"):
+    """``final_recall``'s pass: ``FeatureExtractor(batch_fragments=2,
+    on_overflow="warn")``, then the registration protocol per scene at
+    ``TOPK`` keypoints, 0.10 and 5 %. Returns the details per scene (as in
+    the reference file) and the seconds of extraction plus registration."""
+    from d3feat_tpu_torch.eval.extract import FeatureExtractor
+    from d3feat_tpu_torch.final_recall import scene_recall
+
+    ex = FeatureExtractor(cfg, model, batch_fragments=2, on_overflow="warn", device=device)
+    t = time.perf_counter()
+    out = {seed: scene_recall(ex, frags, poses, TOPK)[1] for seed, (frags, poses) in scenes.items()}
+    return out, time.perf_counter() - t
+
+
+def recall_lines(got, label):
+    """Print the recall of each scene and their mean; returns the mean."""
+    for seed, g in got.items():
+        phase(f"{label} scene {seed}: {g['gt_pairs']} gt pairs, {g['matched_pairs']} matched, "
+              f"recall {g['recall']:.2f} %, average inlier ratio {g['avg_inlier_ratio']:.5f}, "
+              f"overflowed groups {g['overflowed_groups']}")
+    mean = sum(g["recall"] for g in got.values()) / len(got)
+    phase(f"{label}: mean recall {mean:.4f} % over {len(got)} scenes")
+    return mean
+
+
+def hold_recall(ref, got, route, label="vs the reference"):
+    """Hold a recall pass (``recall_pass``'s details) against the JAX
+    reference scenes: gt pairs equal; the groups that overflow equal on the
+    band route (side by side on another route); per pair the same matched
+    state, except where the reference ratio lies within one correspondence
+    of the 5 % threshold (each such pair printed with both ratios and the
+    top-250 overlap of its fragments); and where both fragments of a pair
+    select the same top-250 sets on both sides, the same correspondence
+    and inlier counts. Prints the top-250 overlap per fragment. Returns
+    the failures."""
+    bad = []
+    for seed, r in ref.items():
+        g = got[seed]
+        if g["gt_pairs"] != r["gt_pairs"] or set(g["pairs"]) != set(r["pairs"]):
+            bad.append(f"scene {seed}: {g['gt_pairs']} gt pairs, reference {r['gt_pairs']}")
+            continue
+        if route == "band" and g["overflowed_groups"] != r["overflowed_groups"]:
+            bad.append(f"scene {seed}: overflowed groups {g['overflowed_groups']}, reference "
+                       f"{r['overflowed_groups']}")
+        elif g["overflowed_groups"] != r["overflowed_groups"]:
+            phase(f"scene {seed}: overflowed groups {g['overflowed_groups']}, reference "
+                  f"({route} route) {r['overflowed_groups']}")
+        same = [set(a["top"]) == set(b["top"]) for a, b in zip(g["fragments"], r["fragments"])]
+        overlap = [len(set(a["top"]) & set(b["top"])) for a, b in zip(g["fragments"],
+                                                                        r["fragments"])]
+        phase(f"{label}, scene {seed}: top-{TOPK} overlap per fragment {overlap}")
+        flips = 0
+        for key, rp in r["pairs"].items():
+            gp = g["pairs"][key]
+            i, j = (int(v) for v in key.split("_"))
+            if (gp["ratio"] > RATIO_THRESHOLD) != (rp["ratio"] > RATIO_THRESHOLD):
+                near = rp["corr"] > 0 and abs(rp["ratio"] - RATIO_THRESHOLD) <= 1 / rp["corr"]
+                flips += 1 if gp["ratio"] > RATIO_THRESHOLD else -1
+                phase(f"{label}, scene {seed} pair {key}: matched {gp['ratio'] > RATIO_THRESHOLD} "
+                      f"at ratio {gp['ratio']:.5f} ({gp['inliers']}/{gp['corr']}), reference "
+                      f"{rp['ratio']:.5f} ({rp['inliers']}/{rp['corr']}); top-{TOPK} overlap "
+                      f"{overlap[i]}, {overlap[j]}"
+                      + ("" if near else "; the reference is not within one correspondence "
+                         "of the threshold"))
+                if not near:
+                    bad.append(f"scene {seed} pair {key}: matched state differs from the "
+                               f"reference's ({gp['ratio']:.5f} vs {rp['ratio']:.5f})")
+            if same[i] and same[j] and (gp["corr"], gp["inliers"]) != (rp["corr"], rp["inliers"]):
+                bad.append(f"scene {seed} pair {key}: same top-{TOPK} sets but "
+                           f"{gp['inliers']}/{gp['corr']} vs the reference's "
+                           f"{rp['inliers']}/{rp['corr']}")
+        if g["matched_pairs"] - r["matched_pairs"] != flips:
+            bad.append(f"scene {seed}: {g['matched_pairs']} matched, reference "
+                       f"{r['matched_pairs']}, {flips} near-threshold flips")
+    return bad
+
+
+def recall_phase(card, device="cuda"):
+    """Registration recall on the 4 axis scenes of the eval cache with the
+    r5 weights on the r5 npz's own config: the f32 kernel path held to
+    the JAX reference (``hold_recall``), one counted call (K1, K2 f32 and
+    K3 launched, no twin), then the bf16 kernel path (K2's bf16 kernel,
+    never its f32 one; finite), printed beside f32 and not gated on
+    recall. Returns the JSON line's dict."""
+    import numpy as np
+    import torch
+    from d3feat_tpu_torch.eval.extract import FeatureExtractor
+    from d3feat_tpu_torch.final_recall import load_snapshot
+    from d3feat_tpu_torch.ops.band_conv import band_conv
+    from d3feat_tpu_torch.ops.head import band_head
+    from d3feat_tpu_torch.ops.select import band_select
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, RECALL_REFERENCE)) as f:
+        ref = json.load(f)
+    route = ref["meta"]["route"]
+    cfg, model, meta = load_snapshot(os.path.join(here, "artifacts", "model_best_acc_r5.npz"),
+                                     device)
+    scenes = recall_scenes()
+    phase(f"recall: r5 (epoch {meta['epoch']}) on its own config, {len(scenes)} scenes, "
+          f"{sum(len(f) for f, _ in scenes.values())} fragments, "
+          f"{sum(len(p) for _, p in scenes.values())} gt pairs; reference: JAX "
+          f"{ref['meta']['jax']} on the {route} route")
+    line = {"reference": {s: {k: r[k] for k in ("gt_pairs", "matched_pairs", "recall",
+                                                 "avg_inlier_ratio", "overflowed_groups")}
+                          for s, r in ref["scenes"].items()}, "card": card}
+
+    for dtype in ("float32", "bfloat16"):
+        c = cfg if dtype == "float32" else bf16_config(cfg)
+        ex = FeatureExtractor(c, model, batch_fragments=2, on_overflow="warn", device=device)
+        with count_twins() as twins:
+            band_select.launches = band_conv.launches = band_conv.launches_bf16 = 0
+            band_head.launches = 0
+            ex.extract_many(next(iter(scenes.values()))[0][:2])  # one counted call
+            torch.cuda.synchronize()
+            counts = {"K1": band_select.launches, "K2 f32": band_conv.launches,
+                      "K2 bf16": band_conv.launches_bf16, "K3": band_head.launches}
+            got, secs = recall_pass(c, model, scenes, device)
+        k2 = "K2 f32" if dtype == "float32" else "K2 bf16"
+        other = "K2 bf16" if dtype == "float32" else "K2 f32"
+        check(counts["K1"] > 0 and counts[k2] > 0 and counts["K3"] > 0 and counts[other] == 0,
+              f"recall {dtype}: launches of one call {counts}")
+        check(not any(twins.values()), f"recall {dtype}: twins ran {twins}")
+        phase(f"recall {dtype}: launches of one call " + ", ".join(
+            f"{k} {v}" for k, v in counts.items()) + "; no twin ran in the pass")
+        for seed, g in got.items():
+            check(all(f["finite"] and len(f["top"]) == TOPK for f in g["fragments"]),
+                  f"recall {dtype} scene {seed}: non-finite outputs or a short selection")
+        mean = recall_lines(got, f"recall {dtype}")
+        phase(f"recall {dtype}: {sum(len(f) for f, _ in scenes.values())} fragments extracted "
+              f"and registered in {secs:.3f} s")
+        line[dtype] = {"mean_recall": mean, "seconds": secs, "launches": counts,
+                       "scenes": {s: {k: g[k] for k in ("gt_pairs", "matched_pairs", "recall",
+                                                        "avg_inlier_ratio",
+                                                        "overflowed_groups")}
+                                  for s, g in got.items()}}
+        if dtype == "float32":
+            bad = hold_recall(ref["scenes"], got, route)
+            check(not bad, "recall f32 vs the JAX reference: " + "; ".join(bad))
+            phase(f"recall f32 held to the JAX reference ({route} route): gt pairs, overflow, "
+                  f"matched pairs and counts agree under the rules")
+            f32 = got
+        else:
+            for seed, g in got.items():
+                phase(f"recall bf16 scene {seed}: {g['recall'] - f32[seed]['recall']:+.2f} points "
+                      f"on f32 ({g['matched_pairs'] - f32[seed]['matched_pairs']:+d} pairs)")
+            hold_recall(f32, got, "f32", "bf16 vs f32")  # printed, not gated
+    return line
+
+
 def bench_phase(card):
     """The port's bench (``d3feat_tpu_torch.bench.run_bench``) in f32 and
     in bf16 on one shared set of ``scan_fragment`` fragments; returns the
@@ -1138,6 +1347,8 @@ def main():
     train_bf16(cfg, report, batch)
     phase("bench")
     bench_lines = bench_phase(smi)
+    phase("recall")
+    recall_line = recall_phase(smi)
 
     sources = {"K1 select": ("select.cu", "d3feat_tpu/ops/pallas/select.py:252"),
                # the selection that K2's and K4's TPU kernels redo in every conv
@@ -1166,6 +1377,7 @@ def main():
           "the threshold selection of its rows)")
     for line in bench_lines:
         print(json.dumps(line), flush=True)
+    print(json.dumps({"recall": recall_line}), flush=True)
     print(json.dumps({"fragments_per_s": fps, "fragments_per_s_bf16": fps_bf16,
                       "train_steps_per_s": sps, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,6 +10,15 @@ first use with ``nvcc`` into ``_build/`` and called through ``ctypes``.
 Each kernel has a plain PyTorch twin in the same module, which runs for
 CPU tensors.
 
+Paths: serving extraction (``eval/extract.py::FeatureExtractor``, K1-K3),
+the train step (``train/step.py``, K1-K5), the bench (``bench.py``) and
+registration recall: ``eval/`` (keypoint selection, mutual-NN matching,
+inlier counts, ``register_scene``, gt logs, ``generate_features``), the
+held-out scene cache (``eval/scene_cache.py``) and the test set
+(``data/threedmatch.py``, ``data/ply.py``), driven by the entry points
+``python3 -m d3feat_tpu_torch.final_recall`` and ``python3 -m
+d3feat_tpu_torch.test_3dmatch``.
+
 Entry points default to ``device="cuda"`` and raise when CUDA is missing;
 tests pass ``device="cpu"`` explicitly.
 """

@@ -2,7 +2,9 @@
 ``d3feat_tpu.data.synthetic``): rooms of rotated boxes, spheres and capped
 cylinders, rendered by a pinhole depth camera with Kinect-like noise, fused
 over a few nearby views and voxel-downsampled at the dataset resolution.
-The bench draws its fragments from ``scan_fragment``.
+The bench draws its fragments from ``scan_fragment``; the held-out scene
+generator (``eval/scene_cache.py``) warps its rooms with
+``make_warp_field``, and the synthetic eval draws ``synthetic_fragment``.
 
 Host numpy, copied draw for draw: the same ``np.random.Generator`` state
 gives the JAX package's fragment bit for bit. The pair generators and
@@ -14,6 +16,21 @@ from __future__ import annotations
 import numpy as np
 
 from d3feat_tpu_torch.data.threedmatch import voxel_downsample
+
+
+def synthetic_fragment(
+    rng: np.random.Generator, n_points: int, extent: float = 3.0,
+    noise: float = 0.005,
+) -> np.ndarray:
+    """[N, 3] wavy 2.5D surface patch sampled uniformly in x-y."""
+    xy = rng.uniform(0.0, extent, size=(n_points, 2))
+    z = (
+        0.3 * np.sin(xy[:, 0] * 2.1)
+        + 0.2 * np.cos(xy[:, 1] * 3.3)
+        + 0.1 * np.sin(xy[:, 0] * xy[:, 1])
+    )
+    pts = np.column_stack([xy, z])
+    return (pts + rng.normal(0.0, noise, pts.shape)).astype(np.float32)
 
 
 def _ray_room_exit(o, d, lo, hi):
@@ -239,3 +256,37 @@ def scan_fragment(
     pts = voxel_downsample(pts, downsample)
     return (pts - pts.mean(axis=0, keepdims=True)).astype(np.float32)
 
+
+def make_warp_field(rng: np.random.Generator, amplitude: float = 1.0):
+    """Per-scene smooth random displacement field R^3 -> R^3.
+
+    Exact geometric primitives make every wall patch a perfect plane, so
+    uniformly-sampled correspondences are locally indistinguishable from
+    far-away negatives and descriptor training stalls at its irreducible
+    loss floor (measured: handcrafted-signature 1-NN accuracy ~7% vs 0.8%
+    chance on the unwarped corpus). Real fused indoor scans are never
+    piecewise-perfect — reconstruction residue and surface detail give
+    every patch unique curvature. This field reproduces that: a sum of
+    random sinusoids (wavelengths 0.10-0.55 m, RMS displacement ~2.4 cm at
+    ``amplitude=1``) warping world space. Because it is a function of
+    world position it is automatically consistent across fused views and
+    across the two fragments of a pair.
+    """
+    n = 12
+    wl = np.exp(rng.uniform(np.log(0.10), np.log(0.55), n))
+    k = rng.normal(size=(n, 3))
+    k /= np.linalg.norm(k, axis=1, keepdims=True)
+    k *= (2.0 * np.pi / wl)[:, None]
+    phase = rng.uniform(0.0, 2.0 * np.pi, n)
+    dirs = rng.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    # longer wavelengths displace more; short ones add curvature detail
+    # (probe_data_discriminability: these parameters at amplitude 1.5-2
+    # lift signature 1-NN accuracy 0.07 -> 0.22)
+    amp = amplitude * 0.015 * (wl / wl.max()) ** 0.5
+
+    def warp(x: np.ndarray) -> np.ndarray:
+        ph = x @ k.T + phase  # [N, n]
+        return (x + (np.sin(ph) * amp) @ dirs).astype(np.float32)
+
+    return warp

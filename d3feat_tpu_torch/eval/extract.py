@@ -1,5 +1,5 @@
-"""Per-fragment feature extraction (port of
-``d3feat_tpu.eval.extract.FeatureExtractor``).
+"""Per-fragment feature extraction (port of ``d3feat_tpu.eval.extract``:
+``FeatureExtractor`` and ``generate_features``).
 
 Each fragment, or group of ``batch_fragments`` fragments riding the cloud
 axis, is packed into the smallest capacity bucket and runs through one
@@ -9,7 +9,7 @@ extraction step on the device; the valid rows come back to the host.
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -17,6 +17,7 @@ import torch
 from d3feat_tpu_torch import resolve_device
 from d3feat_tpu_torch.config import D3FeatConfig, PyramidCaps
 from d3feat_tpu_torch.data.pack import choose_bucket, pack_fragments, pack_single
+from d3feat_tpu_torch.eval.registration import FragmentFeatures
 from d3feat_tpu_torch.train.step import make_extract_step
 
 DEFAULT_BUCKETS = (4096, 8192, 16384, 32768)
@@ -122,3 +123,30 @@ class FeatureExtractor:
                 results.append((feats[row : row + n], scores[row : row + n, 0]))
                 row += n
         return results
+
+
+def generate_features(
+    extractor: FeatureExtractor,
+    testset,
+    *,
+    save_path: Optional[str] = None,
+    desc_name: str = "D3Feat",
+    verbose: bool = False,
+) -> Dict[str, FragmentFeatures]:
+    """Extract every fragment of ``testset`` grouped per scene; optionally
+    persist in the reference's .npy layout (test.py:113-127)."""
+    per_scene: Dict[str, FragmentFeatures] = {}
+    counters: Dict[str, int] = {}
+    for i in range(len(testset)):
+        scene = testset.scene_of[i]
+        pts = testset.get_fragment(i)
+        desc, scores = extractor.extract(pts)
+        fid = counters.get(scene, 0)
+        counters[scene] = fid + 1
+        per_scene.setdefault(scene, FragmentFeatures()).add(fid, pts, desc, scores)
+        if verbose:
+            print(f"[extract] {scene}/cloud_bin_{fid}: {len(pts)} pts")
+    if save_path is not None:
+        for scene, feats in per_scene.items():
+            feats.save(save_path, scene, desc_name)
+    return per_scene

@@ -39,8 +39,15 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
+TOOLS = ("scene_cache", "ab_recall", "final_recall", "gen_eval_cache", "test_3dmatch")
+assert not [m for m in sys.modules if m in TOOLS], [m for m in sys.modules if m in TOOLS]
 for m in ("d3feat_tpu_torch.bench", "d3feat_tpu_torch.data.synthetic",
-          "d3feat_tpu_torch.data.threedmatch"):
+          "d3feat_tpu_torch.data.threedmatch", "d3feat_tpu_torch.data.ply",
+          "d3feat_tpu_torch.data.augment", "d3feat_tpu_torch.utils.timer",
+          "d3feat_tpu_torch.eval.gtlog", "d3feat_tpu_torch.eval.matching",
+          "d3feat_tpu_torch.eval.registration", "d3feat_tpu_torch.eval.extract",
+          "d3feat_tpu_torch.eval.scene_cache", "d3feat_tpu_torch.final_recall",
+          "d3feat_tpu_torch.test_3dmatch"):
     assert m in mods, m
 print(len(mods))
 '''

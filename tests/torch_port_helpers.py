@@ -8,6 +8,7 @@ capacity 512, ``first_features_dim`` 16, ``force_band_export=True``.
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
@@ -219,3 +220,173 @@ def band_conv_bwd_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, g
     g_rows = gs.new_zeros((ns, kpn, cout)).index_add_(0, r, w[:, :, None] * gs[qi][:, None, :])
     dx = g_rows.reshape(ns, kpn * cout) @ weights.permute(0, 2, 1).reshape(kpn * cout, c)
     return dx, dw
+
+
+# --- registration recall on the held-out scenes: the JAX package's answer
+# (``tests/torch_port_recall_r5.json``), which chip_smoke.py holds the card to ---
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+R5_NPZ = f"{ROOT}/artifacts/model_best_acc_r5.npz"
+EVAL_CACHE = f"{ROOT}/artifacts/eval_cache"
+RECALL_REFERENCE = f"{ROOT}/tests/torch_port_recall_r5.json"
+RECALL_SEEDS = (424242, 424243, 424244, 424245)
+
+
+def jax_r5():
+    """(JAX config, params, model state) of the r5 npz, on its own config."""
+    import json
+
+    import jax
+    from d3feat_tpu.compat.portable import import_npz
+    from d3feat_tpu.config import D3FeatConfig
+    from d3feat_tpu.models.kpfcnn import init_kpfcnn as j_init
+
+    with np.load(R5_NPZ, allow_pickle=False) as z:
+        cfg = D3FeatConfig.from_dict(json.loads(str(z["__meta__"]))["config"])
+    params, state, _ = j_init(jax.random.key(0), cfg)
+    params, state, _ = import_npz(R5_NPZ, params, state)
+    return cfg, params, state
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_band_step(cfg_json, cap0, num_clouds):
+    import json
+
+    import jax
+    from d3feat_tpu.config import D3FeatConfig
+    from d3feat_tpu.train.step import make_extract_step
+
+    c = D3FeatConfig.from_dict(json.loads(cfg_json))
+    return jax.jit(make_extract_step(c, pyramid_spec=jax_band_spec(c, num_clouds),
+                                     num_clouds=num_clouds))
+
+
+def jax_band_extractor():
+    """JAX's ``FeatureExtractor`` class with every bucket's step on the band
+    route the TPU ran and the port follows: ``make_extract_step`` on a
+    pyramid spec with ``force_band_export`` (Pallas in interpret mode). The
+    jitted steps are shared by every instance (the weights are arguments)."""
+    import json
+
+    from d3feat_tpu.config import D3FeatConfig
+    from d3feat_tpu.eval.extract import FeatureExtractor, _bucket_caps
+
+    class BandExtractor(FeatureExtractor):
+        def _step_for(self, cap0, num_clouds):
+            c = D3FeatConfig.from_dict(self.config.to_dict())
+            c.caps = _bucket_caps(self.config, cap0)
+            return _jax_band_step(json.dumps(c.to_dict(), sort_keys=True), cap0, num_clouds)
+
+    return BandExtractor
+
+
+def jax_scene_recall(ex, frags, poses, num_points=250):
+    """One scene through JAX: ``extract_many`` group by group (overflow
+    warnings caught per group), then ``register_scene``; per fragment the
+    selected keypoints, per gt pair the correspondences and inliers."""
+    import warnings
+
+    from d3feat_tpu.eval.matching import inlier_stats, mutual_nn_numpy, select_keypoints
+    from d3feat_tpu.eval.registration import FragmentFeatures, register_scene
+
+    feats, frag_rows, groups = FragmentFeatures(), [], []
+    b = ex.batch_fragments
+    for g in range(0, len(frags), b):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = ex.extract_many(frags[g:g + b])
+        over = [str(w.message) for w in caught if "overflow" in str(w.message)]
+        if over:
+            groups.append(g // b)
+        for i, (desc, sc) in enumerate(out, start=g):
+            feats.add(i, frags[i], desc, sc)
+            frag_rows.append({"points": len(frags[i]), "group": g // b, "overflow": bool(over)})
+    res = register_scene(feats, poses, num_points=num_points)
+    sel = {}
+    for i, row in enumerate(frag_rows):
+        sel[i] = select_keypoints(feats.scores[i], num_points)
+        row["top"] = sel[i].tolist()
+    pairs = {}
+    for key in poses:
+        i, j = (int(v) for v in key.split("_"))
+        corr = mutual_nn_numpy(np.nan_to_num(feats.descriptors[i][sel[i]]),
+                               np.nan_to_num(feats.descriptors[j][sel[j]]))
+        n_in, ratio = inlier_stats(feats.keypts[i][sel[i]], feats.keypts[j][sel[j]], corr,
+                                   poses[key], 0.10)
+        assert ratio == res.pair_ratios[key]
+        pairs[key] = {"corr": int(len(corr)), "inliers": int(n_in), "ratio": float(ratio)}
+    return {"gt_pairs": res.gt_pairs, "matched_pairs": res.matched_pairs,
+            "recall": res.recall, "avg_inlier_ratio": res.avg_inlier_ratio,
+            "overflowed_groups": groups, "fragments": frag_rows, "pairs": pairs}
+
+
+def jax_recall_reference(seeds=RECALL_SEEDS, route="band"):
+    """The JAX package's recall on the axis scenes ``seeds`` of the eval
+    cache with the r5 weights: ``FeatureExtractor(batch_fragments=2,
+    on_overflow="warn")`` on ``route`` (``"band"``: see ``jax_band_extractor``;
+    ``"cpu"``: the package's own CPU route, XLA searches and the gather
+    KPConv), 250 keypoints, 0.10, 5 %."""
+    import sys
+    import time
+
+    import jax
+    from d3feat_tpu.eval.extract import FeatureExtractor
+
+    sys.path.insert(0, f"{ROOT}/tools")
+    from scene_cache import cache_path, load_scene
+
+    t = time.perf_counter()
+    cfg, params, state = jax_r5()
+    cls = jax_band_extractor() if route == "band" else FeatureExtractor
+    ex = cls(cfg, params, state, batch_fragments=2, on_overflow="warn")
+    scenes = {}
+    for seed in seeds:
+        frags, poses = load_scene(cache_path(EVAL_CACHE, seed, 12, "axis", 2.0))
+        scenes[str(seed)] = jax_scene_recall(ex, frags, poses)
+    route_doc = {"band": "make_extract_step on a pyramid spec with force_band_export=True "
+                         "(the band route: K1-K3 as Pallas kernels in interpret mode)",
+                 "cpu": "the JAX package's CPU route (tools/final_recall.py --cpu: XLA "
+                        "banded searches, gather KPConv)"}[route]
+    return {"meta": {"route": route, "route_detail": route_doc, "jax": jax.__version__,
+                     "backend": jax.default_backend(), "seconds": time.perf_counter() - t,
+                     "command": "JAX_PLATFORMS=cpu python -m tests.torch_port_helpers "
+                                f"--route {route}",
+                     "snapshot": "artifacts/model_best_acc_r5.npz",
+                     "scene_cache": "artifacts/eval_cache", "frame": "axis", "warp": 2.0,
+                     "fragments": 12, "batch_fragments": 2, "on_overflow": "warn",
+                     "num_points": 250, "distance_threshold": 0.10,
+                     "inlier_ratio_threshold": 0.05},
+            "scenes": scenes}
+
+
+def write_reference(ref, path):
+    """JSON with one line per fragment and per pair."""
+    import json
+    import re
+
+    text = json.dumps(ref, indent=1)
+    text = re.sub(r"\[[-0-9.,\s]*\]", lambda m: re.sub(r"\s+", "", m.group(0)), text)
+    text = re.sub(r'\{\s*("(?:points|corr)"[^{}]*?)\s*\}',
+                  lambda m: "{" + re.sub(r"\s*\n\s*", " ", m.group(1)) + "}", text)
+    with open(path, "w") as f:
+        f.write(text + "\n")
+
+
+if __name__ == "__main__":
+    import argparse
+    import json
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    ap = argparse.ArgumentParser(description="write the JAX recall reference")
+    ap.add_argument("--route", choices=("band", "cpu"), default="band")
+    ap.add_argument("--seeds", type=int, nargs="+", default=list(RECALL_SEEDS))
+    ap.add_argument("--out", default=RECALL_REFERENCE)
+    a = ap.parse_args()
+    ref = jax_recall_reference(tuple(a.seeds), a.route)
+    write_reference(ref, a.out)
+    for seed, s in ref["scenes"].items():
+        print(seed, s["gt_pairs"], s["matched_pairs"], s["recall"], s["avg_inlier_ratio"],
+              s["overflowed_groups"])
+    print("seconds", ref["meta"]["seconds"])
