@@ -9,7 +9,9 @@ It needs one CUDA device, ``nvcc`` (the CUDA toolkit), the committed r5
 weights (``artifacts/model_best_acc_r5.npz``), the committed eval-cache
 fragments and poses (``artifacts/eval_cache``) and the JAX recall
 reference (``tests/torch_port_recall_r5.json``); it imports nothing of
-JAX or of the JAX package. Phases, each announced with the elapsed seconds:
+JAX or of the JAX package. Besides the kernels' build directory
+(``d3feat_tpu_torch/_build``) it writes only into a temporary directory
+(under ``TMPDIR``) that it removes. Phases, each announced with the elapsed seconds:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: the kernel sources ``d3feat_tpu_torch/ops/cuda/*.cu`` with
@@ -52,11 +54,39 @@ JAX or of the JAX package. Phases, each announced with the elapsed seconds:
    skipped, the flat gradient within twice the distance of a twin step
    from weights one f32 ulp away (the bf16 step's own noise; or within
    1e-2 where that is smaller) and nearer the twins' than the f32 step's;
-6. the port's bench (``d3feat_tpu_torch.bench``): its measuring function
+6. the trainer: the port's ``Trainer`` at full width on a corpus that
+   ``gen_corpus.write_scene`` writes into a temporary directory (at least 8
+   scenes of the train role and 2 of the validation role, numbers that are
+   multiples of ``VAL_MOD``; seconds printed), on the r5 npz's own config
+   (width 128, 5 layers, SGD lr 0.01, momentum 0.98, ``corpus_rotation``
+   mix, 128 correspondences, r5's capacities) warm-started from r5: start
+   epoch 114 and r5's bests from its meta, two epochs of 8 steps, 2
+   validation steps each, a snapshot every epoch, the autoexport in the
+   temporary directory. Gates: every epoch's mean loss finite and none
+   skipped; ``config.json``, ``metrics.jsonl``, ``snapshot_epoch_115``,
+   ``snapshot_epoch_116`` and ``model_final`` written;
+   ``model_best_loss``, ``model_best_acc`` and the autoexport written
+   exactly when validation beat r5's bests (the reference's rule; which
+   ones is printed); the trainer's weights equal bit for bit to what
+   ``final_recall.load_snapshot`` loads from the directory's
+   ``model_final`` and from an npz that ``export_npz`` writes at the end;
+   a second ``Trainer`` resumed from ``latest_periodic()`` with the same
+   momentum, its next step on a fixed batch against the continuing
+   trainer's (bit for bit, or else within the train-step gate, the
+   largest difference printed); that continuing step counted: K1 13, the
+   list stage 9, K2 14, K3 1, K4 14, the transpose 9, K5 1, and no twin
+   (``count_twins`` covers the backward twins too); then the same run in
+   bf16 (finite, none skipped, K2's and K4's bf16 kernels only). Printed:
+   steps/s through the ``Trainer`` with the loader in the loop beside
+   ``make_train_step``'s from phase 5, the share of the loop spent waiting
+   on data, the overflow share, each epoch's mean train and validation
+   losses in f32 and bf16, and the recall of the trained npz on scene
+   424245 (not gated); one JSON line ``{"trainer": ...}``;
+7. the port's bench (``d3feat_tpu_torch.bench``): its measuring function
    in f32 and in bf16 on one shared set of ``scan_fragment`` fragments
    (no overflow), each printing its JSON line (a smoke check: the
    baseline is the bench's command line, in a fresh process);
-7. registration recall (``d3feat_tpu_torch.final_recall``'s pass) on the
+8. registration recall (``d3feat_tpu_torch.final_recall``'s pass) on the
    4 axis scenes of ``artifacts/eval_cache`` (48 fragments, 68 gt pairs)
    with the r5 weights on the r5 npz's own config:
    ``FeatureExtractor(batch_fragments=2, on_overflow="warn")``, then the
@@ -73,10 +103,17 @@ JAX or of the JAX package. Phases, each announced with the elapsed seconds:
    printed. Then the same in bf16 (K2's bf16 kernel, never its f32 one;
    finite), printed beside f32, not gated on recall; one JSON line
    ``{"recall": ...}``;
-8. with ``--profile``, device time by kernel and the device busy share
+9. with ``--profile``, device time by kernel and the device busy share
    over 4 extraction calls (f32 and bf16) and over 3 train steps
    (``torch.profiler``);
-9. one JSON line with every kernel's numbers, then the result line.
+10. one JSON line with every kernel's numbers, then the result line.
+
+The JSON lines come in this order before the last: the bench's two, then
+``{"recall": ...}``, ``{"trainer": ...}`` (corpus seconds, per dtype the
+epochs' losses and accuracies, steps, steps/s, data-wait and overflow
+shares; the bests written, the resume comparison, the counted step's
+launches, the recall on scene 424245, the card), the throughput line and
+the kernels line.
 
 Any failed check exits non-zero before the result line.
 """
@@ -1068,13 +1105,16 @@ RATIO_THRESHOLD = 0.05  # a pair is matched above this inlier ratio (reference t
 @contextlib.contextmanager
 def count_twins():
     """``{name: calls}`` of the kernels' plain twins (K1, the list stage, K2
-    and K3) inside the ``with`` block: the wrappers call them through their
-    module globals, which this patches."""
+    and K3, and the backward twins of K4, the transpose and K5) inside the
+    ``with`` block: the wrappers call them through their module globals,
+    which this patches."""
     from d3feat_tpu_torch.ops import band_conv, band_lists, head, select
 
     calls, saved = {}, []
     for mod, name in ((select, "select_plain"), (band_lists, "band_lists_plain"),
-                      (band_conv, "band_conv_plain"), (head, "band_head_plain")):
+                      (band_conv, "band_conv_plain"), (head, "band_head_plain"),
+                      (band_conv, "band_conv_bwd_plain"), (head, "band_head_bwd_plain"),
+                      (band_lists, "transpose_lists_plain")):
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
         calls[name] = 0
@@ -1250,6 +1290,311 @@ def recall_phase(card, device="cuda"):
     return line
 
 
+TRAIN_SCENES = 8           # trainer phase: train steps an epoch, one a scene of the train role
+VAL_SCENES = 2             # validation steps an epoch, one a scene of the validation role
+CORPUS_SEED = 777          # gen_corpus's default seed
+
+
+def flat_grads(model):
+    import torch
+    from d3feat_tpu_torch.train.optim import train_tensors
+
+    return torch.cat([t.grad.reshape(-1) for _, t in train_tensors(model)])
+
+
+def write_corpus(root):
+    """The trainer phase's corpus, written by ``gen_corpus.write_scene``
+    (default resolution, warp and crop) in threads: scenes ``1..
+    TRAIN_SCENES + 3`` of the train role and ``0, 50, 100`` of the
+    validation role (``DiskScanPairDataset.VAL_MOD``), of which gen_corpus
+    skips a few (too few candidate pairs). Returns the seconds taken."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from d3feat_tpu_torch.data.synthetic import DiskScanPairDataset
+    from d3feat_tpu_torch.gen_corpus import write_scene
+
+    t = time.perf_counter()
+    os.makedirs(root)
+    train = list(range(1, TRAIN_SCENES + 4))
+    val = [DiskScanPairDataset.VAL_MOD * k for k in range(VAL_SCENES + 1)]
+    with ThreadPoolExecutor(8) as pool:
+        ok = dict(zip(train + val, pool.map(lambda i: write_scene(root, i, seed=CORPUS_SEED),
+                                            train + val)))
+    n_train, n_val = sum(ok[i] for i in train), sum(ok[i] for i in val)
+    check(n_train >= TRAIN_SCENES and n_val >= VAL_SCENES,
+          f"gen_corpus wrote {n_train} train and {n_val} validation scenes")
+    return time.perf_counter() - t, n_train, n_val
+
+
+def run_trainer(cfg, corpus, device="cuda"):
+    """The port's ``Trainer`` on ``make_loaders``' corpus route, as
+    ``python3 -m d3feat_tpu_torch.train_3dmatch --corpus`` builds it.
+    Returns the trainer and, per epoch, its train meters, the validation
+    results, the train loop's wall seconds and the data and step timers."""
+    from d3feat_tpu_torch.train.trainer import Trainer
+    from d3feat_tpu_torch.train_3dmatch import make_loaders
+
+    train_loader, val_loader = make_loaders(cfg, False, False, corpus)
+    tr = Trainer(cfg, train_loader, val_loader, device=device)
+    epochs = []
+    train_epoch, evaluate = tr.train_epoch, tr.evaluate
+
+    def timed_epoch(epoch):
+        t = time.perf_counter()
+        res = train_epoch(epoch)
+        epochs.append({"epoch": epoch, "train": res, "wall_s": time.perf_counter() - t,
+                       "steps": tr.step_timer.calls, "data_s": tr.data_timer.total_time,
+                       "step_s": tr.step_timer.total_time})
+        return res
+
+    def recorded_eval(epoch):
+        epochs[-1]["val"] = evaluate(epoch)
+        return epochs[-1]["val"]
+
+    tr.train_epoch, tr.evaluate = timed_epoch, recorded_eval
+    return tr, epochs
+
+
+def trainer_summary(epochs, label):
+    """Check each epoch (finite loss, none skipped, validation ran) and
+    print its losses; returns the JSON line's numbers."""
+    import math
+
+    for e in epochs:
+        tm, vm = e["train"], e.get("val")
+        check(math.isfinite(tm["loss"]) and tm["skipped"] == 0.0 and e["steps"] > 0,
+              f"trainer {label} epoch {e['epoch']}: mean loss {tm['loss']}, skipped "
+              f"{tm['skipped']}, {e['steps']} steps")
+        check(vm is not None and math.isfinite(vm["loss"]),
+              f"trainer {label} epoch {e['epoch']}: validation {vm}")
+        phase(f"trainer {label} epoch {e['epoch']}: {e['steps']} steps, mean train loss "
+              f"{tm['loss']:.6f} (accuracy {tm['accuracy']:.2f} %, overflow {tm['overflow']}), "
+              f"validation loss {vm['loss']:.6f} (accuracy {vm['accuracy']:.2f} %); "
+              f"{e['steps'] / e['wall_s']:.3f} steps/s, data {e['data_s']:.3f} s, "
+              f"step {e['step_s']:.3f} s")
+    steps = sum(e["steps"] for e in epochs)
+    data, step = sum(e["data_s"] for e in epochs), sum(e["step_s"] for e in epochs)
+    return {"epochs": [{"epoch": e["epoch"], "steps": e["steps"],
+                        "train_loss": e["train"]["loss"], "train_accuracy": e["train"]["accuracy"],
+                        "val_loss": e["val"]["loss"], "val_accuracy": e["val"]["accuracy"],
+                        "steps_per_s": e["steps"] / e["wall_s"]} for e in epochs],
+            "steps": steps, "steps_per_s": steps / sum(e["wall_s"] for e in epochs),
+            "data_wait_share": data / (data + step),
+            "overflow_share": sum(e["train"]["overflow"] * e["steps"] for e in epochs) / steps}
+
+
+def trainer_phase(card, step_sps, device="cuda"):
+    """The port's ``Trainer`` at full width on the card: the r5 npz's own
+    config warm-started from r5 (epoch 114) for two epochs of a small
+    ``gen_corpus`` corpus, in f32 and in bf16. Checks the snapshots, the
+    best snapshots and the autoexport by the reference's rule, the weights
+    read back through ``final_recall.load_snapshot`` (``model_final`` and an
+    exported npz), a resume from ``latest_periodic()`` against the
+    continuing run, and one counted step (every kernel, no twin). Returns
+    the ``{"trainer": ...}`` line's dict."""
+    import copy
+    import math
+    import tempfile
+
+    import torch
+    from d3feat_tpu_torch.compat.portable import export_npz, read_npz
+    from d3feat_tpu_torch.compat.weights import optimizer_state_by_name
+    from d3feat_tpu_torch.config import D3FeatConfig
+    from d3feat_tpu_torch.data.pack import EVAL_CACHE
+    from d3feat_tpu_torch.eval.scene_cache import cache_path, load_scene
+    from d3feat_tpu_torch.final_recall import load_snapshot
+    from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
+    from d3feat_tpu_torch.ops.band_lists import band_lists, transpose_lists
+    from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
+    from d3feat_tpu_torch.ops.select import band_select
+    from d3feat_tpu_torch.train.checkpoint import BEST_ACC, BEST_LOSS
+    from d3feat_tpu_torch.train.optim import train_tensors
+    from d3feat_tpu_torch.train.trainer import Trainer
+    from d3feat_tpu_torch.train_3dmatch import make_loaders
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    r5 = os.path.join(here, "artifacts", "model_best_acc_r5.npz")
+    meta = read_npz(r5)[2]
+    r5_best = (meta["best_loss"], meta["best_acc"])
+    line = {"card": card, "make_train_step_steps_per_s": step_sps}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        line["corpus_s"], n_train, n_val = write_corpus(corpus)
+        phase(f"trainer: corpus of {n_train} train and {n_val} validation scenes written by "
+              f"gen_corpus in {line['corpus_s']:.3f} s")
+
+        cfg = D3FeatConfig.from_dict(meta["config"])
+        cfg.pretrain = r5
+        cfg.max_epoch = meta["epoch"] + 2
+        cfg.training_max_iter = TRAIN_SCENES
+        cfg.val_max_iter = VAL_SCENES
+        cfg.snapshot_interval = 1
+        cfg.snapshot_root = tmp
+        cfg.experiment_id = "f32"
+        cfg.autoexport = os.path.join(tmp, "f32_best_acc.npz")
+        check(cfg.first_features_dim == 128 and cfg.num_layers == 5
+              and cfg.corpus_rotation == "mix" and cfg.num_node == 128,
+              f"r5 config: width {cfg.first_features_dim}, {cfg.num_layers} layers, "
+              f"rotation {cfg.corpus_rotation}, {cfg.num_node} correspondences")
+
+        wrappers = {"K1": band_select, "lists": band_lists, "K2": band_conv, "K3": band_head,
+                    "K4": band_conv_bwd, "transpose": transpose_lists, "K5": band_head_bwd}
+        with count_twins() as twins:
+            tr, epochs = run_trainer(cfg, corpus, device)
+            check(tr.start_epoch == meta["epoch"] == 114,
+                  f"trainer: warm start at epoch {tr.start_epoch}, r5 meta {meta['epoch']}")
+            check((tr.best_loss, tr.best_acc) == r5_best,
+                  f"trainer: bests {tr.best_loss}, {tr.best_acc} from r5's meta")
+            tr.train()
+        check(not any(twins.values()), f"trainer f32: twins ran {twins}")
+        line["float32"] = trainer_summary(epochs, "f32")
+        snap = tr.snapshots.directory
+        for f in ("config.json", "metrics.jsonl", f"snapshot_epoch_{meta['epoch'] + 1}",
+                  f"snapshot_epoch_{meta['epoch'] + 2}", "model_final"):
+            check(os.path.exists(os.path.join(snap, f)), f"trainer: no {f}")
+
+        # the reference's rule: a best snapshot (and the autoexport) exactly
+        # when validation beat the bests the warm start took from r5's meta
+        best_loss, best_acc = r5_best
+        want = {BEST_LOSS: None, BEST_ACC: None}
+        for e in epochs:
+            if e["val"]["loss"] < best_loss:
+                best_loss, want[BEST_LOSS] = e["val"]["loss"], e["epoch"] + 1
+            if e["val"]["accuracy"] > best_acc:
+                best_acc, want[BEST_ACC] = e["val"]["accuracy"], e["epoch"] + 1
+        for name, epoch in want.items():
+            check(tr.snapshots.exists(name) == (epoch is not None),
+                  f"trainer: {name} exists {tr.snapshots.exists(name)}, expected at epoch "
+                  f"{epoch}")
+            if epoch is not None:
+                with open(os.path.join(snap, name + ".meta.json")) as f:
+                    m = json.load(f)
+                check(m["epoch"] == epoch, f"trainer: {name} meta {m}, expected epoch {epoch}")
+        auto = os.path.exists(cfg.autoexport)
+        check(auto == (want[BEST_ACC] is not None),
+              f"trainer: autoexport written {auto}, new best accuracy at {want[BEST_ACC]}")
+        if auto:
+            ameta = load_snapshot(cfg.autoexport, device)[2]
+            check(ameta["epoch"] == want[BEST_ACC] and ameta["best_acc"] == best_acc,
+                  f"trainer: autoexport meta {ameta}")
+        line["best"] = {"model_best_loss_epoch": want[BEST_LOSS],
+                        "model_best_acc_epoch": want[BEST_ACC], "autoexport": auto}
+        phase(f"trainer: bests from r5 {r5_best}; model_best_loss "
+              f"{'at epoch ' + str(want[BEST_LOSS]) if want[BEST_LOSS] else 'not written'}, "
+              f"model_best_acc and the autoexport "
+              f"{'at epoch ' + str(want[BEST_ACC]) if want[BEST_ACC] else 'not written'} "
+              f"(validation did {'' if auto else 'not '}beat r5's best accuracy)")
+
+        # the weights read back through final_recall: model_final and an npz
+        # that export_npz writes from the trainer's model now
+        final = {k: v.clone() for k, v in tr.state.model.state_dict().items()}
+        npz = os.path.join(tmp, "trained.npz")
+        export_npz(npz, tr.state.model.state_dict(), None,
+                   meta={"epoch": cfg.max_epoch, "best_loss": tr.best_loss,
+                         "best_acc": tr.best_acc, "config": cfg.to_dict()})
+        for src, kw in ((snap, {"name": "model_final"}), (npz, {})):
+            _, m, _ = load_snapshot(src, device, **kw)
+            sd = m.state_dict()
+            check(sd.keys() == final.keys() and all(torch.equal(sd[k], final[k]) for k in final),
+                  f"trainer: weights loaded from {os.path.basename(src)} differ from the "
+                  f"trainer's")
+        phase("trainer: model_final (snapshot directory) and an exported npz load through "
+              "final_recall.load_snapshot to the trainer's weights, bit for bit")
+
+        # resume: a second trainer from latest_periodic() against the first
+        # continuing, one step each on one fixed batch; the first trainer's
+        # step is the counted one
+        latest = tr.snapshots.latest_periodic()
+        check(latest == f"snapshot_epoch_{cfg.max_epoch}", f"latest_periodic {latest}")
+        cfg2 = copy.deepcopy(cfg)
+        cfg2.pretrain = os.path.join(snap, latest)
+        cfg2.experiment_id = "resumed"
+        train_loader, _ = make_loaders(cfg2, False, False, corpus)
+        tr2 = Trainer(cfg2, train_loader, None, device=device)
+        check(tr2.start_epoch == cfg.max_epoch and tr2.state.step == tr.state.step,
+              f"resume: epoch {tr2.start_epoch}, step {tr2.state.step} vs {tr.state.step}")
+        mom = [optimizer_state_by_name(t.state.model, t.state.optimizer)["momentum_buffer"]
+               for t in (tr, tr2)]
+        check(all(torch.equal(mom[0][k], mom[1][k]) for k in mom[0]),
+              "resume: momentum differs from the continuing run's")
+        it = iter(train_loader)
+        batch = tr._device_put(next(it))
+        it.close()  # stops the loader's producer
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        band_conv.launches_bf16 = band_conv_bwd.launches_bf16 = 0
+        with count_twins() as twins:
+            tr.state, m1 = tr._train_step(tr.state, batch, cfg.max_epoch)  # the counted step
+            torch.cuda.synchronize()
+        counts = {n: w.launches for n, w in wrappers.items()}
+        want_counts = {"K1": 13, "lists": 9, "K2": 14, "K3": 1, "K4": 14, "transpose": 9,
+                       "K5": 1}
+        check(counts == want_counts and not any(twins.values()),
+              f"trainer step: launches {counts}, expected {want_counts}; twins {twins}")
+        phase("trainer step launches: " + ", ".join(f"{n} {c}" for n, c in counts.items())
+              + "; no twin ran")
+        g1 = flat_grads(tr.state.model)
+        tr2.state, m2 = tr2._train_step(tr2.state, batch, cfg.max_epoch)
+        g2 = flat_grads(tr2.state.model)
+        p1 = torch.cat([t.detach().reshape(-1) for _, t in train_tensors(tr.state.model)])
+        p2 = torch.cat([t.detach().reshape(-1) for _, t in train_tensors(tr2.state.model)])
+        same = m1 == m2 and torch.equal(g1, g2) and torch.equal(p1, p2)
+        gerr, perr = float((g1 - g2).abs().max()), float((p1 - p2).abs().max())
+        check(math.isfinite(m1.loss) and m1.skipped == m2.skipped == 0.0
+              and abs(m1.loss - m2.loss) <= 1e-3 * abs(m1.loss)
+              and torch.allclose(g2, g1, atol=5e-3, rtol=5e-3),
+              f"resume: loss {m2.loss} vs {m1.loss}, gradients differ by {gerr}")
+        phase(f"trainer resume from {latest}: loss {m2.loss!r} vs the continuing run's "
+              f"{m1.loss!r}; " + ("bit for bit equal (metrics, gradients, weights)" if same else
+                                  f"not bit for bit: max gradient diff {gerr:.3g}, max weight "
+                                  f"diff {perr:.3g}, within the train-step gate (the pooling "
+                                  f"gathers' backward sums into rows with atomic adds, whose "
+                                  f"order is not fixed on the card)"))
+        line["resume"] = {"bitwise": same, "loss": [m1.loss, m2.loss], "max_grad_diff": gerr,
+                          "max_weight_diff": perr}
+        line["counted_step_launches"] = counts
+        del tr2
+
+        # the trained npz's recall on one held-out scene (printed only)
+        with open(os.path.join(here, RECALL_REFERENCE)) as f:
+            r5_recall = json.load(f)["scenes"]["424245"]["recall"]
+        scene = load_scene(cache_path(EVAL_CACHE, 424245, 12, "axis", 2.0))
+        rcfg, rmodel, _ = load_snapshot(npz, device)
+        got, secs = recall_pass(rcfg, rmodel, {"424245": scene}, device)
+        g = got["424245"]
+        line["recall_424245"] = {"trained": g["recall"], "matched_pairs": g["matched_pairs"],
+                                 "gt_pairs": g["gt_pairs"], "r5": r5_recall}
+        phase(f"trainer: the trained npz on scene 424245: recall {g['recall']:.2f} % "
+              f"({g['matched_pairs']} of {g['gt_pairs']} pairs; r5 {r5_recall:.2f} %), "
+              f"{secs:.3f} s (printed, not gated)")
+
+        # bf16: the same run with compute_dtype="bfloat16"
+        bcfg = copy.deepcopy(cfg)
+        bcfg.compute_dtype = "bfloat16"
+        bcfg.experiment_id = "bf16"
+        bcfg.autoexport = os.path.join(tmp, "bf16_best_acc.npz")
+        band_conv.launches = band_conv.launches_bf16 = 0
+        band_conv_bwd.launches = band_conv_bwd.launches_bf16 = 0
+        with count_twins() as twins:
+            btr, bepochs = run_trainer(bcfg, corpus, device)
+            btr.train()
+        check(not any(twins.values()), f"trainer bf16: twins ran {twins}")
+        check(band_conv.launches == band_conv_bwd.launches == 0
+              and band_conv.launches_bf16 > 0 and band_conv_bwd.launches_bf16 > 0,
+              f"trainer bf16: K2 {band_conv.launches_bf16} bf16 and {band_conv.launches} f32 "
+              f"launches, K4 {band_conv_bwd.launches_bf16} and {band_conv_bwd.launches}")
+        line["bfloat16"] = trainer_summary(bepochs, "bf16")
+        line["bfloat16"]["launches"] = {"K2 bf16": band_conv.launches_bf16,
+                                        "K4 bf16": band_conv_bwd.launches_bf16}
+    f32 = line["float32"]
+    phase(f"trainer: {f32['steps_per_s']:.3f} train steps/s through the Trainer with the "
+          f"loader in the loop (bf16 {line['bfloat16']['steps_per_s']:.3f}), make_train_step "
+          f"alone {step_sps:.3f}; the Trainer waited on data {100 * f32['data_wait_share']:.2f} "
+          f"% of its loop; overflow share {f32['overflow_share']} on {card}")
+    return line
+
+
 def bench_phase(card):
     """The port's bench (``d3feat_tpu_torch.bench.run_bench``) in f32 and
     in bf16 on one shared set of ``scan_fragment`` fragments; returns the
@@ -1345,6 +1690,8 @@ def main():
     sps = train_phase(cfg, report, smi, batch)
     phase("training path, bf16")
     train_bf16(cfg, report, batch)
+    phase("trainer")
+    trainer_line = trainer_phase(smi, sps)
     phase("bench")
     bench_lines = bench_phase(smi)
     phase("recall")
@@ -1378,6 +1725,7 @@ def main():
     for line in bench_lines:
         print(json.dumps(line), flush=True)
     print(json.dumps({"recall": recall_line}), flush=True)
+    print(json.dumps({"trainer": trainer_line}), flush=True)
     print(json.dumps({"fragments_per_s": fps, "fragments_per_s_bf16": fps_bf16,
                       "train_steps_per_s": sps, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

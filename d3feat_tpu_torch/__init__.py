@@ -17,7 +17,13 @@ inlier counts, ``register_scene``, gt logs, ``generate_features``), the
 held-out scene cache (``eval/scene_cache.py``) and the test set
 (``data/threedmatch.py``, ``data/ply.py``), driven by the entry points
 ``python3 -m d3feat_tpu_torch.final_recall`` and ``python3 -m
-d3feat_tpu_torch.test_3dmatch``.
+d3feat_tpu_torch.test_3dmatch``, and training: ``train/trainer.py::Trainer``
+on the pair datasets (``data/synthetic.py``, ``data/threedmatch.py``,
+``data/prepare.py``) through ``data/loader.py::PairLoader``, with
+snapshots (``train/checkpoint.py``) and the portable npz both ways
+(``compat/portable.py``), driven by ``python3 -m
+d3feat_tpu_torch.train_3dmatch`` on a corpus that ``python3 -m
+d3feat_tpu_torch.gen_corpus`` writes.
 
 Entry points default to ``device="cuda"`` and raise when CUDA is missing;
 tests pass ``device="cpu"`` explicitly.

@@ -4,16 +4,19 @@ The port keeps its own copy (it imports nothing of the JAX package) with the
 same fields, defaults, ``architecture()`` and JSON round trip, so a config
 written by either stack loads in the other. Knobs that only steer the JAX
 package's TPU paths (``neighbor_search``, ``use_pallas``, ...) are kept for
-that round trip; the port always runs the sorted-band path.
+that round trip; the port always runs the sorted-band path. ``get_config``
+is the same argparse surface (every field as ``--name``, plus
+``--cap_points``, ``--cap_neighbors`` and ``--cap_corr``).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import time
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -211,3 +214,38 @@ class D3FeatConfig:
     def from_json(cls, path: str) -> "D3FeatConfig":
         with open(path) as f:
             return cls.from_dict(json.load(f))
+
+
+def _add_bool(parser: argparse.ArgumentParser, name: str, default: bool, help: str = ""):
+    parser.add_argument(
+        name, type=lambda v: str(v).lower() in ("true", "1", "yes"), default=default, help=help
+    )
+
+
+def get_config(argv: Optional[Sequence[str]] = None) -> D3FeatConfig:
+    """CLI entry mirroring the reference's argparse surface (config.py:95-97)."""
+    defaults = D3FeatConfig()
+    p = argparse.ArgumentParser(description="d3feat_tpu configuration")
+    for f in dataclasses.fields(D3FeatConfig):
+        if f.name in ("caps", "experiment_id"):
+            continue
+        default = getattr(defaults, f.name)
+        flag = f"--{f.name}"
+        if isinstance(default, bool):
+            _add_bool(p, flag, default)
+        else:
+            p.add_argument(flag, type=type(default), default=default)
+    p.add_argument("--experiment_id", type=str, default=defaults.experiment_id)
+    p.add_argument("--cap_points", type=int, nargs="+", default=list(defaults.caps.points))
+    p.add_argument("--cap_neighbors", type=int, nargs="+", default=list(defaults.caps.neighbors))
+    p.add_argument("--cap_corr", type=int, default=defaults.caps.corr)
+    args = p.parse_args(argv)
+    d = vars(args)
+    caps = PyramidCaps(
+        points=tuple(d.pop("cap_points")),
+        neighbors=tuple(d.pop("cap_neighbors")),
+        corr=d.pop("cap_corr"),
+    )
+    cfg = D3FeatConfig.from_dict(d)
+    cfg.caps = caps
+    return cfg

@@ -19,14 +19,17 @@ leaves (b) out.
 It prints the JAX tool's JSON, plus ``card`` (``nvidia-smi``'s name and
 power limit), ``compute_dtype`` and the overflow warnings per scene, and
 writes it to ``--out`` only when given. ``--snapshot`` takes the portable
-npz only; ``--cpu`` runs the plain PyTorch twins on the CPU. Without
-``--cpu`` it needs a CUDA device.
+npz, or a snapshot directory of the port's trainer (its ``config.json``
+and the snapshot ``--name``, default ``model_best_acc``); ``--cpu`` runs
+the plain PyTorch twins on the CPU. Without ``--cpu`` it needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import warnings
 
@@ -39,7 +42,9 @@ PROTOCOL = "reference test.py:20-82 (top-k, mutual-NN, inlier>0.05 at 0.10 m)"
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="held-out registration recall (port)")
     ap.add_argument("--snapshot", type=str, default="artifacts/model_best_acc_r5.npz",
-                    help="portable params-only npz")
+                    help="portable params-only npz, or a snapshot directory")
+    ap.add_argument("--name", type=str, default="model_best_acc",
+                    help="the snapshot to load from a snapshot directory")
     ap.add_argument("--fragments", type=int, default=12)
     ap.add_argument("--num_points", type=int, default=250)
     ap.add_argument("--seed", type=int, default=424242)  # held-out scenes
@@ -60,22 +65,23 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def load_snapshot(path: str, device, bf16: bool = False):
-    """(config, model with the npz's weights, meta without the config)."""
+def load_snapshot(path: str, device, bf16: bool = False, name: str = "model_best_acc"):
+    """(config, model with the snapshot's weights, meta without the config)
+    of a portable npz (its meta's config), or of a snapshot directory of the
+    port's ``Trainer`` (its ``config.json`` and the snapshot ``name``)."""
     from d3feat_tpu_torch.compat.portable import read_npz
     from d3feat_tpu_torch.compat.weights import load_npz
     from d3feat_tpu_torch.config import D3FeatConfig
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
+    from d3feat_tpu_torch.train.checkpoint import SnapshotManager
 
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: snapshot directories wait for the port's SnapshotManager "
-            f"(ROADMAP Queue 1 item 3); pass a portable .npz")
-    cfg = D3FeatConfig.from_dict(read_npz(path)[2]["config"])
+    npz = path.endswith(".npz")
+    cfg = (D3FeatConfig.from_dict(read_npz(path)[2]["config"]) if npz
+           else D3FeatConfig.from_json(os.path.join(path, "config.json")))
     if bf16:
         cfg.compute_dtype = "bfloat16"
     model = init_kpfcnn(cfg, seed=cfg.seed, device=device)
-    meta = load_npz(model, path)
+    meta = load_npz(model, path) if npz else SnapshotManager(path).restore_model(name, model)
     meta.pop("config", None)
     return cfg, model, meta
 
@@ -136,9 +142,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, trained, meta = load_snapshot(args.snapshot, device, args.bf16)
+    cfg, trained, meta = load_snapshot(args.snapshot, device, args.bf16, args.name)
     card = card_name(device)
-    print("loaded", args.snapshot, "meta:", meta, "device:", card, flush=True)
+    print("loaded", args.snapshot, args.name, "meta:", meta, "device:", card, flush=True)
 
     scenes = []
     for s in range(args.scenes):
@@ -196,7 +202,8 @@ def main(argv=None) -> int:
         "frame": args.frame,
         "warp": args.warp,
         "num_points": args.num_points,
-        "snapshot": args.snapshot,
+        "snapshot": (args.snapshot if args.snapshot.endswith(".npz")
+                     else os.path.join(args.snapshot, args.name)),
         "epochs_meta": meta,
         "per_scene_recall": per_scene,
         "fragment_sizes": {f"scene{s}": [len(f) for f in frags]

@@ -16,9 +16,10 @@ against ``<gt_root>/<scene>-evaluation/gt.log``. ``--synthetic`` runs the
 whole pipeline hermetically on generated fragments with exact poses.
 
 ``--snapshot`` takes the portable npz (default: the config's random init,
-the port's own stream). ``--chosen_snapshot`` (snapshot directories) and
-``--torch_checkpoint`` (reference ``.pth`` files) are not ported yet.
-Without ``--cpu`` it needs a CUDA device.
+the port's own stream); ``--chosen_snapshot`` a snapshot directory of the
+port's trainer (its ``config.json`` and the snapshot ``--snapshot_name``,
+default ``model_best_acc``). ``--torch_checkpoint`` (reference ``.pth``
+files) is not ported yet. Without ``--cpu`` it needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,9 +36,10 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="d3feat_tpu_torch evaluation")
     p.add_argument("--snapshot", type=str, default="", help="portable params-only npz")
     p.add_argument("--chosen_snapshot", type=str, default="",
-                   help="snapshot directory (not ported yet)")
+                   help="snapshot directory of the port's trainer (config.json + snapshots)")
     p.add_argument("--torch_checkpoint", type=str, default="",
                    help="reference .pth checkpoint (not ported yet)")
+    p.add_argument("--snapshot_name", type=str, default="model_best_acc")
     p.add_argument("--inlier_ratio_threshold", default=0.05, type=float)
     p.add_argument("--distance_threshold", default=0.10, type=float)
     p.add_argument("--random_points", default=False, action="store_true")
@@ -54,20 +56,20 @@ def parse_args(argv=None):
 
 
 def load_model(args, device):
-    """(config, model): the npz's weights, or the default config's init."""
+    """(config, model): the npz's weights, the snapshot directory's
+    (``--chosen_snapshot``, ``--snapshot_name``), or the default config's
+    init."""
     from d3feat_tpu_torch.config import D3FeatConfig
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
 
-    if args.chosen_snapshot:
-        raise NotImplementedError("--chosen_snapshot: snapshot directories wait for the "
-                                  "port's SnapshotManager (ROADMAP Queue 1 item 3)")
     if args.torch_checkpoint:
         raise NotImplementedError("--torch_checkpoint: reference .pth import waits for "
                                   "compat/torch_import.py (ROADMAP Queue 1 item 6)")
-    if args.snapshot:
+    if args.snapshot or args.chosen_snapshot:
         from d3feat_tpu_torch.final_recall import load_snapshot
 
-        config, model, _ = load_snapshot(args.snapshot, device)
+        config, model, _ = load_snapshot(args.snapshot or args.chosen_snapshot, device,
+                                         name=args.snapshot_name)
     else:
         config = D3FeatConfig()
         model = init_kpfcnn(config, seed=config.seed, device=device)
@@ -145,7 +147,8 @@ def main(argv=None):
 
     save_path = args.save_path or os.path.join(
         "geometric_registration",
-        os.path.splitext(os.path.basename(args.snapshot))[0] or "d3feat_tpu_torch")
+        os.path.splitext(os.path.basename(args.snapshot))[0]
+        or os.path.basename(args.chosen_snapshot.rstrip("/")) or "d3feat_tpu_torch")
     testset = ThreeDMatchTestset(config.root, downsample=config.downsample)
 
     if args.generate_features:

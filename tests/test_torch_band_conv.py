@@ -21,6 +21,7 @@ from d3feat_tpu_torch.ops.band_lists import band_lists
 from d3feat_tpu_torch.ops.neighbors import band_windows
 from d3feat_tpu_torch.ops.pyramid import level_band_cap
 from tests.torch_port_helpers import band_conv_from_lists, jax_pyramid, torch_batch_from_jax
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 # (search, support level, strided, cin, cout)
 CASES = [("conv0", 0, False, 1, 8), ("conv0", 0, False, 16, 16),

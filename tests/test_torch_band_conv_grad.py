@@ -26,6 +26,7 @@ from d3feat_tpu_torch.ops.band_lists import band_lists
 from d3feat_tpu_torch.ops.neighbors import band_windows
 from d3feat_tpu_torch.ops.pyramid import level_band_cap
 from tests.torch_port_helpers import band_conv_bwd_from_lists, band_conv_from_lists, jax_pyramid
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 GRAD_TOL = dict(atol=5e-4, rtol=1e-3)
 

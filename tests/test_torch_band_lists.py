@@ -31,6 +31,7 @@ from d3feat_tpu_torch.ops.neighbors import band_windows
 from d3feat_tpu_torch.ops.pyramid import level_band_cap
 from d3feat_tpu_torch.ops.select import tile_windows
 from tests.torch_port_helpers import NEIGHBORS, jax_pyramid, torch_batch_from_jax
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 # (search, support level, strided): the searches of K2's level-0, pool and deep convs
 SEARCHES = [("conv0", 0, False), ("pool0", 0, True), ("conv1", 1, False), ("conv2", 2, False)]

@@ -8,6 +8,7 @@ import pytest
 
 from d3feat_tpu.data.synthetic import scan_fragment as j_scan_fragment
 from d3feat_tpu_torch.bench import bench_config, draw_fragments, main, run_bench
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 SCAN = dict(resolution=(24, 18))
 N_MIN, N_MAX = 150, 400

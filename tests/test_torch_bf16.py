@@ -50,6 +50,7 @@ from d3feat_tpu_torch.ops.band_conv import BandConvFn, band_conv
 from d3feat_tpu_torch.ops.band_lists import band_lists
 from d3feat_tpu_torch.ops.neighbors import band_windows, pick_chunk
 from tests.torch_port_helpers import band_conv_bwd_from_lists, band_conv_from_lists
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 BOUND = 1e-2  # relative L2 of bf16 panels (tests/test_band_conv.py:139-195)
 TWIN_BOUND = 1e-4  # the kernels' route against the twins (chip_smoke.py's BF16_TWIN_L2)

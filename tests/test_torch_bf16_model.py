@@ -41,6 +41,7 @@ from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
 from d3feat_tpu_torch.train.step import TrainState, make_train_step
 from tests.torch_port_helpers import jax_config, jax_pyramid, pair_batch, \
     torch_batch_from_jax, torch_config
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 BOUND = 1e-2
 LAYERS = 3

@@ -11,6 +11,7 @@ from d3feat_tpu_torch.config import D3FeatConfig, PyramidCaps
 from d3feat_tpu_torch.models.kpfcnn import make_kpfcnn_specs
 from d3feat_tpu_torch.ops.pyramid import level_band_cap, make_pyramid_spec
 from tests.torch_port_helpers import jax_config, torch_config
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 BENCH_CAPS = tuple(c * 2 for c in (16384, 8192, 2048, 768, 256))
 

@@ -17,6 +17,7 @@ import d3feat_tpu.utils.timer as j_timer
 import d3feat_tpu_torch.eval as T
 from d3feat_tpu_torch.eval.matching import mutual_nn_matrix
 from d3feat_tpu_torch.utils.timer import AverageMeter, Timer
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 
 def _unit(v):

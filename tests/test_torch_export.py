@@ -28,6 +28,7 @@ from d3feat_tpu.compat.torch_import import (  # noqa: E402
 from d3feat_tpu.config import D3FeatConfig, PyramidCaps  # noqa: E402
 from d3feat_tpu.models import make_kpfcnn_specs  # noqa: E402
 from d3feat_tpu.models.kpfcnn import init_kpfcnn  # noqa: E402
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 
 def _cfg(num_layers=3, use_bn=False):

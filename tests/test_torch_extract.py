@@ -19,6 +19,7 @@ from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
 from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
 from d3feat_tpu_torch.train.step import make_extract_step
 from tests.torch_port_helpers import jax_band_spec, jax_config, packed_pair, torch_config
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 
 def test_extract_step_matches_jax():

@@ -32,6 +32,7 @@ from d3feat_tpu_torch.eval.registration import FragmentFeatures
 from d3feat_tpu_torch.eval.scene_cache import cache_path, save_scene
 from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
 from tests.torch_port_helpers import jax_band_extractor, jax_config, torch_config
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 SCENES = ("scene-b", "scene-a")
 
@@ -281,11 +282,13 @@ def test_recall_entry_points_refuse(weights, tmp_path):
     from d3feat_tpu_torch import final_recall
     from d3feat_tpu_torch import test_3dmatch as t_3dmatch
 
-    with pytest.raises(NotImplementedError, match="SnapshotManager"):
+    # a snapshot directory loads (tests/test_torch_train_cli.py); one
+    # without the run's config.json is refused
+    with pytest.raises(FileNotFoundError, match="config.json"):
         t_3dmatch.main(["--synthetic", "--cpu", "--chosen_snapshot", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="torch_import"):
         t_3dmatch.main(["--synthetic", "--cpu", "--torch_checkpoint", "model.pth"])
-    with pytest.raises(NotImplementedError, match="SnapshotManager"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         final_recall.main(["--cpu", "--snapshot", str(tmp_path)])
     if not torch.cuda.is_available():  # no silent CPU fallback
         for main, argv in ((final_recall.main, []), (t_3dmatch.main, ["--synthetic"])):

@@ -14,6 +14,7 @@ import torch
 
 from d3feat_tpu_torch.models.blocks import leaky_relu
 from d3feat_tpu_torch.models.kpfcnn import softplus
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 FNS = {"leaky_relu": (leaky_relu, lambda x: jax.nn.leaky_relu(x, 0.1)),
        "softplus": (softplus, jax.nn.softplus)}

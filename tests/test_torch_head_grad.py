@@ -30,6 +30,7 @@ from d3feat_tpu_torch.ops.head import BandHeadFn, band_head_bwd, band_head_bwd_p
 from d3feat_tpu_torch.ops.neighbors import band_windows
 from d3feat_tpu_torch.ops.pyramid import level_band_cap
 from tests.torch_port_helpers import jax_pyramid, torch_batch_from_jax, torch_config
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

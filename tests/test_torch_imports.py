@@ -31,6 +31,7 @@ class Block:
 
 sys.meta_path.insert(0, Block())
 import d3feat_tpu_torch
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 mods = ["d3feat_tpu_torch"]
 for info in pkgutil.walk_packages(d3feat_tpu_torch.__path__, "d3feat_tpu_torch."):
     importlib.import_module(info.name)
@@ -39,7 +40,8 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
-TOOLS = ("scene_cache", "ab_recall", "final_recall", "gen_eval_cache", "test_3dmatch")
+TOOLS = ("scene_cache", "ab_recall", "final_recall", "gen_eval_cache", "test_3dmatch",
+         "train_3dmatch", "gen_corpus")
 assert not [m for m in sys.modules if m in TOOLS], [m for m in sys.modules if m in TOOLS]
 for m in ("d3feat_tpu_torch.bench", "d3feat_tpu_torch.data.synthetic",
           "d3feat_tpu_torch.data.threedmatch", "d3feat_tpu_torch.data.ply",
@@ -47,7 +49,11 @@ for m in ("d3feat_tpu_torch.bench", "d3feat_tpu_torch.data.synthetic",
           "d3feat_tpu_torch.eval.gtlog", "d3feat_tpu_torch.eval.matching",
           "d3feat_tpu_torch.eval.registration", "d3feat_tpu_torch.eval.extract",
           "d3feat_tpu_torch.eval.scene_cache", "d3feat_tpu_torch.final_recall",
-          "d3feat_tpu_torch.test_3dmatch"):
+          "d3feat_tpu_torch.test_3dmatch", "d3feat_tpu_torch.compat.portable",
+          "d3feat_tpu_torch.data.loader", "d3feat_tpu_torch.data.prepare",
+          "d3feat_tpu_torch.train.checkpoint", "d3feat_tpu_torch.train.logging_utils",
+          "d3feat_tpu_torch.train.trainer", "d3feat_tpu_torch.train_3dmatch",
+          "d3feat_tpu_torch.gen_corpus"):
     assert m in mods, m
 print(len(mods))
 '''
@@ -100,3 +106,13 @@ def test_entry_points_need_cuda_or_explicit_cpu():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             init_kpfcnn(cfg)
+
+
+def test_training_entry_point_needs_cuda_or_explicit_cpu(tmp_path):
+    from d3feat_tpu_torch import train_3dmatch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the command would train")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_3dmatch.main(["--synthetic", "--snapshot_root", str(tmp_path)])
+    assert not os.listdir(tmp_path)  # nothing ran on the CPU

@@ -13,6 +13,7 @@ from d3feat_tpu_torch.compat.weights import params_from_numpy
 from d3feat_tpu_torch.models.kpfcnn import apply_kpfcnn, init_kpfcnn
 from tests.torch_port_helpers import jax_config, jax_pyramid, torch_batch_from_jax, \
     torch_config
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 
 def _both(topm, seed=3):

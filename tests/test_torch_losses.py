@@ -24,6 +24,7 @@ from d3feat_tpu.losses.distances import cdist as j_cdist
 from d3feat_tpu_torch.losses.descriptor import circle_loss, contrastive_loss
 from d3feat_tpu_torch.losses.detector import det_loss
 from d3feat_tpu_torch.losses.distances import cdist
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 M, N_VALID, D = 20, 14, 8

@@ -13,6 +13,7 @@ from d3feat_tpu.ops.neighbors import make_level_frame as j_frame
 from d3feat_tpu_torch.ops.neighbors import SortedLevel, make_level_frame
 from d3feat_tpu_torch.ops.pyramid import level_band_pad, level_search, make_pyramid_spec
 from tests.torch_port_helpers import jax_pyramid, torch_config
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 SEED = 3
 

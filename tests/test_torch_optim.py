@@ -23,6 +23,7 @@ from d3feat_tpu.config import D3FeatConfig as JConfig
 from d3feat_tpu.train.optim import learning_rate as j_lr, make_optimizer as j_opt
 from d3feat_tpu_torch.config import D3FeatConfig
 from d3feat_tpu_torch.train.optim import learning_rate, make_optimizer, optimizer_step
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 
 @pytest.mark.parametrize("epoch", [0, 1, 79, 80, 200])

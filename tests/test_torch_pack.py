@@ -5,6 +5,7 @@ import pytest
 
 from d3feat_tpu.data import pack as jpack
 from d3feat_tpu_torch.data import pack as tpack
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 
 def _clouds(seed, sizes):

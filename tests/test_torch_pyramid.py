@@ -13,6 +13,7 @@ import torch
 
 from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
 from tests.torch_port_helpers import jax_pyramid, torch_config
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 
 def _port(seed):

@@ -15,6 +15,7 @@ import d3feat_tpu_torch.data.augment as t_aug
 import d3feat_tpu_torch.data.synthetic as t_syn
 from d3feat_tpu_torch.eval import scene_cache as t_cache
 from tests.torch_port_helpers import EVAL_CACHE, ROOT
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 
 def _tool(name):

@@ -26,6 +26,7 @@ from d3feat_tpu_torch.ops.pyramid import level_band_cap
 from d3feat_tpu_torch.ops.select import (
     EMPTY_D2, KMAX, band_select, exact_d2, fma_f32, select_block, select_plain)
 from tests.torch_port_helpers import jax_pyramid, torch_batch_from_jax
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 # (name, query level, support level, radius in units of r_0, K, tile)
 CASES = [("conv0", 0, 0, 1.0, 14, 256), ("pool0", 1, 0, 1.0, 14, 128),

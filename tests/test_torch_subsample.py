@@ -10,6 +10,7 @@ import torch
 from d3feat_tpu.ops import subsample as jsub
 from d3feat_tpu_torch.ops import subsample as tsub
 from tests.torch_port_helpers import packed_pair
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 
 def _stack(seed, sizes, scale=2.0, cap=None):

@@ -10,6 +10,7 @@ from d3feat_tpu.data.synthetic import scan_fragment as j_scan_fragment
 from d3feat_tpu.data.threedmatch import voxel_downsample as j_voxel_downsample
 from d3feat_tpu_torch.data.synthetic import make_room, scan_fragment
 from d3feat_tpu_torch.data.threedmatch import voxel_downsample
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 
 @pytest.mark.parametrize("seed,resolution", [(0, (40, 30)), (7, (32, 24)), (3, (160, 120))])

@@ -14,7 +14,13 @@ parameters (``params_from_numpy``).
 (d) a NaN in one input feature: both report ``skipped`` 1; the port's
     parameters, optimizer state and step count stay as they were;
 (e) the eval step's metrics equal JAX's at rtol 1e-5;
-(f) the setting not ported yet (batch norm) raises."""
+(f) the setting not ported yet (batch norm) raises;
+(g) the port's ``Trainer`` against JAX's ``Trainer`` on this module's
+    jitted band-route steps: two epochs, epoch meters, snapshots, meta,
+    ``metrics.jsonl`` tags and final weights."""
+
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +36,7 @@ from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
 from d3feat_tpu_torch.train.step import TrainState, make_eval_step, make_train_step
 from tests.torch_port_helpers import jax_band_spec, jax_config, jax_pyramid, pair_batch, \
     torch_batch_from_jax, torch_config
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 LAYERS = 3
 FIELDS = ("loss", "desc_loss", "det_loss", "accuracy", "d_pos", "d_neg", "lr", "skipped",
@@ -170,3 +177,100 @@ def test_unported_settings_raise(field, value):
     for make in (make_train_step, make_eval_step):
         with pytest.raises(NotImplementedError):
             make(tcfg)
+
+
+def test_trainer_matches_jax_trainer(jax_steps, tmp_path):
+    """Both ``Trainer``s from the same JAX-initialised weights, 2 epochs of
+    2 steps and 1 validation step on equal ``SyntheticPairDataset``
+    loaders, a snapshot every epoch. JAX's ``Trainer`` is given the band
+    route from the test side: its steps are this module's jitted band-route
+    steps (``jax_steps``; JAX's ``make_pyramid_spec`` takes the CPU route
+    on the CPU). Each epoch's train meters and validation results agree at
+    (b)'s loss tolerance (rtol 1e-3), the snapshot names, their meta
+    epochs and best choices, and ``metrics.jsonl``'s tags are the same.
+    Final weights: each step's gradient may differ by atol + rtol |g|
+    (5e-3 each, (b)'s tolerance), and SGD with momentum m moves a weight by
+    lr times the momentum trace, so after steps k = 1..4 the weights may
+    differ by at most lr * sum_k sum_{j<=k} m^(k-j) (5e-3 + 5e-3 G_j), G_j
+    the largest |gradient| of step j (the port's)."""
+    from d3feat_tpu.data.loader import PairLoader as JPairLoader
+    from d3feat_tpu.data.synthetic import SyntheticPairDataset as JSynthetic
+    from d3feat_tpu.train.trainer import Trainer as JTrainer
+    from d3feat_tpu_torch.data.loader import PairLoader
+    from d3feat_tpu_torch.data.synthetic import SyntheticPairDataset
+    from d3feat_tpu_torch.train.trainer import Trainer
+    from tests.torch_port_helpers import CAPS, N_POINTS
+
+    _, _, jstep, jeval = jax_steps
+
+    def config(root):
+        c = jax_config(LAYERS)
+        c.max_epoch, c.training_max_iter, c.val_max_iter, c.snapshot_interval = 2, 2, 1, 1
+        c.snapshot_root, c.experiment_id, c.verbose = str(root), "run", False
+        return c
+
+    def loaders(loader_cls, ds_cls):
+        return [loader_cls(ds_cls(size=size, n_points=N_POINTS, num_corr=8, seed=seed),
+                           point_capacity=CAPS[0], corr_capacity=8, num_workers=2, seed=seed)
+                for size, seed in ((4, 0), (2, 1))]
+
+    def record(tr):
+        epochs = []
+        train_epoch, evaluate = tr.train_epoch, tr.evaluate
+        tr.train_epoch = lambda e: epochs.append({"train": train_epoch(e)}) or epochs[-1]["train"]
+        tr.evaluate = lambda e: epochs[-1].setdefault("val", evaluate(e))
+        return epochs
+
+    jcfg = config(tmp_path / "jax")
+    jt = JTrainer(jcfg, *loaders(JPairLoader, JSynthetic))
+    first = lambda b: jax.tree.map(lambda x: x[0], b)  # noqa: E731
+    jt._train_step = lambda s, b, e: jstep(s, first(b), e)
+    jt._eval_step = lambda p, m, b: jeval(p, m, first(b))
+    pt = Trainer(torch_config(config(tmp_path / "port")), *loaders(PairLoader, SyntheticPairDataset),
+                 device="cpu")
+    pt.state.model.load_state_dict(_np(jt.state.params))
+    gmax = []
+    step = pt._train_step
+
+    def port_step(state, batch, epoch):
+        state, m = step(state, batch, epoch)
+        gmax.append(max(float(t.grad.abs().max()) for _, t in train_tensors(state.model)))
+        return state, m
+
+    pt._train_step = port_step
+    j_epochs, p_epochs = record(jt), record(pt)
+    jstate = jt.train()
+    pt.train()
+
+    assert len(j_epochs) == len(p_epochs) == 2 and len(gmax) == 4
+    for je, pe in zip(j_epochs, p_epochs):
+        for part in ("train", "val"):
+            assert sorted(je[part]) == sorted(pe[part])
+            for k, v in je[part].items():
+                np.testing.assert_allclose(pe[part][k], v, rtol=1e-3, atol=1e-6, err_msg=k)
+        assert pe["train"]["skipped"] == 0.0
+    jdir, pdir = (os.path.join(str(tmp_path / s), "run") for s in ("jax", "port"))
+    snaps = sorted(f for f in os.listdir(jdir) if f.endswith(".meta.json"))
+    assert snaps == sorted(f for f in os.listdir(pdir) if f.endswith(".meta.json"))
+    assert {"snapshot_epoch_1.meta.json", "snapshot_epoch_2.meta.json",
+            "model_final.meta.json", "model_best_loss.meta.json"} <= set(snaps)
+    for f in snaps:
+        with open(os.path.join(jdir, f)) as a, open(os.path.join(pdir, f)) as b:
+            jm, pm = json.load(a), json.load(b)
+        assert jm["epoch"] == pm["epoch"], f
+        np.testing.assert_allclose([pm["best_loss"], pm["best_acc"]],
+                                   [jm["best_loss"], jm["best_acc"]], rtol=1e-3, err_msg=f)
+        assert os.path.isdir(os.path.join(pdir, f[:-len(".meta.json")]))
+    with open(os.path.join(jdir, "metrics.jsonl")) as a, open(os.path.join(pdir,
+                                                                         "metrics.jsonl")) as b:
+        jtags = [(r["step"], sorted(r)) for r in map(json.loads, a)]
+        ptags = [(r["step"], sorted(r)) for r in map(json.loads, b)]
+    assert jtags == ptags and len(ptags) == 2
+
+    m, lr = jcfg.momentum, jcfg.lr
+    bound = lr * sum(m ** (k - j) * (5e-3 + 5e-3 * gmax[j]) for k in range(4) for j in range(k + 1))
+    jparams = _np(jstate.params)
+    for name, t in train_tensors(pt.state.model):
+        np.testing.assert_allclose(t.detach().numpy(), jparams[name].numpy(), rtol=0, atol=bound,
+                                   err_msg=name)
+    assert int(jstate.step) == pt.state.step == 4

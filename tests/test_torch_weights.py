@@ -15,6 +15,7 @@ from d3feat_tpu_torch.compat.weights import load_npz, params_from_numpy
 from d3feat_tpu_torch.config import D3FeatConfig
 from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
 from tests.torch_port_helpers import jax_config, torch_config
+from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 R5 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                   "artifacts", "model_best_acc_r5.npz")

@@ -6,16 +6,40 @@ Sizes follow ``tests/test_band_head.py``: 220 points per cloud, level-0
 capacity 512, ``first_features_dim`` 16, ``force_band_export=True``.
 """
 
+import contextlib
 import dataclasses
 import functools
 import os
 
 import numpy as np
+import pytest
 import torch
 
 N_POINTS = 220
 CAPS = (512, 256, 128, 64, 32)
 NEIGHBORS = 14
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run torch's CPU ops on one thread inside the block. The suite runs in
+    several worker processes on a few cores: every torch op spread over all
+    cores by every worker oversubscribes them, and the waiting threads slow
+    every worker (a 5 s test took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread_module():
+    """``one_torch_thread`` around every test of a module that imports this
+    fixture."""
+    with one_torch_thread():
+        yield
 
 
 def jax_config(num_layers=5, **overrides):
