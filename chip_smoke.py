@@ -33,7 +33,8 @@ JAX or of the JAX package. Besides the kernels' build directory
    at the BF16 tensor-core rate); K1's sums over the 13 searches, K2's and
    K4's over the 14 convs; for K3's sums and K5, the time of one cuSPARSE
    SpMM (``torch.sparse.mm``) of the same lists as a CSR matrix of ones,
-   as the library's yardstick;
+   as the library's yardstick. K2's and K4's device time is also printed
+   by stage (CUDA kernel name), summed over the 14 convs, f32 and bf16;
 4. serving path: ``FeatureExtractor(batch_fragments=2)`` with the r5
    weights on the eval-cache fragments of 12k-16k points: launch counts of
    one counted call, output checks, the same batch through the twins on
@@ -54,6 +55,8 @@ JAX or of the JAX package. Besides the kernels' build directory
    skipped, the flat gradient within twice the distance of a twin step
    from weights one f32 ulp away (the bf16 step's own noise; or within
    1e-2 where that is smaller) and nearer the twins' than the f32 step's;
+   then 10 more bf16 steps (finite, none skipped, no overflow) and bf16
+   train steps/s;
 6. the trainer: the port's ``Trainer`` at full width on a corpus that
    ``gen_corpus.write_scene`` writes into a temporary directory (at least 8
    scenes of the train role and 2 of the validation role, numbers that are
@@ -104,8 +107,8 @@ JAX or of the JAX package. Besides the kernels' build directory
    finite), printed beside f32, not gated on recall; one JSON line
    ``{"recall": ...}``;
 9. with ``--profile``, device time by kernel and the device busy share
-   over 4 extraction calls (f32 and bf16) and over 3 train steps
-   (``torch.profiler``);
+   over 4 extraction calls (f32 and bf16) and over 3 train steps (f32
+   and bf16) (``torch.profiler``);
 10. one JSON line with every kernel's numbers, then the result line.
 
 The JSON lines come in this order before the last: the bench's two, then
@@ -121,6 +124,7 @@ Any failed check exits non-zero before the result line.
 import contextlib
 import json
 import os
+import re
 import sys
 import time
 
@@ -185,10 +189,19 @@ def device_events(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def device_ms(fn, reps=5):
+def stage_name(key):
+    """A device event's kernel name without its template arguments and
+    signature (``weighted_mma_kernel<bf16, 16>(...)`` -> ``weighted_mma_kernel``)."""
+    m = re.search(r"(\w+)\s*[<(]", key)
+    return m.group(1) if m else key
+
+
+def device_ms(fn, reps=5, stages=None):
     """Device milliseconds per call of ``fn()``: the time its kernels (and
     copies) ran on the card, without the host's launch overhead, over
-    ``reps`` calls after one warm-up call (``torch.profiler``)."""
+    ``reps`` calls after one warm-up call (``torch.profiler``). With a dict
+    ``stages``, adds each kernel's device ms and launches per call into it
+    by ``stage_name``."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -198,7 +211,19 @@ def device_ms(fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(ms for ms, _, _ in device_events(prof)) / reps
+    events = device_events(prof)
+    if stages is not None:
+        for ms, n, key in events:
+            ms0, n0 = stages.get(stage_name(key), (0.0, 0.0))
+            stages[stage_name(key)] = (ms0 + ms / reps, n0 + n / reps)
+    return sum(ms for ms, _, _ in events) / reps
+
+
+def print_stages(label, stages):
+    """The per-stage device time of a kernel, summed over its convs."""
+    rows = sorted(((ms, n, k) for k, (ms, n) in stages.items()), reverse=True)
+    phase(f"{label}, device time by stage: " + ", ".join(
+        f"{k} {ms:.4f} ms ({n:g}x)" for ms, n, k in rows))
 
 
 def bound(nbytes, ops, tc_ops=0, tc_rate=PEAK_3XTF32_S):
@@ -470,6 +495,7 @@ def check_k2(pyr, cfg, model, report, device="cuda", panel="float32"):
     gen.manual_seed(0)
     worst = 0.0
     tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, tc=0.0, bytes=0.0)
+    stages = {}
     for spec, conv, args in conv_cases(pyr, cfg, model):
         kpn, cin, cout = conv.weights.shape
         x = conv_features(spec, pyr, args, cin, gen, device)
@@ -492,7 +518,7 @@ def check_k2(pyr, cfg, model, report, device="cuda", panel="float32"):
             note = f", relative L2 {e_twin:.3g} from the twin, {e_f32:.3g} from f32"
         worst = max(worst, err)
         ms = cuda_ms(lambda: band_conv(impl="kernel", **kw))
-        dev_ms = device_ms(lambda: band_conv(impl="kernel", **kw))
+        dev_ms = device_ms(lambda: band_conv(impl="kernel", **kw), stages=stages)
         plain_ms = cuda_ms(lambda: band_conv(impl="plain", **kw), reps=3)
         ops, tc = k2_work(spec, conv, args, pyr, panel)
         nb = (nbytes(args["q_rows"], args["s_rows"], x, conv.weights, conv.kernel_points, ko,
@@ -507,6 +533,7 @@ def check_k2(pyr, cfg, model, report, device="cuda", panel="float32"):
     phase(f"K2 band_conv{tag}, sum over the {len(conv_cases(pyr, cfg, model))} convs of one "
           f"extraction call: kernel {tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin "
           f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
+    print_stages(f"K2 band_conv{tag}, sum over the convs of one extraction call", stages)
     report[f"K2 band_conv{tag}"] = dict(
         max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
         bound_by=bound(tot["bytes"], tot["ops"], tot["tc"], tc_rate)[1], library_ms=None)
@@ -573,6 +600,7 @@ def check_k4(pyr, cfg, model, report, device="cuda", panel="float32"):
     gen.manual_seed(2)
     worst = 0.0
     tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, tc=0.0, bytes=0.0)
+    stages = {}
     for ci, (spec, conv, args) in enumerate(conv_cases(pyr, cfg, model)):
         kpn, cin, cout = conv.weights.shape
         nq = args["q_rows"].shape[0]
@@ -583,12 +611,13 @@ def check_k4(pyr, cfg, model, report, device="cuda", panel="float32"):
         need_dx = ci > 0
         kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points,
                   panel_dtype=panel)
-        wtd = band_conv_kernel(keep_weighted=True, **kw)[2]
+        _, _, wtd, wb = band_conv_kernel(keep_weighted=True, **kw)
         f32 = dict(kw, panel_dtype="float32")
         wtd32 = band_conv_kernel(keep_weighted=True, **f32)[2] if panel != "float32" else None
         kw.update(gs=gs, need_dx=need_dx)
         f32.update(gs=gs, need_dx=need_dx)
-        kdx, kdw = band_conv_bwd(impl="kernel", weighted=wtd, **kw)
+        kept = dict(weighted=wtd, weights_panel=wb)  # what the forward keeps for K4
+        kdx, kdw = band_conv_bwd(impl="kernel", **kept, **kw)
         pdx, pdw = band_conv_bwd(impl="plain", **kw)
         label = f"K4{tag} {conv_label(spec, conv, args)}"
         err = float((kdw - pdw).abs().max())
@@ -611,8 +640,8 @@ def check_k4(pyr, cfg, model, report, device="cuda", panel="float32"):
                            for n, (a, b) in errs.items())
         check(float(pdw.abs().max()) > 1e-3, f"{label}: vacuous comparison")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: band_conv_bwd(impl="kernel", weighted=wtd, **kw))
-        dev_ms = device_ms(lambda: band_conv_bwd(impl="kernel", weighted=wtd, **kw))
+        ms = cuda_ms(lambda: band_conv_bwd(impl="kernel", **kept, **kw))
+        dev_ms = device_ms(lambda: band_conv_bwd(impl="kernel", **kept, **kw), stages=stages)
         plain_ms = cuda_ms(lambda: band_conv_bwd(impl="plain", **kw), reps=3)
         pairs = conv_pairs(spec, pyr)
         q_live = int((args["q_rows"][:, 3] >= 0).sum())
@@ -620,8 +649,10 @@ def check_k4(pyr, cfg, model, report, device="cuda", panel="float32"):
         # the gather (influence weights and [pairs x Cout] per kernel point)
         # and dx = G W^T on the tensor cores over the listed support rows.
         # bf16: dW over the hi and the lo rows; with dx, V = gs W^T on the
-        # tensor cores [queries x Cout x KP * Cin] and the gather
-        # (influence weights and [pairs x KP * Cin])
+        # tensor cores [queries x Cout x KP * Cin] and the weights and
+        # products by pairs ([pairs x KP * Cin]), counted as FP32 operations
+        # whichever unit runs them, so the bound reads the same work for
+        # every version of the kernel
         row_ptr = args["lists"].transpose(args["s_rows"].shape[0])[0]
         rows_live = int((row_ptr[1:] > row_ptr[:-1]).sum())
         if panel == "float32":
@@ -642,6 +673,7 @@ def check_k4(pyr, cfg, model, report, device="cuda", panel="float32"):
     phase(f"K4 band_conv_bwd{tag}, sum over the {ci + 1} convs of one train step: kernel "
           f"{tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin {tot['plain_ms']:.3f} ms, "
           f"bound {tot['bound_ms']:.4f} ms")
+    print_stages(f"K4 band_conv_bwd{tag}, sum over the convs of one train step", stages)
     report[f"K4 band_conv_bwd{tag}"] = dict(
         max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
         bound_by=bound(tot["bytes"], tot["ops"], tot["tc"], tc_rate)[1], library_ms=None)
@@ -1058,7 +1090,8 @@ def train_bf16(cfg, report, batch, device="cuda"):
     torch.cuda.synchronize()
     for w in (band_conv, band_conv_bwd):
         w.launches = w.launches_bf16 = 0
-    state, m = make_train_step(bcfg, spec)(state, batch, 0)  # the counted bf16 training run
+    step = make_train_step(bcfg, spec)
+    state, m = step(state, batch, 0)  # the counted bf16 training run
     torch.cuda.synchronize()
     check(band_conv_bwd.launches_bf16 > 0 and band_conv_bwd.launches == 0
           and band_conv.launches == 0 and band_conv.launches_bf16 > 0,
@@ -1095,6 +1128,20 @@ def train_bf16(cfg, report, batch, device="cuda"):
           f"{noise:.4g}, the f32 step at {floor:.4g}; {under} of {len(leaves)} leaves within "
           f"{BF16_L2}; worst: " + ", ".join(f"{n} {e:.3g} (one ulp away {u:.3g})"
                                            for e, u, n in leaves[:3]))
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        state, m = step(state, batch, 0)
+        check(math.isfinite(m.loss) and m.skipped == 0.0 and m.overflow == 0.0,
+              f"bf16 train step {i + 1}: loss {m.loss}, skipped {m.skipped}, "
+              f"overflow {m.overflow}")
+    torch.cuda.synchronize()
+    sps = TRAIN_STEPS / (time.perf_counter() - t)
+    phase(f"training bf16: {sps:.3f} train steps/s ({TRAIN_STEPS} steps after the checked one)")
+    if "--profile" in sys.argv:
+        profile(lambda i: step(state, batch, 0), 3, "bf16 train steps")
+    return sps
 
 
 RECALL_SEEDS = (424242, 424243, 424244, 424245)  # the axis scenes of artifacts/eval_cache
@@ -1689,7 +1736,7 @@ def main():
           f"{CORR_RADIUS}, {NUM_NODE} used")
     sps = train_phase(cfg, report, smi, batch)
     phase("training path, bf16")
-    train_bf16(cfg, report, batch)
+    sps_bf16 = train_bf16(cfg, report, batch)
     phase("trainer")
     trainer_line = trainer_phase(smi, sps)
     phase("bench")
@@ -1727,7 +1774,8 @@ def main():
     print(json.dumps({"recall": recall_line}), flush=True)
     print(json.dumps({"trainer": trainer_line}), flush=True)
     print(json.dumps({"fragments_per_s": fps, "fragments_per_s_bf16": fps_bf16,
-                      "train_steps_per_s": sps, "card": smi}), flush=True)
+                      "train_steps_per_s": sps, "train_steps_per_s_bf16": sps_bf16,
+                      "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": count}}), flush=True)

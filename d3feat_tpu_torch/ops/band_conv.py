@@ -32,7 +32,11 @@ before it multiplies w_kp. The density flag reads the rounded x, as the TPU
 kernel sums its bf16 panel. The kernels keep the sum of a query's rounded
 pieces as two bf16 rows, ``hi = bf16(S)`` and ``lo = bf16(S - hi)``
 (``hi + lo = S`` to about 2**-17 relative), and multiply both by W, so
-every product stays one of bf16 operands; the twins do the same. A
+every product stays one of bf16 operands; the twins do the same. K2's
+bf16 panel of W is kept for K4, beside the weighted rows. K4's bf16 dx
+goes by pairs: ``U = sum_kp bf16(w_kp(q, r)) V[q, kp]`` for each listed
+(query, row) pair, ``V = bf16(gs W^T)``, then each support row's sum of
+its pairs' U in ascending pair order. A
 product of two bf16 values is exact in f32, so the twins emulate the
 tensor cores' bf16 products as ``t.to(bfloat16).float()`` followed by f32
 products.
@@ -46,7 +50,7 @@ import numpy as np
 import torch
 
 from d3feat_tpu_torch.ops import build
-from d3feat_tpu_torch.ops.band_lists import uses_kernel
+from d3feat_tpu_torch.ops.band_lists import LCAP, uses_kernel
 from d3feat_tpu_torch.ops.select import add_windows, exact_d2, tile_windows
 
 _BIG = 1.0e10  # masked-out squared distance: w == 0 exactly
@@ -183,12 +187,13 @@ def _depth_slices(k: int, depth: int = 512):
 def _check_shapes(q_rows, s_rows, x, weights, query_tile, starts, panel_dtype):
     """Raises on shapes the kernels do not take; returns the row length of
     the weighted rows (``KP * Cin`` rounded up to 16 bytes of the panel
-    dtype: rows are read in 16-byte chunks, as are the Cout-wide rows)."""
+    dtype: rows are read in 16-byte chunks, as are the Cout-wide rows, and
+    with bf16 panels the Cin-wide rows from 8 channels on)."""
     nq = q_rows.shape[0]
     kpn, c, cout = weights.shape
     vec = 16 // PANEL_DTYPES[panel_dtype].itemsize
     if (nq % query_tile or starts.shape[0] != nq // query_tile or x.shape != (s_rows.shape[0], c)
-            or kpn > KP_MAX or cout % vec):
+            or kpn > KP_MAX or cout % vec or (vec == 8 and c >= 8 and c % vec)):
         raise ValueError("band_conv: bad tile/shape arguments")
     return -(-kpn * c // vec) * vec
 
@@ -206,9 +211,9 @@ def _list_args(lists, q_rows):
 
 _CONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
     ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
-# + starts, tile, chunk, the hi/lo products and the bf16 panels of x and W
+# + starts, tile, chunk and the bf16 panels of x and W
 _CONV_BF16_ARGS = _CONV_ARGS[:-1] + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
-    ctypes.c_void_p] * 4
+    ctypes.c_void_p] * 3
 
 
 def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends,
@@ -217,8 +222,9 @@ def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, start
     """Launch the K2 CUDA kernel (same contract as ``band_conv_plain``),
     from the search's ``lists``: the f32 kernel, or with
     ``panel_dtype="bfloat16"`` the bf16 one. With ``keep_weighted`` it also
-    returns the weighted rows that K4 takes: [Nq_pad, ldw] f32, or in bf16
-    [2 * Nq_pad, ldw], the hi rows then the lo rows."""
+    returns what K4 takes: the weighted rows, [Nq_pad, ldw] f32, or in bf16
+    [2 * Nq_pad, ldw], the hi rows then the lo rows, and the bf16 panel of
+    ``weights`` (None for f32 panels)."""
     f32 = torch.float32
     for t, name in ((q_rows, "q_rows"), (s_rows, "s_rows"), (x, "x"), (weights, "weights"),
                     (kernel_points, "kernel_points")):
@@ -234,6 +240,7 @@ def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, start
     dev = q_rows.device
     act = torch.empty((ns,), dtype=torch.int32, device=dev)
     wtd = torch.empty((rows, ldw), dtype=PANEL_DTYPES[panel_dtype], device=dev)
+    # bf16: the slices' partial sums of the hi and of the lo rows
     part = torch.empty((splits, rows, cout), dtype=f32, device=dev) if splits > 1 else None
     out = torch.empty((nq, cout), dtype=f32, device=dev)
     den = torch.empty((nq,), dtype=f32, device=dev)
@@ -241,21 +248,20 @@ def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, start
             build.ptr(kernel_points), *list_ptrs, nq, ns, c, cout, kpn,
             inv_extent_f32(extent), ldw, splits, kc, build.ptr(act), build.ptr(wtd),
             None if part is None else build.ptr(part), build.ptr(out), build.ptr(den)]
-    if bf16:  # the hi/lo products and the bf16 panels of x and W, written by the launcher
+    wb = None
+    if bf16:  # the bf16 panels of x and W, written by the launcher
         build.require(starts, torch.int32, "starts")
-        hilo = torch.empty((2 * nq, cout), dtype=f32, device=dev)
         xb = torch.empty((ns, c), dtype=torch.bfloat16, device=dev)
         wb = torch.empty((kpn, c, cout), dtype=torch.bfloat16, device=dev)
         fn = build.launcher("band_conv", "band_conv_bf16_launch", _CONV_BF16_ARGS)
-        build.check(fn(*args, build.ptr(starts), query_tile, chunk, build.ptr(hilo),
-                       build.ptr(xb), build.ptr(wb), build.stream_of(q_rows)),
-                    "band_conv_kernel (bf16)")
+        build.check(fn(*args, build.ptr(starts), query_tile, chunk, build.ptr(xb),
+                       build.ptr(wb), build.stream_of(q_rows)), "band_conv_kernel (bf16)")
         band_conv.launches_bf16 += 1
     else:
         fn = build.launcher("band_conv", "band_conv_launch", _CONV_ARGS)
         build.check(fn(*args, build.stream_of(q_rows)), "band_conv_kernel")
         band_conv.launches += 1
-    return (out, den, wtd) if keep_weighted else (out, den)
+    return (out, den, wtd, wb) if keep_weighted else (out, den)
 
 
 def band_conv(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends,
@@ -329,17 +335,21 @@ def band_conv_bwd_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points, st
 
 _CONV_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
     ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
-_CONV_BWD_BF16_ARGS = _CONV_BWD_ARGS[:-1] + [ctypes.c_void_p] * 4  # + gs, W panels, V scratch
+_CONV_BWD_BF16_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
+    ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
 
 
 def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends,
                          gs, *, query_tile: int, extent: float, need_dx: bool = True,
-                         lists, weighted, panel_dtype: str = "float32", chunk=None):
+                         lists, weighted, weights_panel=None, panel_dtype: str = "float32",
+                         chunk=None):
     """Launch the K4 CUDA kernels (same contract as ``band_conv_bwd_plain``),
-    from the search's ``lists`` and the forward's ``weighted`` rows
+    from the search's ``lists`` and what the forward kept
     (``band_conv_kernel(..., keep_weighted=True)``, of the same
-    ``panel_dtype``; ``chunk`` is K2's, whose pieces ``weighted`` holds)."""
-    f32 = torch.float32
+    ``panel_dtype``): the ``weighted`` rows (bf16: K2's hi and lo rows, of
+    its ``chunk``) and, for bf16 with dx, K2's bf16 panel of ``weights``
+    (``weights_panel``)."""
+    f32, bf = torch.float32, torch.bfloat16
     if weighted is None:
         raise ValueError("band_conv_bwd kernels: no weighted rows (kept by the forward)")
     for t, dt, name in ((q_rows, f32, "q_rows"), (s_rows, f32, "s_rows"), (x, f32, "x"),
@@ -347,7 +357,7 @@ def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, s
                         (gs, f32, "gs"), (weighted, PANEL_DTYPES[panel_dtype], "weighted")):
         build.require(t, dt, name)
     ldw = _check_shapes(q_rows, s_rows, x, weights, query_tile, starts, panel_dtype)
-    ld2_ptr = _list_args(lists, q_rows)[1]
+    list_ptrs = _list_args(lists, q_rows)
     nq, ns = q_rows.shape[0], s_rows.shape[0]
     kpn, c, cout = weights.shape
     bf16 = panel_dtype == "bfloat16"
@@ -355,60 +365,65 @@ def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, s
     rows = 2 * nq if bf16 else nq  # bf16: the hi and the lo rows
     if gs.shape != (nq, cout) or weighted.shape != (rows, ldw):
         raise ValueError("band_conv_bwd: bad cotangent or weighted-row shape")
+    if bf16 and need_dx:
+        if weights_panel is None:
+            raise ValueError("band_conv_bwd kernels: bf16 dx needs K2's bf16 weights panel")
+        build.require(weights_panel, bf, "weights_panel")
+        if weights_panel.shape != weights.shape or c % 8:
+            raise ValueError("band_conv_bwd: bad weights panel, or bf16 dx of Cin % 8 != 0")
     dev = q_rows.device
-    splits, kc = _slices(kpn * c, cout, rows)
+    splits, kc = _slices(kpn * c, cout, nq)
     dx_splits, dx_kc = _depth_slices(kpn * cout) if need_dx and not bf16 else (1, 32)
-    n_part = max(splits * kpn * c * cout if splits > 1 else 0,
+    # bf16: the slices' partial sums of dW over the hi and over the lo rows
+    n_part = max(splits * kpn * c * cout * (2 if bf16 else 1) if splits > 1 else 0,
                  dx_splits * ns * c if dx_splits > 1 else 0)
     part = torch.empty((n_part,), dtype=f32, device=dev) if n_part else None
     dw = torch.empty((kpn, c, cout), dtype=f32, device=dev)
-    if need_dx:
-        row_ptr, pairs = lists.transpose(ns, impl="kernel")
-        # f32: G [Ns, KP * Cout]; bf16: V = bf16(gs W^T) [Nq, KP * Cin]
-        g_shape = (nq, kpn * c) if bf16 else (ns, kpn * cout)
-        g_rows = torch.empty(g_shape, dtype=PANEL_DTYPES[panel_dtype], device=dev)
-        dx = torch.empty((ns, c), dtype=f32, device=dev)
-        dx_ptrs = (build.ptr(row_ptr), build.ptr(pairs))
-        out_ptrs = (build.ptr(g_rows), build.ptr(dx))
-    else:
-        dx = None
-        dx_ptrs = out_ptrs = (None, None)
-    args = [build.ptr(q_rows), build.ptr(s_rows), build.ptr(weights), build.ptr(kernel_points),
-            build.ptr(gs), ld2_ptr, *dx_ptrs, nq, ns, c, cout, kpn, inv_extent_f32(extent), ldw,
-            splits, kc, dx_splits, dx_kc, build.ptr(weighted),
-            None if part is None else build.ptr(part), build.ptr(dw), *out_ptrs]
-    if bf16:  # the bf16 panels of gs (twice) and, for dx, W and V's f32 scratch
-        gsb = torch.empty((2 * nq, cout), dtype=torch.bfloat16, device=dev)
-        wb = torch.empty((kpn, c, cout), dtype=torch.bfloat16, device=dev) if need_dx else None
-        vf = torch.empty((nq, kpn * c), dtype=f32, device=dev) if need_dx else None
+    dx = torch.empty((ns, c), dtype=f32, device=dev) if need_dx else None
+    row_ptr, pairs = lists.transpose(ns, impl="kernel") if need_dx else (None, None)
+    opt = lambda t: None if t is None else build.ptr(t)  # noqa: E731
+    geo = (build.ptr(q_rows), build.ptr(s_rows))
+    shape = (nq, ns, c, cout, kpn, inv_extent_f32(extent), ldw, splits, kc)
+    if bf16:
+        # V = bf16(gs W^T) [Nq, KP * Cin] and U [Nq * LCAP, Cin] for dx, gs's bf16 panel
+        v = torch.empty((nq, kpn * c), dtype=bf, device=dev) if need_dx else None
+        u = torch.empty((nq * LCAP, c), dtype=f32, device=dev) if need_dx else None
+        gsb = torch.empty((nq, cout), dtype=bf, device=dev)
         fn = build.launcher("band_conv_bwd", "band_conv_bwd_bf16_launch", _CONV_BWD_BF16_ARGS)
-        build.check(fn(*args, build.ptr(gsb), None if wb is None else build.ptr(wb),
-                       None if vf is None else build.ptr(vf), build.stream_of(q_rows)),
-                    "band_conv_bwd_kernel (bf16)")
+        build.check(fn(*geo, opt(weights_panel if need_dx else None), build.ptr(kernel_points),
+                       build.ptr(gs), *list_ptrs, opt(row_ptr), opt(pairs), *shape,
+                       build.ptr(weighted), opt(part), build.ptr(dw), opt(v), opt(u), opt(dx),
+                       build.ptr(gsb), build.stream_of(q_rows)), "band_conv_bwd_kernel (bf16)")
         band_conv_bwd.launches_bf16 += 1
     else:
+        g_rows = torch.empty((ns, kpn * cout), dtype=f32, device=dev) if need_dx else None
         fn = build.launcher("band_conv_bwd", "band_conv_bwd_launch", _CONV_BWD_ARGS)
-        build.check(fn(*args, build.stream_of(q_rows)), "band_conv_bwd_kernel")
+        build.check(fn(*geo, build.ptr(weights), build.ptr(kernel_points), build.ptr(gs),
+                       list_ptrs[1], opt(row_ptr), opt(pairs), *shape, dx_splits, dx_kc,
+                       build.ptr(weighted), opt(part), build.ptr(dw), opt(g_rows), opt(dx),
+                       build.stream_of(q_rows)), "band_conv_bwd_kernel")
         band_conv_bwd.launches += 1
     return dx, dw
 
 
 def band_conv_bwd(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends, gs,
                   *, query_tile: int, extent: float, need_dx: bool = True,
-                  impl: str = "auto", lists=None, weighted=None, panel_dtype: str = "float32",
-                  chunk=None):
+                  impl: str = "auto", lists=None, weighted=None, weights_panel=None,
+                  panel_dtype: str = "float32", chunk=None):
     """(dx [Ns_pad, Cin] or None, dW [KP, Cin, Cout]) float32 from the
     density-scaled cotangent ``gs`` [Nq_pad, Cout]; other arguments as in
-    ``band_conv``, plus the forward's ``weighted`` rows (kernels only).
-    ``need_dx=False`` skips dx. Launches count in ``band_conv_bwd.launches``
-    (f32) and ``band_conv_bwd.launches_bf16``."""
+    ``band_conv``, plus what the forward kept, its ``weighted`` rows and
+    (bf16) ``weights_panel`` (kernels only). ``need_dx=False`` skips dx.
+    Launches count in ``band_conv_bwd.launches`` (f32) and
+    ``band_conv_bwd.launches_bf16``."""
     kw = dict(query_tile=query_tile, extent=extent, need_dx=need_dx, panel_dtype=panel_dtype,
               chunk=chunk)
     if not uses_kernel(impl, q_rows):
         return band_conv_bwd_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points,
                                    starts, wends, gs, **kw)
     return band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points,
-                                starts, wends, gs, lists=lists, weighted=weighted, **kw)
+                                starts, wends, gs, lists=lists, weighted=weighted,
+                                weights_panel=weights_panel, **kw)
 
 
 band_conv_bwd.launches = 0
@@ -430,24 +445,25 @@ class BandConvFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weights, kernel_points, args, impl):
-        wtd = None
+        kept = ()
         if uses_kernel(impl, x):
-            out, den, wtd = band_conv_kernel(x=x, weights=weights, kernel_points=kernel_points,
-                                             keep_weighted=True, **args)
+            out, den, wtd, wb = band_conv_kernel(x=x, weights=weights,
+                                                 kernel_points=kernel_points,
+                                                 keep_weighted=True, **args)
+            kept = (wtd,) if wb is None else (wtd, wb)
         else:
             out, den = band_conv(x=x, weights=weights, kernel_points=kernel_points,
                                  impl=impl, **args)
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            saved = (x, weights, kernel_points, den) + ((wtd,) if wtd is not None else ())
-            ctx.save_for_backward(*saved)
+            ctx.save_for_backward(x, weights, kernel_points, den, *kept)
         ctx.args, ctx.impl = args, impl
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, weights, kernel_points, den, *wtd = ctx.saved_tensors
+        x, weights, kernel_points, den, *kept = ctx.saved_tensors
         gs = (g.float() / den[:, None]).contiguous()
-        kw = dict(weighted=wtd[0]) if wtd else {}
+        kw = dict(zip(("weighted", "weights_panel"), kept))
         dx, dw = band_conv_bwd(x=x, weights=weights, kernel_points=kernel_points, gs=gs,
                                need_dx=ctx.needs_input_grad[0], impl=ctx.impl, **ctx.args, **kw)
         return dx, dw, None, None, None

@@ -31,19 +31,26 @@
 // deep levels; the gs rows read per listed pair at level 0.
 //
 // The bf16 panels (band_conv_bwd_bf16_launch) replace the same kernel with
-// panel_dtype="bfloat16" and round where the TPU kernel rounds: gs and W
-// are cast to bf16 once, every product is one BF16 tensor-core product
-// with f32 accumulation (or an FMA of two bf16 values, exact, into f32),
-// and
-//   2. dW = [hi; lo]^T [gs; gs] over the 2 nq rows of K2's bf16 weighted
-//      rows (hi + lo = the sum of the per-chunk rounded pieces);
-//   3. V = bf16(gs W^T) [Nq, KP * Cin] on the tensor cores (the TPU kernel
-//      rounds gs W[kp]^T before multiplying by the influence weights);
-//   4. dx[r] = sum_{(q, entry) listing r} sum_kp bf16(w_kp(q, r)) V[q, kp]
-//      over the transposed lists, one warp per row and up to 128 channels
-//      (FMA, pairs in order, kernel points in order).
-// This reads KP * Cin values of V per pair where the f32 route reads Cout
-// values of gs; G and the dx product are not formed.
+// panel_dtype="bfloat16" and round where the TPU kernel rounds: gs is cast
+// to bf16 once (W comes as K2's bf16 panel), every product is a BF16
+// tensor-core product with f32 accumulation, and
+//   2. dW = hi^T gs + lo^T gs over the nq queries, K2's bf16 hi and lo rows
+//      (hi + lo = the sum of the per-chunk rounded pieces) as two A
+//      operands against one stage of gs, each into its own accumulators,
+//      added at the end (gemm_bf16);
+//   3. V = bf16(gs W^T) [Nq, KP * Cin] on the tensor cores, rounded in the
+//      product's epilogue (the TPU kernel rounds gs W[kp]^T before
+//      multiplying by the influence weights);
+//   4. U: query-major, one warp per query: V[q] is read once (cp.async into
+//      shared memory) and for the entries of q's list U[q * LCAP + j] =
+//      sum_kp bf16(w_kp(q, r_j)) V[q, kp] is one m16n8k16 BF16 product
+//      (rows the entries, the reduction the 15 kernel points padded to 16,
+//      columns Cin), written in f32 (no rounding the TPU kernel does not
+//      take);
+//   5. dx[r] = sum of U over r's transposed list, support-major, one warp
+//      per row, the pairs in ascending order (f32 adds, one owner each).
+// A pair moves Cin f32 of U twice (written, read) where gathering V per
+// pair read KP * Cin bf16; G and the dx product are not formed.
 
 #include <cuda_runtime.h>
 
@@ -111,116 +118,151 @@ bwd_gather_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   }
 }
 
-// bf16 dx from V = bf16(gs W^T) [nq, KP * C]: NS channel slots per lane,
-// one warp covers 32 * NS channels of dx; rows that no list names get 0
-template <int NS>
-__global__ void __launch_bounds__(RPB * 32)
-bwd_dx_gather_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
-                     const bf16* __restrict__ V, const float* __restrict__ kp,
-                     const float* __restrict__ ld2, const int* __restrict__ row_ptr,
-                     const int* __restrict__ pairs, int ns, int C, int KP, float inv_extent,
-                     float* __restrict__ dx) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * RPB + (threadIdx.x >> 5);
-  if (r >= ns) return;
-  const int c0 = blockIdx.y * 32 * NS;
-  const float4 sr = s[r];
-  float kx = 0.f, ky = 0.f, kz = 0.f, kk = 0.f;  // lane k < KP: kernel point k
-  if (lane < KP) {
-    kx = kp[3 * lane];
-    ky = kp[3 * lane + 1];
-    kz = kp[3 * lane + 2];
-    kk = dot3(kx, ky, kz, kx, ky, kz);
+// bf16 U, one warp per query, UQ warps a CTA: the influence weights of the
+// query's entries (rounded to bf16; kernel points past KP and entries past
+// the count zero) into shared memory [16 kernel points x 64 entries], the
+// A fragments (entries by kernel points) by ldmatrix.trans; then per pass
+// of 64 channels V[q] [16 x 64] (kernel points past KP zero) by cp.async,
+// the B fragments by ldmatrix.trans, and one MMA per 16 entries and 8
+// channels. U [nq * LCAP, C] f32, rows q * LCAP + j for j < lcnt[q].
+#define UQ 8
+#define UW 64            // channels of one pass
+#define ULD (UW + 8)     // padded shared rows: 16-byte aligned, conflict-free
+#define WLDU (LCAP + 8)
+__global__ void __launch_bounds__(UQ * 32)
+bwd_u_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
+             const bf16* __restrict__ V, const float* __restrict__ kp, int KP,
+             const int* __restrict__ lpos, const float* __restrict__ ld2,
+             const int* __restrict__ lcnt, int nq, int C, float inv_extent,
+             float* __restrict__ U) {
+  __shared__ __align__(16) bf16 w_all[UQ][16 * WLDU];
+  __shared__ __align__(16) bf16 v_all[UQ][16 * ULD];
+  __shared__ float kps[48];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if (threadIdx.x < 3 * KP) kps[threadIdx.x] = kp[threadIdx.x];
+  __syncthreads();
+  const int qi = blockIdx.x * UQ + warp;
+  if (qi >= nq) return;
+  const int n = lcnt[qi];
+  if (n == 0) return;
+  bf16* wsm = w_all[warp];
+  bf16* vs = v_all[warp];
+  const float4 qq = q[qi];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    const bool v = j < n;
+    const float4 sr = s[v ? lpos[(size_t)qi * LCAP + j] : 0];
+    const float d2 = v ? ld2[(size_t)qi * LCAP + j] : 0.f;
+    for (int k = 0; k < 16; ++k) {
+      float w = 0.f;
+      if (v && k < KP) {
+        const float kx = kps[3 * k], ky = kps[3 * k + 1], kz = kps[3 * k + 2];
+        w = kp_weight(d2, sr, qq, kx, ky, kz, dot3(kx, ky, kz, kx, ky, kz), inv_extent);
+      }
+      wsm[k * WLDU + j] = __float2bfloat16_rn(w);
+    }
   }
-  float acc[NS];
+  __syncwarp();
+  const int i8 = lane & 7, h1 = (lane >> 3) & 1, h2 = lane >> 4;
+  const int nmt = (n + 15) / 16;
+  unsigned af[LCAP / 16][4];  // A: entries (rows) by kernel points (reduction)
 #pragma unroll
-  for (int i = 0; i < NS; ++i) acc[i] = 0.f;
-  const int pend = row_ptr[r + 1];
-  for (int p = row_ptr[r]; p < pend; ++p) {
-    const int f = pairs[p];
-    const int qi = f / LCAP;
-    const float w =
-        lane < KP ? panel_round<bf16>(kp_weight(ld2[f], sr, q[qi], kx, ky, kz, kk, inv_extent))
-                  : 0.f;
-    const bf16* v = V + (size_t)qi * KP * C;
+  for (int mt = 0; mt < LCAP / 16; ++mt)
+    if (mt < nmt) ldsm_x4_t(af[mt], wsm + (i8 + 8 * h2) * WLDU + 16 * mt + 8 * h1);
+  const bf16* vq = V + (size_t)qi * KP * C;
+  float* uq = U + (size_t)qi * LCAP * C;
+  for (int c0 = 0; c0 < C; c0 += UW) {
+    for (int i = lane; i < 16 * (UW / 8); i += 32) {  // V[q, kp, c0 .. c0 + UW)
+      const int k = i / (UW / 8), c = c0 + 8 * (i % (UW / 8));
+      const bool v = k < KP && c < C;
+      cp_async16z(vs + k * ULD + 8 * (i % (UW / 8)), v ? vq + (size_t)k * C + c : V, v);
+    }
+    cp_async_wait_all();
+    __syncwarp();
 #pragma unroll
-    for (int k = 0; k < KPM; ++k) {
-      if (k < KP) {
-        const float wk = __shfl_sync(0xffffffffu, w, k);
+    for (int nt = 0; nt < UW / 8; nt += 2) {
+      if (c0 + nt * 8 >= C) break;
+      unsigned b[4];  // kernel points by channels c0 + nt * 8 .. + 16
+      ldsm_x4_t(b, vs + (i8 + 8 * h1) * ULD + nt * 8 + 8 * h2);
 #pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          const int c = c0 + lane + 32 * i;
-          if (c < C) acc[i] = __fmaf_rn(wk, to_f32(v[k * C + c]), acc[i]);
+      for (int mt = 0; mt < LCAP / 16; ++mt) {
+        if (mt >= nmt) break;
+#pragma unroll
+        for (int hn = 0; hn < 2; ++hn) {
+          const int c = c0 + (nt + hn) * 8 + 2 * t;
+          if (c >= C) continue;
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(d, af[mt], b + 2 * hn);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = 16 * mt + g + 8 * h;
+            if (j < n)
+              *reinterpret_cast<float2*>(uq + (size_t)j * C + c) =
+                  make_float2(d[2 * h], d[2 * h + 1]);
+          }
         }
       }
     }
-  }
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    const int c = c0 + lane + 32 * i;
-    if (c < C) dx[(size_t)r * C + c] = acc[i];
+    __syncwarp();  // the next pass overwrites V's stage
   }
 }
 
-// T = float: the f32 panels (3xTF32), G [ns, KP * Cout] f32; T = bf16: gs
-// ([2 nq, Cout], gs twice), W and the weighted rows ([2 nq, ldw], hi and
-// lo) already bf16 panels, G the V rows [nq, KP * C] in bf16 and vf their
-// f32 scratch
-template <typename T>
-static int bwd_launch(const void* q, const void* s, const T* W, const void* kp, const T* gs,
-                      const void* ld2, const void* row_ptr, const void* pairs, int nq, int ns,
-                      int C, int Cout, int KP, float inv_extent, int ldw, int splits, int kc,
-                      int dx_splits, int dx_kc, const T* wtd, void* part, void* dW, T* G,
-                      void* dx, float* vf, cudaStream_t st) {
-  constexpr bool BF = is_bf16<T>;
-  constexpr int V = 16 / sizeof(T);  // 16-byte row chunks of the products
+// bf16 dx[r] = sum of U over r's transposed list, pairs in ascending order,
+// one warp per support row, four channels a lane (C % 4 == 0); rows that
+// no list names get 0
+__global__ void __launch_bounds__(RPB * 32)
+bwd_dx_sum_kernel(const float* __restrict__ U, const int* __restrict__ row_ptr,
+                  const int* __restrict__ pairs, int ns, int C, float* __restrict__ dx) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * RPB + (threadIdx.x >> 5);
+  if (r >= ns) return;
+  const int pbeg = row_ptr[r], pend = row_ptr[r + 1];
+  for (int c = 4 * lane; c < C; c += 128) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = pbeg; p < pend; ++p) {
+      const float4 u = *reinterpret_cast<const float4*>(U + (size_t)pairs[p] * C + c);
+      acc.x = __fadd_rn(acc.x, u.x);
+      acc.y = __fadd_rn(acc.y, u.y);
+      acc.z = __fadd_rn(acc.z, u.z);
+      acc.w = __fadd_rn(acc.w, u.w);
+    }
+    *reinterpret_cast<float4*>(dx + (size_t)r * C + c) = acc;
+  }
+}
+
+// the f32 panels (3xTF32): G [ns, KP * Cout] f32 scratch
+static int bwd_launch(const void* q, const void* s, const float* W, const void* kp,
+                      const float* gs, const void* ld2, const void* row_ptr, const void* pairs,
+                      int nq, int ns, int C, int Cout, int KP, float inv_extent, int ldw,
+                      int splits, int kc, int dx_splits, int dx_kc, const float* wtd, void* part,
+                      void* dW, float* G, void* dx, cudaStream_t st) {
+  constexpr int V = 4;  // 16-byte row chunks of the products
   if (C < 1 || Cout < 1 || Cout % V || KP < 1 || KP > KPM || ldw < KP * C || ldw % V ||
       splits < 1 || kc < 1 || kc % GBK || dx_splits < 1 || dx_kc < 1 || dx_kc % GBK ||
-      (dx && (!G || !row_ptr || !pairs || (BF && !vf))))
+      (dx && (!G || !row_ptr || !pairs)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  // dW [KP * C, Cout] = weighted^T gs, reduced over the nq queries (bf16:
-  // over the 2 nq rows hi, lo against gs, gs)
-  if ((e = gemm3<T, false, true>(wtd, ldw, gs, Cout, (float*)dW, Cout, KP * C, Cout,
-                                 BF ? 2 * nq : nq, splits, kc, (float*)part, nullptr, st)) !=
-      cudaSuccess)
+  // dW [KP * C, Cout] = weighted^T gs, reduced over the nq queries
+  if ((e = gemm3<float, false, true>(wtd, ldw, gs, Cout, (float*)dW, Cout, KP * C, Cout, nq,
+                                     splits, kc, (float*)part, nullptr, st)) != cudaSuccess)
     return (int)e;
   if (!dx || ns == 0) return 0;
-  if constexpr (BF) {
-    // V [nq, KP * C] = bf16(gs W^T): B(k = co, n = kp * C + c) = W[kp][c][co]
-    if (nq > 0) {
-      if ((e = gemm3<T, true, false>(gs, Cout, W, Cout, vf, KP * C, nq, KP * C, Cout, 1,
-                                     (Cout + GBK - 1) / GBK * GBK, nullptr, nullptr, st)) !=
-              cudaSuccess ||
-          (e = to_bf16(vf, G, (size_t)nq * KP * C, st)) != cudaSuccess)
-        return (int)e;
-    }
-#define V_ARGS                                                                              \
-  (const float4*)q, (const float4*)s, G, (const float*)kp, (const float*)ld2,                \
-      (const int*)row_ptr, (const int*)pairs, ns, C, KP, inv_extent, (float*)dx
-    const unsigned rows = (unsigned)((ns + RPB - 1) / RPB);
-    if (C <= 32) bwd_dx_gather_kernel<1><<<rows, RPB * 32, 0, st>>>(V_ARGS);
-    else if (C <= 64) bwd_dx_gather_kernel<2><<<rows, RPB * 32, 0, st>>>(V_ARGS);
-    else bwd_dx_gather_kernel<4><<<dim3(rows, (C + 127) / 128), RPB * 32, 0, st>>>(V_ARGS);
-#undef V_ARGS
-    return (int)cudaGetLastError();
-  } else {
-    // G [ns, KP * Cout]
+  // G [ns, KP * Cout]
 #define G_ARGS                                                                              \
   (const float4*)q, (const float4*)s, gs, (const float*)kp, (const float*)ld2,               \
       (const int*)row_ptr, (const int*)pairs, ns, Cout, KP, inv_extent, G
-    const unsigned rows = (unsigned)((ns + RPB - 1) / RPB);
-    if (Cout <= 32) bwd_gather_kernel<1><<<rows, RPB * 32, 0, st>>>(G_ARGS);
-    else if (Cout <= 64) bwd_gather_kernel<2><<<rows, RPB * 32, 0, st>>>(G_ARGS);
-    else bwd_gather_kernel<4><<<dim3(rows, (Cout + 127) / 128), RPB * 32, 0, st>>>(G_ARGS);
+  const unsigned rows = (unsigned)((ns + RPB - 1) / RPB);
+  if (Cout <= 32) bwd_gather_kernel<1><<<rows, RPB * 32, 0, st>>>(G_ARGS);
+  else if (Cout <= 64) bwd_gather_kernel<2><<<rows, RPB * 32, 0, st>>>(G_ARGS);
+  else bwd_gather_kernel<4><<<dim3(rows, (Cout + 127) / 128), RPB * 32, 0, st>>>(G_ARGS);
 #undef G_ARGS
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    // dx [ns, C] = G W^T: the reduction index k * Cout + co reads W[k][c][co];
-    // row tiles that no list names (padding, shadow rows) are written as zeros
-    return (int)gemm3<T, true, false>(G, KP * Cout, W, Cout, (float*)dx, C, ns, C, KP * Cout,
-                                      dx_splits, dx_kc, (float*)part, nullptr, st, Cout,
-                                      (long long)C * Cout, (const int*)row_ptr);
-  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // dx [ns, C] = G W^T: the reduction index k * Cout + co reads W[k][c][co];
+  // row tiles that no list names (padding, shadow rows) are written as zeros
+  return (int)gemm3<float, true, false>(G, KP * Cout, W, Cout, (float*)dx, C, ns, C, KP * Cout,
+                                        dx_splits, dx_kc, (float*)part, nullptr, st, Cout,
+                                        (long long)C * Cout, (const int*)row_ptr);
 }
 
 extern "C" int band_conv_bwd_launch(const void* q, const void* s, const void* W, const void* kp,
@@ -229,33 +271,50 @@ extern "C" int band_conv_bwd_launch(const void* q, const void* s, const void* W,
                                     float inv_extent, int ldw, int splits, int kc, int dx_splits,
                                     int dx_kc, const void* wtd, void* part, void* dW, void* G,
                                     void* dx, void* stream) {
-  return bwd_launch<float>(q, s, (const float*)W, kp, (const float*)gs, ld2, row_ptr, pairs, nq,
-                           ns, C, Cout, KP, inv_extent, ldw, splits, kc, dx_splits, dx_kc,
-                           (const float*)wtd, part, dW, (float*)G, dx, nullptr,
-                           (cudaStream_t)stream);
+  return bwd_launch(q, s, (const float*)W, kp, (const float*)gs, ld2, row_ptr, pairs, nq, ns, C,
+                    Cout, KP, inv_extent, ldw, splits, kc, dx_splits, dx_kc, (const float*)wtd,
+                    part, dW, (float*)G, dx, (cudaStream_t)stream);
 }
 
-// bf16 panels: gs [nq, Cout] is cast twice into the bf16 scratch gsb
-// [2 nq, Cout] and, for dx, W [KP * C, Cout] (f32) into Wb; wtd is K2's
-// [2 nq, ldw] bf16 rows; for dx, G holds V [nq, KP * C] in bf16 and vf
-// [nq, KP * C] f32 is its scratch
-extern "C" int band_conv_bwd_bf16_launch(const void* q, const void* s, const void* W,
-                                         const void* kp, const void* gs, const void* ld2,
-                                         const void* row_ptr, const void* pairs, int nq, int ns,
-                                         int C, int Cout, int KP, float inv_extent, int ldw,
-                                         int splits, int kc, int dx_splits, int dx_kc,
-                                         const void* wtd, void* part, void* dW, void* G,
-                                         void* dx, void* gsb, void* Wb, void* vf,
-                                         void* stream) {
+// bf16 panels: gs [nq, Cout] (f32) is cast once into the bf16 scratch gsb;
+// wtd is K2's [2 nq, ldw] bf16 rows (hi then lo), part [splits, 2, KP * C,
+// Cout] when splits > 1. For dx (C % 8 == 0): Wb, K2's bf16 panel of W
+// [KP * C, Cout]; the lists lpos / lcnt and their transpose row_ptr /
+// pairs; V [nq, KP * C] bf16 and U [nq * LCAP, C] f32 scratch.
+extern "C" int band_conv_bwd_bf16_launch(const void* q, const void* s, const void* Wb,
+                                         const void* kp, const void* gs, const void* lpos,
+                                         const void* ld2, const void* lcnt, const void* row_ptr,
+                                         const void* pairs, int nq, int ns, int C, int Cout,
+                                         int KP, float inv_extent, int ldw, int splits, int kc,
+                                         const void* wtd, void* part, void* dW, void* V, void* U,
+                                         void* dx, void* gsb, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (C < 1 || Cout < 1 || KP < 1 || (dx && (!Wb || !vf))) return (int)cudaErrorInvalidValue;
+  if (C < 1 || Cout < 1 || Cout % 8 || KP < 1 || KP > KPM || ldw < KP * C || ldw % 8 ||
+      splits < 1 || kc < 1 || kc % GBK ||
+      (dx && (C % 8 || !Wb || !lpos || !lcnt || !row_ptr || !pairs || !V || !U)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  const size_t n = (size_t)nq * Cout;
-  if ((e = to_bf16(gs, gsb, n, st)) != cudaSuccess ||
-      (e = to_bf16(gs, (bf16*)gsb + n, n, st)) != cudaSuccess)
+  if ((e = to_bf16(gs, gsb, (size_t)nq * Cout, st)) != cudaSuccess) return (int)e;
+  const bf16* g = (const bf16*)gsb;
+  // dW [KP * C, Cout] = hi^T gs + lo^T gs, reduced over the nq queries
+  if ((e = gemm_bf16<false, true, true, float>((const bf16*)wtd, (long long)nq * ldw, ldw, g,
+                                               Cout, (float*)dW, Cout, KP * C, Cout, nq, splits,
+                                               kc, (float*)part, nullptr, st)) != cudaSuccess)
     return (int)e;
-  if (dx && (e = to_bf16(W, Wb, (size_t)KP * C * Cout, st)) != cudaSuccess) return (int)e;
-  return bwd_launch<bf16>(q, s, (const bf16*)Wb, kp, (const bf16*)gsb, ld2, row_ptr, pairs, nq,
-                          ns, C, Cout, KP, inv_extent, ldw, splits, kc, dx_splits, dx_kc,
-                          (const bf16*)wtd, part, dW, (bf16*)G, dx, (float*)vf, st);
+  if (!dx || ns == 0) return 0;
+  if (nq > 0) {
+    // V [nq, KP * C] = bf16(gs W^T): B(k = co, n = kp * C + c) = W[kp][c][co]
+    if ((e = gemm_bf16<true, false, false, bf16>(g, 0, Cout, (const bf16*)Wb, Cout, (bf16*)V,
+                                                 KP * C, nq, KP * C, Cout, 1,
+                                                 (Cout + GBK - 1) / GBK * GBK, nullptr, nullptr,
+                                                 st)) != cudaSuccess)
+      return (int)e;
+    bwd_u_kernel<<<(unsigned)((nq + UQ - 1) / UQ), UQ * 32, 0, st>>>(
+        (const float4*)q, (const float4*)s, (const bf16*)V, (const float*)kp, KP,
+        (const int*)lpos, (const float*)ld2, (const int*)lcnt, nq, C, inv_extent, (float*)U);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  bwd_dx_sum_kernel<<<(unsigned)((ns + RPB - 1) / RPB), RPB * 32, 0, st>>>(
+      (const float*)U, (const int*)row_ptr, (const int*)pairs, ns, C, (float*)dx);
+  return (int)cudaGetLastError();
 }

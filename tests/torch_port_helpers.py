@@ -246,6 +246,157 @@ def band_conv_bwd_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, g
     return dx, dw
 
 
+# --- the bf16 kernels' route (band_products.cuh, band_conv_bwd.cu), emulated
+# step by step: the pieces by ballot, the products of bf16 operands with the
+# tensor cores' truncating additions, K4's dx by pairs ---
+
+
+def _rz(x):
+    """float64 -> float32 rounded toward zero: a tensor-core addition."""
+    y = x.astype(np.float32)
+    return np.where(np.abs(y) > np.abs(x), np.nextafter(y, np.float32(0)), y)
+
+
+def bf16_rn(a):
+    """float32 -> bfloat16 (as float32) rounded to nearest even by its bits,
+    as ``__float2bfloat16_rn`` rounds (finite values)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def piece_starts_serial(lpos, lcnt, ws, chunk):
+    """[Nq, LCAP] bool, the first entry of each piece of each list (the
+    entries of one chunk of ``chunk`` rows from the window start ``ws[q]``):
+    the serial scan that every lane ran before, ``j1`` advanced while the
+    chunk id equals the piece's first entry's."""
+    lpos, lcnt, ws = np.asarray(lpos), np.asarray(lcnt), np.asarray(ws)
+    first = np.zeros(lpos.shape, bool)
+    for qi in range(lpos.shape[0]):
+        n, j0 = int(lcnt[qi]), 0
+        while j0 < n:
+            first[qi, j0] = True
+            cid = (lpos[qi, j0] - ws[qi]) // chunk
+            j1 = j0 + 1
+            while j1 < n and (lpos[qi, j1] - ws[qi]) // chunk == cid:
+                j1 += 1
+            j0 = j1
+    return first
+
+
+def piece_starts_ballot(lpos, lcnt, ws, chunk):
+    """The same from ``weighted_bf16_kernel``'s ballot: lane l holds entries l
+    and l + 32, their chunk ids (-1 past the count); ``shfl_up`` gives each
+    lane the previous lane's id, lane 0 of the upper half takes entry 31's
+    (``shfl`` from lane 31); a lane votes for an entry below the count that
+    is entry 0 or whose id differs from the previous one. Returns the two
+    32-bit ballots' 64-bit mask as bools."""
+    lpos, lcnt = np.asarray(lpos, np.int64), np.asarray(lcnt)
+    lane = np.arange(32)
+    valid = np.arange(lpos.shape[1])[None, :] < lcnt[:, None]
+    cid = np.where(valid, (lpos - np.asarray(ws)[:, None]) // chunk, -1)
+    c0, c1 = cid[:, :32], cid[:, 32:]
+    prev0 = np.concatenate([c0[:, :1], c0[:, :-1]], 1)            # shfl_up: lane 0 keeps its own
+    prev1 = np.concatenate([c0[:, 31:32], c1[:, :-1]], 1)         # lane 0: entry 31's id
+    vote0 = valid[:, :32] & ((lane == 0)[None, :] | (c0 != prev0))
+    vote1 = valid[:, 32:] & (c1 != prev1)
+    return np.concatenate([vote0, vote1], 1)
+
+
+def pieces_of(first, n):
+    """[(j0, j1), ...] of a list of ``n`` entries from its first-entry mask,
+    walked as the kernel walks it (the next set bit above j0, else n)."""
+    bits = sum(1 << int(j) for j in np.flatnonzero(first))
+    out, j0 = [], 0
+    while j0 < n:
+        later = bits >> (j0 + 1)
+        j1 = min(j0 + 1 + (later & -later).bit_length() - 1, n) if later else n
+        out.append((j0, j1))
+        j0 = j1
+    return out
+
+
+def mma_bf16_two_staged(a, a2, b):
+    """``gemm_bf16_kernel``'s product of bf16 operands (float32 arrays of
+    bf16 values) ``a b + a2 b`` (``a2`` None: ``a b``): each operand's
+    32-deep stages of the reduction in fresh accumulators, each m16n8k16
+    step (16 exact products) added with a truncating addition, the stage
+    added to that operand's total in f32 round-to-nearest; the two totals
+    added at the end."""
+    b64 = b.astype(np.float64)
+    total = None
+    for op in [a] + ([] if a2 is None else [a2]):
+        op = op.astype(np.float64)
+        acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+        for s0 in range(0, a.shape[1], 32):
+            st = np.zeros_like(acc)
+            for k0 in range(s0, min(s0 + 32, a.shape[1]), 16):
+                st = _rz(st.astype(np.float64) + op[:, k0:k0 + 16] @ b64[k0:k0 + 16])
+            acc = acc + st
+        total = acc if total is None else total + acc
+    return total
+
+
+def _route_inputs(lists, q_rows, s_rows, x, kernel_points, extent):
+    """(valid [Nq, L], gathered bf16 rows [Nq, L, C], bf16 weights [Nq, KP, L])
+    of the lists, as float64 numpy."""
+    from d3feat_tpu_torch.ops.band_conv import _BIG, kp_weights
+
+    valid = lists.lpos >= 0
+    pos = lists.lpos.clamp(min=0).long()
+    d2m = torch.where(valid, lists.ld2, _BIG)[:, None, :]
+    rows, q = s_rows[pos], q_rows[:, None, :]
+    w = torch.cat([_bf16(kp_weights(d2m, rows, q, kernel_points[k], extent))
+                   for k in range(kernel_points.shape[0])], 1)
+    xg = _bf16(x)[pos] * valid[..., None]
+    return valid.numpy(), xg.double().numpy(), w.double().numpy()
+
+
+def weighted_bf16_route(lists, q_rows, s_rows, x, kernel_points, extent, chunk, starts, tile):
+    """(hi, lo) [Nq, KP * Cin] of ``weighted_bf16_kernel``: the pieces from
+    the ballot; per piece, its k-steps of 16 entries from the piece's first
+    entry (the weights masked to the piece's entries) added into fresh
+    accumulators with truncating additions, the piece's sum rounded to bf16
+    and added in f32; ``hi = bf16(S)``, ``lo = bf16(S - hi)``."""
+    nq, kpn = q_rows.shape[0], kernel_points.shape[0]
+    valid, xg, w = _route_inputs(lists, q_rows, s_rows, x, kernel_points, extent)
+    lcnt = lists.lcnt.numpy()
+    ws = starts.long().repeat_interleave(tile).numpy()
+    first = piece_starts_ballot(lists.lpos.numpy(), lcnt, ws, chunk)
+    total = np.zeros((nq, kpn, x.shape[1]), np.float32)
+    for qi in range(nq):
+        for j0, j1 in pieces_of(first[qi], int(lcnt[qi])):
+            acc = np.zeros((kpn, x.shape[1]), np.float32)
+            for k0 in range(j0, j1, 16):
+                k1 = min(k0 + 16, j1)
+                acc = _rz(acc.astype(np.float64) + w[qi][:, k0:k1] @ xg[qi, k0:k1])
+            total[qi] = total[qi] + bf16_rn(acc)
+    hi = bf16_rn(total)
+    return hi.reshape(nq, -1), bf16_rn(total - hi).reshape(nq, -1)
+
+
+def dx_by_pairs(lists, q_rows, s_rows, weights, kernel_points, gs, extent):
+    """K4's bf16 dx as ``band_conv_bwd.cu`` computes it: V = bf16(gs W^T)
+    (the product staged, rounded in its epilogue), U for each listed pair
+    (query q, entry j, row r) = one m16n8k16 step from zero of its bf16
+    weights by V[q] (a truncating addition of 15 exact products), then each
+    support row's U summed in ascending pair order in f32."""
+    from d3feat_tpu_torch.ops.band_lists import LCAP
+
+    kpn, c, cout = weights.shape
+    nq, ns = q_rows.shape[0], s_rows.shape[0]
+    wb = _bf16(weights).reshape(kpn * c, cout).numpy()
+    v = bf16_rn(mma_bf16_two_staged(_bf16(gs).numpy(), None, wb.T)).reshape(nq, kpn, c)
+    _, _, w = _route_inputs(lists, q_rows, s_rows, torch.zeros((ns, 1)), kernel_points, extent)
+    u = _rz(np.einsum("qkl,qkc->qlc", w, v.astype(np.float64))).reshape(nq * LCAP, c)
+    row_ptr, pairs = (t.numpy() for t in lists.transpose(ns))
+    dx = np.zeros((ns, c), np.float32)
+    for r in range(ns):
+        for p in range(row_ptr[r], row_ptr[r + 1]):
+            dx[r] = dx[r] + u[pairs[p]]
+    return dx
+
+
 # --- registration recall on the held-out scenes: the JAX package's answer
 # (``tests/torch_port_recall_r5.json``), which chip_smoke.py holds the card to ---
 
