@@ -34,7 +34,14 @@ JAX or of the JAX package. Besides the kernels' build directory
    K4's over the 14 convs; for K3's sums and K5, the time of one cuSPARSE
    SpMM (``torch.sparse.mm``) of the same lists as a CSR matrix of ones,
    as the library's yardstick. K2's and K4's device time is also printed
-   by stage (CUDA kernel name), summed over the 14 convs, f32 and bf16;
+   by stage (CUDA kernel name), summed over the 14 convs, f32 and bf16.
+   Then list mode (the TPU kernels' ``use_thr=False``) on the same pyramid
+   without ``sel_thr``: the list-mode list stage (``band_lists_given``)
+   and its transpose bit for bit on the 9 searches, K2 and K4 in list mode,
+   f32 and bf16, at all 14 convs against their list-mode twins at the
+   same tolerances (K4's dx on the level's rows: the list stage drops the
+   shadow and the zero pads past it), each timed with its bound, K2's
+   distance to threshold mode printed (not gated);
 4. serving path: ``FeatureExtractor(batch_fragments=2)`` with the r5
    weights on the eval-cache fragments of 12k-16k points: launch counts of
    one counted call, output checks, the same batch through the twins on
@@ -57,7 +64,21 @@ JAX or of the JAX package. Besides the kernels' build directory
    1e-2 where that is smaller) and nearer the twins' than the f32 step's;
    then 10 more bf16 steps (finite, none skipped, no overflow) and bf16
    train steps/s;
-6. the trainer: the port's ``Trainer`` at full width on a corpus that
+6. the list path (no thresholds, ``list_path``): one extraction call and
+   one train step through ``make_extract_step``/``make_train_step`` on
+   pyramids whose ``sel_thr`` is removed, each counted with the counts set
+   to 0 just before (list-mode K2 and its list stage; list-mode K4 and the
+   transposes; no threshold-mode K2 or K4, no K3 or K5: the head takes the
+   gather route), against the twins on the card (descriptors within 1e-4
+   and the same top-250 sets; loss rtol 1e-3, gradients atol/rtol 5e-3),
+   then one counted bf16 step (list-mode bf16 K2 and K4 only; loss rtol
+   1e-2 to a bf16 twin step); distances to the threshold route printed;
+7. data parallelism at world size 1 on NCCL (``dp_phase``, a group of one
+   on a ``file://`` store in the temporary directory): the DP train step
+   equal bit for bit to ``make_train_step`` (metrics, weights, momentum),
+   DP extraction to ``make_extract_step``, and the gradient all-reduce's
+   bytes and ms by events; one JSON line ``{"data_parallel": ...}``;
+8. the trainer: the port's ``Trainer`` at full width on a corpus that
    ``gen_corpus.write_scene`` writes into a temporary directory (at least 8
    scenes of the train role and 2 of the validation role, numbers that are
    multiples of ``VAL_MOD``; seconds printed), on the r5 npz's own config
@@ -85,11 +106,11 @@ JAX or of the JAX package. Besides the kernels' build directory
    on data, the overflow share, each epoch's mean train and validation
    losses in f32 and bf16, and the recall of the trained npz on scene
    424245 (not gated); one JSON line ``{"trainer": ...}``;
-7. the port's bench (``d3feat_tpu_torch.bench``): its measuring function
+9. the port's bench (``d3feat_tpu_torch.bench``): its measuring function
    in f32 and in bf16 on one shared set of ``scan_fragment`` fragments
    (no overflow), each printing its JSON line (a smoke check: the
    baseline is the bench's command line, in a fresh process);
-8. registration recall (``d3feat_tpu_torch.final_recall``'s pass) on the
+10. registration recall (``d3feat_tpu_torch.final_recall``'s pass) on the
    4 axis scenes of ``artifacts/eval_cache`` (48 fragments, 68 gt pairs)
    with the r5 weights on the r5 npz's own config:
    ``FeatureExtractor(batch_fragments=2, on_overflow="warn")``, then the
@@ -106,17 +127,17 @@ JAX or of the JAX package. Besides the kernels' build directory
    printed. Then the same in bf16 (K2's bf16 kernel, never its f32 one;
    finite), printed beside f32, not gated on recall; one JSON line
    ``{"recall": ...}``;
-9. with ``--profile``, device time by kernel and the device busy share
+11. with ``--profile``, device time by kernel and the device busy share
    over 4 extraction calls (f32 and bf16) and over 3 train steps (f32
    and bf16) (``torch.profiler``);
-10. one JSON line with every kernel's numbers, then the result line.
+12. one JSON line with every kernel's numbers, then the result line.
 
 The JSON lines come in this order before the last: the bench's two, then
 ``{"recall": ...}``, ``{"trainer": ...}`` (corpus seconds, per dtype the
 epochs' losses and accuracies, steps, steps/s, data-wait and overflow
 shares; the bests written, the resume comparison, the counted step's
-launches, the recall on scene 424245, the card), the throughput line and
-the kernels line.
+launches, the recall on scene 424245, the card), ``{"data_parallel": ...}``,
+the throughput line and the kernels line.
 
 Any failed check exits non-zero before the result line.
 """
@@ -407,7 +428,13 @@ def conv_label(spec, conv, args):
 
 
 def list_nbytes(lists):
-    return nbytes(lists.lpos, lists.ld2, lists.lcnt)
+    return nbytes(*(t for t in (lists.lpos, lists.ld2, lists.lcnt) if t is not None))
+
+
+def without_thresholds(pyr):
+    """The pyramid as a search without ``sel_thr`` sees it: every band
+    conv takes list mode (its memo of band arguments shared, keyed by mode)."""
+    return dict(pyr, sel_thr={}, band_args=pyr.setdefault("band_args", {}))
 
 
 def check_lists(pyr, cfg, model, report):
@@ -466,6 +493,54 @@ def check_lists(pyr, cfg, model, report):
                            bound_by=bound(tot[k]["bytes"], tot[k]["ops"])[1], library_ms=None)
 
 
+def check_list_stage(pyr, cfg, model, report):
+    """List mode's list stage (``band_lists_given``) bit for bit against its
+    twin on every search the convs use, from the searches' own position
+    lists (the pyramid without thresholds), with the transpose of its
+    lists bit for bit; its ms in the kernels line is the sum over the
+    searches of one extraction call."""
+    import torch
+    from d3feat_tpu_torch.ops.band_lists import band_lists_given, transpose_lists
+
+    lpyr = without_thresholds(pyr)
+    seen = {}
+    tot = dict(ms=0.0, plain_ms=0.0, dev_ms=0.0, bound_ms=0.0, bytes=0.0)
+    for spec, conv, args in conv_cases(lpyr, cfg, model):
+        name = f"{'pool' if spec.strided else 'conv'}{spec.layer}"
+        if name in seen:
+            continue
+        kw = dict(neighb=args["neighb"], starts=args["starts"], wends=args["wends"],
+                  query_tile=args["query_tile"], n_rows=pyr["points"][spec.layer].shape[0])
+        got = band_lists_given(impl="kernel", **kw)
+        ref = band_lists_given(impl="plain", **kw)
+        for f in ("lpos", "lcnt"):
+            check(torch.equal(getattr(got, f), getattr(ref, f)),
+                  f"band_lists_given {name}: {f} differs from the twin")
+        ns = args["s_rows"].shape[0]
+        check(all(torch.equal(a, b) for a, b in zip(transpose_lists(got, ns, impl="kernel"),
+                                                    transpose_lists(ref, ns, impl="plain"))),
+              f"band_lists_given {name}: the transpose differs from the twin's")
+        seen[name] = int(got.lcnt.sum())
+        ms = cuda_ms(lambda: band_lists_given(impl="kernel", **kw))
+        dev_ms = device_ms(lambda: band_lists_given(impl="kernel", **kw))
+        plain_ms = cuda_ms(lambda: band_lists_given(impl="plain", **kw), reps=3)
+        nb = nbytes(args["neighb"], args["starts"], args["wends"]) + list_nbytes(got)
+        b_ms, b_by = bound(nb, 0)
+        for f, v in (("ms", ms), ("plain_ms", plain_ms), ("dev_ms", dev_ms), ("bound_ms", b_ms),
+                     ("bytes", nb)):
+            tot[f] += v
+        phase(f"band_lists_given {name} ({args['q_rows'].shape[0]} queries x "
+              f"{args['neighb'].shape[0]}, {seen[name]} listed rows): bit-exact vs twin, "
+              f"transpose bit-exact; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    phase(f"band_lists_given, sum over the {len(seen)} searches: kernel {tot['ms']:.4f} ms "
+          f"(device {tot['dev_ms']:.4f} ms), twin {tot['plain_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms")
+    report["K2/K4 band_lists list"] = dict(max_abs_err=0.0, ms=tot["ms"],
+                                           plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                                           bound_by=bound(tot["bytes"], 0)[1], library_ms=None)
+
+
 def k2_work(spec, conv, args, pyr, panel="float32"):
     """(FP32 operations, tensor-core products) of one K2 call on its lists:
     the influence weights (~12 operations a pair and kernel point), the
@@ -481,22 +556,28 @@ def k2_work(spec, conv, args, pyr, panel="float32"):
     return simt, (0 if cin < 8 else first) + rows * 2 * q_live * kpn * cin * cout
 
 
-def check_k2(pyr, cfg, model, report, device="cuda", panel="float32"):
+def check_k2(pyr, cfg, model, report, device="cuda", panel="float32", mode="threshold"):
     """K2 against its twin at every conv of the forward; its ms in the
     kernels line is the sum over the 14 convs of one extraction call. With
     ``panel="bfloat16"``, the bf16 kernel against the bf16 twin (relative
     L2 ``BF16_TWIN_L2``, density exact) and against the f32 kernel
-    (``BF16_L2``)."""
+    (``BF16_L2``). With ``mode="list"``, list mode (the pyramid without
+    thresholds, the same tolerances), its distance to threshold mode
+    printed, not gated."""
     import torch
     from d3feat_tpu_torch.ops.band_conv import band_conv
 
     tag, tc_rate = PANELS[panel]
+    if mode == "list":
+        tag = " list" + tag
+        thr_cases = conv_cases(pyr, cfg, model)
+        pyr = without_thresholds(pyr)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     worst = 0.0
     tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, tc=0.0, bytes=0.0)
     stages = {}
-    for spec, conv, args in conv_cases(pyr, cfg, model):
+    for ci, (spec, conv, args) in enumerate(conv_cases(pyr, cfg, model)):
         kpn, cin, cout = conv.weights.shape
         x = conv_features(spec, pyr, args, cin, gen, device)
         kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points,
@@ -516,6 +597,12 @@ def check_k2(pyr, cfg, model, report, device="cuda", panel="float32"):
             check(e_twin < BF16_TWIN_L2, f"{label}: relative L2 {e_twin} from the bf16 twin")
             check(e_f32 < BF16_L2, f"{label}: relative L2 {e_f32} from the f32 kernel")
             note = f", relative L2 {e_twin:.3g} from the twin, {e_f32:.3g} from f32"
+        if mode == "list":
+            thr = band_conv(impl="kernel", **dict(thr_cases[ci][2], x=x, weights=conv.weights.data,
+                                                   kernel_points=conv.kernel_points,
+                                                   panel_dtype=panel))[0]
+            note += (f", max |list - threshold mode| {float((ko - thr).abs().max()):.3g} "
+                     f"(not gated)")
         worst = max(worst, err)
         ms = cuda_ms(lambda: band_conv(impl="kernel", **kw))
         dev_ms = device_ms(lambda: band_conv(impl="kernel", **kw), stages=stages)
@@ -585,17 +672,23 @@ def check_k3(pyr, cfg, report, device="cuda"):
           f"{lib_err:.3g} from the twin)")
 
 
-def check_k4(pyr, cfg, model, report, device="cuda", panel="float32"):
+def check_k4(pyr, cfg, model, report, device="cuda", panel="float32", mode="threshold"):
     """K4 against its twin at every conv of the backward (the first, on the
     input features, without dx as in the train step), from the lists and
     the weighted rows of the forward as the train step runs it; its ms in
     the kernels line is the sum over the 14 convs of one train step. With
     ``panel="bfloat16"``, dx and dW of the bf16 kernel against the bf16
-    twin (relative L2 ``BF16_TWIN_L2``) and the f32 kernel (``BF16_L2``)."""
+    twin (relative L2 ``BF16_TWIN_L2``) and the f32 kernel (``BF16_L2``).
+    With ``mode="list"``, list mode (the same tolerances; dx on the level's
+    rows: the list stage drops the shadow and the zero pads past it, whose
+    dx the conv drops)."""
     import torch
     from d3feat_tpu_torch.ops.band_conv import band_conv_bwd, band_conv_kernel
 
     tag, tc_rate = PANELS[panel]
+    if mode == "list":
+        tag = " list" + tag
+        pyr = without_thresholds(pyr)
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
     worst = 0.0
@@ -619,6 +712,9 @@ def check_k4(pyr, cfg, model, report, device="cuda", panel="float32"):
         kept = dict(weighted=wtd, weights_panel=wb)  # what the forward keeps for K4
         kdx, kdw = band_conv_bwd(impl="kernel", **kept, **kw)
         pdx, pdw = band_conv_bwd(impl="plain", **kw)
+        if need_dx and mode == "list":
+            n_real = pyr["points"][spec.layer].shape[0]
+            kdx, pdx = kdx[:n_real], pdx[:n_real]
         label = f"K4{tag} {conv_label(spec, conv, args)}"
         err = float((kdw - pdw).abs().max())
         if need_dx:
@@ -631,6 +727,7 @@ def check_k4(pyr, cfg, model, report, device="cuda", panel="float32"):
             note = ""
         else:
             fdx, fdw = band_conv_bwd(impl="kernel", weighted=wtd32, **f32)
+            fdx = fdx[:kdx.shape[0]] if need_dx else fdx
             outs = [("dW", kdw, pdw, fdw)] + ([("dx", kdx, pdx, fdx)] if need_dx else [])
             errs = {n: (rel_l2(k, p), rel_l2(k, f)) for n, k, p, f in outs}
             for n, (e_twin, e_f32) in errs.items():
@@ -1055,37 +1152,82 @@ def train_phase(cfg, report, card, batch, device="cuda"):
     return sps
 
 
+def hold_bf16_step(label, cfg, spec, batch, model, base, m, pyramid=None):
+    """Hold a counted bf16 train step (``model`` after it, its metrics
+    ``m``, from the weights of ``base``) against one step through the bf16
+    twins from the same weights: loss rtol ``BF16_L2``, finite, not
+    skipped. The gradients are held to the noise of the bf16 step measured
+    in the same run: the linear layers round their products to bf16 (as
+    JAX's ``bf16 @ bf16``), so where two programs' f32 sums differ in the
+    last bit (the kernels' and the twins' differ in summation order only) a
+    rounding can flip, and the flips decide near-ties of the max pools and
+    the loss's hardest pairs. The witness is a second twin step from the
+    same weights moved by one f32 ulp each: the kernel step's flat gradient
+    must lie within twice that step's distance to the twins' (or within
+    ``BF16_L2`` where the step is not that sensitive), and nearer the
+    twins' than the f32 step of the same state lies. ``pyramid``: the
+    pyramid every step takes (default: each builds its own). Returns the
+    line that reports the distances."""
+    import copy
+    import math
+
+    import torch
+    from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
+    from d3feat_tpu_torch.train.step import TrainState, make_train_step
+
+    bcfg = bf16_config(cfg)
+    twin_model, nudged_model, f32_model = (copy.deepcopy(base) for _ in range(3))
+    with torch.no_grad():
+        for t in nudged_model.parameters():
+            t.copy_(torch.nextafter(t, torch.full_like(t, math.inf)))
+    kw = {} if pyramid is None else {"pyramid": pyramid}
+    twin_step = make_train_step(bcfg, spec, impl="plain")
+    _, tm = twin_step(TrainState(twin_model, make_optimizer(bcfg, twin_model)), batch, 0, **kw)
+    _, nm = twin_step(TrainState(nudged_model, make_optimizer(bcfg, nudged_model)), batch, 0,
+                      **kw)
+    _, fm = make_train_step(cfg, spec)(TrainState(f32_model, make_optimizer(cfg, f32_model)),
+                                       batch, 0, **kw)
+    check(math.isfinite(m.loss) and m.skipped == 0.0 and tm.skipped == 0.0,
+          f"{label}: loss {m.loss}, skipped {m.skipped}, twins' skipped {tm.skipped}")
+    check(abs(m.loss - tm.loss) <= BF16_L2 * abs(tm.loss),
+          f"{label}: loss {m.loss} vs bf16 twins' {tm.loss}")
+    grads = [dict((n, t.grad) for n, t in train_tensors(mm))
+             for mm in (model, twin_model, nudged_model, f32_model)]
+    names = sorted(grads[0])
+    flat = [torch.cat([g[n].reshape(-1) for n in names]) for g in grads]
+    check(bool(torch.isfinite(flat[0]).all()), f"{label}: non-finite gradients")
+    e_twin, noise, floor = (rel_l2(flat[i], flat[1]) for i in (0, 2, 3))
+    check(e_twin < max(2.0 * noise, BF16_L2) and e_twin < floor,
+          f"{label}: gradients at relative L2 {e_twin} from the bf16 twins'; the twins' step "
+          f"from weights one ulp away lies at {noise}, the f32 step at {floor}")
+    leaves = sorted(((rel_l2(grads[0][n], grads[1][n]), rel_l2(grads[2][n], grads[1][n]), n)
+                     for n in names if float(grads[1][n].norm()) > 0.0), reverse=True)
+    under = sum(e < BF16_L2 for e, _, _ in leaves)
+    return (f"{label} vs bf16 twins on the card: loss {m.loss:.6f} vs {tm.loss:.6f} "
+            f"(one ulp away {nm.loss:.6f}, f32 {fm.loss:.6f}); flat gradient at relative L2 "
+            f"{e_twin:.4g} from the twins'; the twins' step from weights one ulp away at "
+            f"{noise:.4g}, the f32 step at {floor:.4g}; {under} of {len(leaves)} leaves within "
+            f"{BF16_L2}; worst: " + ", ".join(f"{n} {e:.3g} (one ulp away {u:.3g})"
+                                             for e, u, n in leaves[:3]))
+
+
 def train_bf16(cfg, report, batch, device="cuda"):
     """One counted train step with ``compute_dtype="bfloat16"`` from the r5
-    weights (K4's bf16 kernel launched, the f32 K2 and K4 never) against
-    one step through the bf16 twins from the same state: loss rtol
-    ``BF16_L2``, finite, not skipped. The gradients are held to the noise
-    of the bf16 step measured in the same run: the linear layers round
-    their products to bf16 (as JAX's ``bf16 @ bf16``), so where two
-    programs' f32 sums differ in the last bit (the kernels' and the twins'
-    differ in summation order only) a rounding can flip, and the flips
-    decide near-ties of the max pools and the loss's hardest pairs. The
-    witness is a second twin step from the same weights moved by one f32
-    ulp each: the kernel step's flat gradient must lie within twice that
-    step's distance to the twins' (or within ``BF16_L2`` where the step is
-    not that sensitive), and nearer the twins' than the f32 step of the
-    same state lies."""
+    weights (K4's bf16 kernel launched, the f32 K2 and K4 never), held by
+    ``hold_bf16_step``; then ``TRAIN_STEPS`` timed bf16 steps."""
     import copy
     import math
 
     import torch
     from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
     from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
-    from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
+    from d3feat_tpu_torch.train.optim import make_optimizer
     from d3feat_tpu_torch.train.step import TrainState, make_train_step
 
     bcfg = bf16_config(cfg)
     spec = make_pyramid_spec(bcfg)
     model = r5_model(bcfg, device)
-    twin_model, nudged_model, f32_model = (copy.deepcopy(model) for _ in range(3))
-    with torch.no_grad():
-        for t in nudged_model.parameters():
-            t.copy_(torch.nextafter(t, torch.full_like(t, math.inf)))
+    base = copy.deepcopy(model)
     state = TrainState(model, make_optimizer(bcfg, model))
     torch.cuda.synchronize()
     for w in (band_conv, band_conv_bwd):
@@ -1101,33 +1243,7 @@ def train_bf16(cfg, report, batch, device="cuda"):
     report["K4 band_conv_bwd bf16"]["launches"] = band_conv_bwd.launches_bf16
     phase(f"bf16 training launches per step: K2 bf16 {band_conv.launches_bf16}, K4 bf16 "
           f"{band_conv_bwd.launches_bf16}, f32 0")
-    twin_step = make_train_step(bcfg, spec, impl="plain")
-    _, tm = twin_step(TrainState(twin_model, make_optimizer(bcfg, twin_model)), batch, 0)
-    _, nm = twin_step(TrainState(nudged_model, make_optimizer(bcfg, nudged_model)), batch, 0)
-    _, fm = make_train_step(cfg, spec)(TrainState(f32_model, make_optimizer(cfg, f32_model)),
-                                       batch, 0)
-    check(math.isfinite(m.loss) and m.skipped == 0.0 and tm.skipped == 0.0,
-          f"bf16 train step: loss {m.loss}, skipped {m.skipped}, twins' skipped {tm.skipped}")
-    check(abs(m.loss - tm.loss) <= BF16_L2 * abs(tm.loss),
-          f"bf16 train step: loss {m.loss} vs twins' {tm.loss}")
-    grads = [dict((n, t.grad) for n, t in train_tensors(mm))
-             for mm in (model, twin_model, nudged_model, f32_model)]
-    names = sorted(grads[0])
-    flat = [torch.cat([g[n].reshape(-1) for n in names]) for g in grads]
-    check(bool(torch.isfinite(flat[0]).all()), "bf16 train step: non-finite gradients")
-    e_twin, noise, floor = (rel_l2(flat[i], flat[1]) for i in (0, 2, 3))
-    check(e_twin < max(2.0 * noise, BF16_L2) and e_twin < floor,
-          f"bf16 train step: gradients at relative L2 {e_twin} from the bf16 twins'; the "
-          f"twins' step from weights one ulp away lies at {noise}, the f32 step at {floor}")
-    leaves = sorted(((rel_l2(grads[0][n], grads[1][n]), rel_l2(grads[2][n], grads[1][n]), n)
-                     for n in names if float(grads[1][n].norm()) > 0.0), reverse=True)
-    under = sum(e < BF16_L2 for e, _, _ in leaves)
-    phase(f"bf16 train step vs bf16 twins on the card: loss {m.loss:.6f} vs {tm.loss:.6f} "
-          f"(one ulp away {nm.loss:.6f}, f32 {fm.loss:.6f}); flat gradient at relative L2 "
-          f"{e_twin:.4g} from the twins'; the twins' step from weights one ulp away at "
-          f"{noise:.4g}, the f32 step at {floor:.4g}; {under} of {len(leaves)} leaves within "
-          f"{BF16_L2}; worst: " + ", ".join(f"{n} {e:.3g} (one ulp away {u:.3g})"
-                                           for e, u, n in leaves[:3]))
+    phase(hold_bf16_step("bf16 train step", cfg, spec, batch, model, base, m))
 
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1142,6 +1258,204 @@ def train_bf16(cfg, report, batch, device="cuda"):
     if "--profile" in sys.argv:
         profile(lambda i: step(state, batch, 0), 3, "bf16 train steps")
     return sps
+
+
+def reset_launches():
+    """Every kernel wrapper's launch counts to 0."""
+    from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
+    from d3feat_tpu_torch.ops.band_lists import band_lists, band_lists_given, transpose_lists
+    from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
+    from d3feat_tpu_torch.ops.select import band_select
+
+    for w in (band_select, band_lists, band_lists_given, transpose_lists, band_head,
+              band_head_bwd):
+        w.launches = 0
+    for w in (band_conv, band_conv_bwd):
+        w.launches = w.launches_bf16 = w.launches_list = w.launches_list_bf16 = 0
+
+
+def list_counts():
+    """The launch counts that tell the two routes apart."""
+    from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
+    from d3feat_tpu_torch.ops.band_lists import band_lists, band_lists_given, transpose_lists
+    from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
+
+    return {"K2 list": band_conv.launches_list, "K2 list bf16": band_conv.launches_list_bf16,
+            "K4 list": band_conv_bwd.launches_list,
+            "K4 list bf16": band_conv_bwd.launches_list_bf16,
+            "list stage (list mode)": band_lists_given.launches,
+            "transpose": transpose_lists.launches,
+            "K2": band_conv.launches + band_conv.launches_bf16,
+            "K4": band_conv_bwd.launches + band_conv_bwd.launches_bf16,
+            "list stage (threshold mode)": band_lists.launches, "K3": band_head.launches,
+            "K5": band_head_bwd.launches}
+
+
+def list_path(cfg, model, frags, batch, report, device="cuda"):
+    """The band route without thresholds through the port's entry points,
+    on pyramids whose ``sel_thr`` is removed: one extraction call
+    (``make_extract_step``, the first two eval-cache fragments, r5) and one
+    train step (``make_train_step``, the training pair, a copy of r5), each
+    counted (list-mode K2, its list stage and, in the step, list-mode K4
+    and the transposes; never threshold-mode K2 or K4, K3 or K5: the head
+    takes the gather route), against the same call and step through the
+    twins on the card (descriptors within 1e-4 and the same top-250 sets;
+    loss rtol 1e-3, gradients atol 5e-3 / rtol 5e-3); then one counted bf16
+    train step (list-mode K2 and K4 bf16 only) held by ``hold_bf16_step``
+    on the same list-mode pyramid (its twins', one-ulp witness's and f32
+    steps too). The extraction's and the f32 step's distance to the
+    threshold route is printed, not gated."""
+    import copy
+    import math
+
+    import torch
+    from d3feat_tpu_torch.data.pack import pack_fragments
+    from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+    from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
+    from d3feat_tpu_torch.train.step import TrainState, make_extract_step, make_train_step
+
+    n_convs = sum(hasattr(blk, "conv") for blk in model.encoder)
+    n_search = len({(sp.layer, sp.strided) for sp, blk in zip(model.specs.encoder, model.encoder)
+                    if hasattr(blk, "conv")})
+    b = pack_fragments(frags[:2], point_capacity=cfg.caps.points[0], num_clouds=2)
+    eb = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    pyr = build_pyramid(eb["points"], eb["lengths"], spec=make_pyramid_spec(cfg, num_clouds=2))
+    check(not bool(pyr["overflow"]), "list path: the extraction pyramid overflowed")
+    extract = make_extract_step(cfg, num_clouds=2)
+    extract(model, eb, pyramid=dict(pyr, sel_thr={}))  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    feats, scores, _ = extract(model, eb, pyramid=dict(pyr, sel_thr={}))  # the counted run
+    torch.cuda.synchronize()
+    c = list_counts()
+    check(c["K2 list"] == n_convs and c["list stage (list mode)"] == n_search
+          and c["K2"] + c["K4"] + c["K3"] + c["list stage (threshold mode)"] == 0,
+          f"list path extraction: launches {c}")
+    report["K2 band_conv list"]["launches"] = c["K2 list"]
+    report["K2/K4 band_lists list"]["launches"] = c["list stage (list mode)"]
+    phase("list path, extraction call launches: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    tf, ts, _ = make_extract_step(cfg, num_clouds=2, impl="plain")(model, eb,
+                                                                   pyramid=dict(pyr, sel_thr={}))
+    thf = extract(model, eb, pyramid=pyr)[0]
+    lengths = [int(v) for v in b["lengths"]]
+    worst, ok_sets, at = float((feats - tf).abs().max()), True, 0
+    for n in lengths:
+        ok_sets &= topk_agree(scores[at:at + n, 0].cpu().numpy(), ts[at:at + n, 0].cpu().numpy(),
+                              TOPK, 1e-4)
+        at += n
+    check(bool(torch.isfinite(feats).all() and torch.isfinite(scores).all()),
+          "list path extraction: non-finite outputs")
+    check(worst <= 1e-4, f"list path extraction: descriptors differ from the twins' by {worst}")
+    check(ok_sets, "list path extraction: top-250 keypoint sets differ from the twins'")
+    phase(f"list path extraction vs twins on the card: max descriptor diff {worst:.3g}, "
+          f"top-{TOPK} sets agree; distance to the threshold route "
+          f"{float((feats - thf).abs().max()):.3g} (not gated)")
+
+    spec = make_pyramid_spec(cfg)
+    tpyr = build_pyramid(batch["points"], batch["lengths"], spec=spec)
+    base = r5_model(cfg, device)
+    models = [copy.deepcopy(base) for _ in range(3)]  # kernels, twins, threshold route
+    states = [TrainState(m_, make_optimizer(cfg, m_)) for m_ in models]
+    torch.cuda.synchronize()
+    reset_launches()
+    _, m = make_train_step(cfg, spec)(states[0], batch, 0, pyramid=dict(tpyr, sel_thr={}))
+    torch.cuda.synchronize()
+    c = list_counts()
+    check(c["K2 list"] == c["K4 list"] == n_convs and c["transpose"] == n_search
+          and c["list stage (list mode)"] == n_search
+          and c["K2"] + c["K4"] + c["K3"] + c["K5"] + c["list stage (threshold mode)"] == 0,
+          f"list path train step: launches {c}")
+    report["K4 band_conv_bwd list"]["launches"] = c["K4 list"]
+    phase("list path, train step launches: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    _, tm = make_train_step(cfg, spec, impl="plain")(states[1], batch, 0,
+                                                      pyramid=dict(tpyr, sel_thr={}))
+    _, hm = make_train_step(cfg, spec)(states[2], batch, 0, pyramid=tpyr)
+    flat = [torch.cat([t.grad.reshape(-1) for _, t in train_tensors(m_)]) for m_ in models]
+    gerr = float((flat[0] - flat[1]).abs().max())
+    check(math.isfinite(m.loss) and m.skipped == 0.0 and abs(m.loss - tm.loss) <= 1e-3 * abs(
+        tm.loss), f"list path train step: loss {m.loss} vs twins' {tm.loss}, skipped {m.skipped}")
+    check(torch.allclose(flat[0], flat[1], atol=5e-3, rtol=5e-3),
+          f"list path train step: gradients differ from the twins' by {gerr}")
+    check(float(flat[1].abs().max()) > 1e-4, "list path train step: vacuous gradient comparison")
+    phase(f"list path train step vs twins on the card: loss {m.loss:.6f} vs {tm.loss:.6f}, max "
+          f"gradient diff {gerr:.3g}; threshold route loss {hm.loss:.6f}, gradient distance "
+          f"{float((flat[0] - flat[2]).abs().max()):.3g} (not gated)")
+    del models, states
+
+    bcfg = bf16_config(cfg)
+    bmodel = copy.deepcopy(base)
+    torch.cuda.synchronize()
+    reset_launches()
+    _, m = make_train_step(bcfg, spec)(TrainState(bmodel, make_optimizer(bcfg, bmodel)), batch, 0,
+                                       pyramid=dict(tpyr, sel_thr={}))
+    torch.cuda.synchronize()
+    c = list_counts()
+    check(c["K2 list bf16"] == c["K4 list bf16"] == n_convs and c["K2 list"] + c["K4 list"] == 0
+          and c["K2"] + c["K4"] + c["K3"] + c["K5"] == 0, f"list path bf16 train step: {c}")
+    report["K2 band_conv list bf16"]["launches"] = c["K2 list bf16"]
+    report["K4 band_conv_bwd list bf16"]["launches"] = c["K4 list bf16"]
+    phase(f"list path bf16 train step: launches K2 list bf16 {c['K2 list bf16']}, K4 list bf16 "
+          f"{c['K4 list bf16']}")
+    phase(hold_bf16_step("list path bf16 train step", cfg, spec, batch, bmodel, base, m,
+                         pyramid=dict(tpyr, sel_thr={})))
+
+
+def dp_phase(cfg, batch, frags, device="cuda"):
+    """Data parallelism at world size 1 on NCCL (a group of one on a
+    ``file://`` store in a temporary directory): ``make_dp_train_step`` on
+    the training pair from r5 equal bit for bit to ``make_train_step``
+    (metrics, weights, momentum), ``make_dp_extract_step`` equal bit for
+    bit to ``make_extract_step`` on the first two eval-cache fragments, and
+    the time of the gradient all-reduce (one flat f32 buffer) by events.
+    Returns the JSON summary."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from d3feat_tpu_torch.compat.weights import optimizer_state_by_name
+    from d3feat_tpu_torch.data.pack import pack_fragments
+    from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
+    from d3feat_tpu_torch.parallel import init_group, make_dp_extract_step, \
+        make_dp_train_step, shard_batch
+    from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
+    from d3feat_tpu_torch.train.step import TrainState, make_extract_step, make_train_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rank, n = init_group("cuda", world_size=1, rank=0, init_method=f"file://{tmp}/store",
+                             timeout_s=300)
+        try:
+            check((rank, n, dist.get_backend()) == (0, 1, "nccl"),
+                  f"DP: rank {rank} of {n} on {dist.get_backend()}")
+            spec = make_pyramid_spec(cfg)
+            models = [r5_model(cfg, device) for _ in range(2)]
+            states = [TrainState(m_, make_optimizer(cfg, m_)) for m_ in models]
+            _, m = make_train_step(cfg, spec)(states[0], batch, 0)
+            mine = shard_batch({k: v[None] for k, v in batch.items()}, rank, device, n)
+            _, dm = make_dp_train_step(cfg, pyramid_spec=spec)(states[1], mine, 0)
+            moms = [optimizer_state_by_name(s.model, s.optimizer)["momentum_buffer"]
+                    for s in states]
+            same = (dm == m and all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                train_tensors(models[0]), train_tensors(models[1])))
+                and all(torch.equal(moms[0][k], moms[1][k]) for k in moms[0]))
+            check(same, f"DP train step at world size 1: {dm} vs make_train_step's {m}")
+            phase(f"DP train step (NCCL, world size 1) equals make_train_step bit for bit: "
+                  f"loss {dm.loss:.6f}, weights and momentum")
+            b = pack_fragments(frags[:2], point_capacity=cfg.caps.points[0], num_clouds=2)
+            eb = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+            f, s, o = make_extract_step(cfg, num_clouds=2)(models[0], eb)
+            df, ds, do = make_dp_extract_step(cfg, num_clouds=2)(models[0], eb)
+            check(df.shape[0] == 1 and torch.equal(df[0], f) and torch.equal(ds[0], s)
+                  and bool(do[0]) == bool(o), "DP extraction differs from make_extract_step")
+            phase("DP extraction (NCCL, world size 1) equals make_extract_step bit for bit")
+            flat = torch.cat([t.grad.reshape(-1) for _, t in train_tensors(models[1])])
+            ar_ms = cuda_ms(lambda: dist.all_reduce(flat))
+            nb = flat.numel() * flat.element_size()
+            phase(f"DP gradient all-reduce: {nb} bytes, {ar_ms:.4f} ms by events (NCCL, one "
+                  f"rank)")
+        finally:
+            dist.destroy_process_group()
+    return {"world_size": n, "backend": "nccl", "allreduce_bytes": nb, "allreduce_ms": ar_ms,
+            "train_step_bitwise": True, "extract_bitwise": True}
 
 
 RECALL_SEEDS = (424242, 424243, 424244, 424245)  # the axis scenes of artifacts/eval_cache
@@ -1724,6 +2038,11 @@ def main():
     phase("bf16 kernels vs bf16 twins")
     check_k2(pyr, cfg, model, report, panel="bfloat16")
     check_k4(pyr, cfg, model, report, panel="bfloat16")
+    phase("list mode (no thresholds): kernels vs twins")
+    check_list_stage(pyr, cfg, model, report)
+    for panel in ("float32", "bfloat16"):
+        check_k2(pyr, cfg, model, report, panel=panel, mode="list")
+        check_k4(pyr, cfg, model, report, panel=panel, mode="list")
     del pyr
 
     phase("serving path")
@@ -1737,6 +2056,10 @@ def main():
     sps = train_phase(cfg, report, smi, batch)
     phase("training path, bf16")
     sps_bf16 = train_bf16(cfg, report, batch)
+    phase("list path (no thresholds)")
+    list_path(cfg, model, frags, batch, report)
+    phase("data parallelism")
+    dp_line = dp_phase(cfg, batch, frags)
     phase("trainer")
     trainer_line = trainer_phase(smi, sps)
     phase("bench")
@@ -1757,7 +2080,17 @@ def main():
                "K5 band_head_bwd": ("head_bwd.cu", "d3feat_tpu/ops/pallas/head.py:304"),
                "K2 band_conv bf16": ("band_conv.cu", "d3feat_tpu/ops/pallas/band_conv.py:351"),
                "K4 band_conv_bwd bf16": ("band_conv_bwd.cu",
-                                         "d3feat_tpu/ops/pallas/band_conv.py:586")}
+                                         "d3feat_tpu/ops/pallas/band_conv.py:586"),
+               # list mode (use_thr=False): the selection of :111 and :379 from the lists
+               "K2/K4 band_lists list": ("band_lists.cu",
+                                         "d3feat_tpu/ops/pallas/band_conv.py:351"),
+               "K2 band_conv list": ("band_conv.cu", "d3feat_tpu/ops/pallas/band_conv.py:351"),
+               "K2 band_conv list bf16": ("band_conv.cu",
+                                          "d3feat_tpu/ops/pallas/band_conv.py:351"),
+               "K4 band_conv_bwd list": ("band_conv_bwd.cu",
+                                         "d3feat_tpu/ops/pallas/band_conv.py:586"),
+               "K4 band_conv_bwd list bf16": ("band_conv_bwd.cu",
+                                              "d3feat_tpu/ops/pallas/band_conv.py:586")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[name]
@@ -1773,6 +2106,7 @@ def main():
         print(json.dumps(line), flush=True)
     print(json.dumps({"recall": recall_line}), flush=True)
     print(json.dumps({"trainer": trainer_line}), flush=True)
+    print(json.dumps({"data_parallel": dp_line}), flush=True)
     print(json.dumps({"fragments_per_s": fps, "fragments_per_s_bf16": fps_bf16,
                       "train_steps_per_s": sps, "train_steps_per_s_bf16": sps_bf16,
                       "card": smi}), flush=True)

@@ -166,8 +166,9 @@ def band_conv_eligible(spec: BlockSpec, batch, config) -> bool:
 def band_query_tiles(qb, sb, num_clouds: int, r: float, tile: int, s_rows: int,
                      thr, ptie):
     """Shared band-kernel query prep: pad the sorted query rows and their
-    thresholds to a tile multiple and compute each tile's support window
-    ``[start, end)`` from the sorted keys (``r + EPS`` margin).
+    thresholds (when given) to a tile multiple and compute each tile's
+    support window ``[start, end)`` from the sorted keys (``r + EPS``
+    margin).
 
     Returns (q_rows [Nq_pad, 4], starts, ends, thr, ptie)."""
     from d3feat_tpu_torch.ops.neighbors import SortedLevel, pad_query_rows, tile_key_bounds
@@ -175,7 +176,7 @@ def band_query_tiles(qb, sb, num_clouds: int, r: float, tile: int, s_rows: int,
     nq = qb["q_rows"].shape[0]
     pad = (-nq) % tile
     q_rows = pad_query_rows(qb["q_rows"], tile)
-    if pad:
+    if pad and thr is not None:
         thr = torch.cat([thr, thr.new_zeros(pad)])
         ptie = torch.cat([ptie, ptie.new_full((pad,), -1.0)])
     kmin, kmax = tile_key_bounds(qb["key_sorted"], tile, num_clouds)
@@ -185,27 +186,40 @@ def band_query_tiles(qb, sb, num_clouds: int, r: float, tile: int, s_rows: int,
     return q_rows, starts, ends, thr, ptie
 
 
+def search_mode(batch, name: str) -> str:
+    """``"threshold"`` when the pyramid kept the search's thresholds
+    (``batch["sel_thr"][name]``), else ``"list"``: the band kernels then
+    select from the search's own position lists, as the JAX package falls
+    back to ``(None, None)`` (``d3feat_tpu/models/blocks.py:462``)."""
+    return "threshold" if name in (batch.get("sel_thr") or {}) else "list"
+
+
 def search_inputs(batch, config, layer: int, strided: bool, radius: float,
                   impl: str = "auto") -> dict:
     """The band kernels' arguments of one search (``conv{layer}``, or
-    ``pool{layer}`` when ``strided``): sorted query rows and thresholds
-    padded to the tile, support rows, tile windows, tile and the windows'
-    chunk rows (keyword arguments of ``ops.band_conv.band_conv`` besides
-    the features, weights and extent), and on the kernel path the search's
-    ``lists``. Built once
-    and kept in ``batch["band_args"]`` under the search's name, so every
-    conv of the search, and the head for ``conv0``, share them."""
-    from d3feat_tpu_torch.ops.band_lists import band_lists, uses_kernel
+    ``pool{layer}`` when ``strided``): sorted query rows padded to the
+    tile, with their thresholds (threshold mode) or ``thr``/``ptie`` None
+    and the search's position lists ``neighb`` [K, Nq_pad] int32, padded
+    queries listing the shadow (list mode, ``search_mode``), support rows,
+    tile windows, tile and the windows' chunk rows (keyword arguments of
+    ``ops.band_conv.band_conv`` besides the features, weights and extent),
+    and on the kernel path the search's ``lists`` of that mode. Built once
+    and kept in ``batch["band_args"]`` under the search's name
+    (``"<name>:list"`` in list mode, so one batch holds both modes), so
+    every conv of the search, and the head for ``conv0``, share them."""
+    from d3feat_tpu_torch.ops.band_lists import band_lists, band_lists_given, uses_kernel
     from d3feat_tpu_torch.ops.neighbors import band_windows, pick_chunk
     from d3feat_tpu_torch.ops.pyramid import level_band_cap
 
     name = f"pool{layer}" if strided else f"conv{layer}"
+    mode = search_mode(batch, name)
+    key = name if mode == "threshold" else f"{name}:list"
     memo = batch.setdefault("band_args", {})
-    args = memo.get(name)
+    args = memo.get(key)
     if args is None:
         q_level = layer + 1 if strided else layer
         qb, sb = batch["band"][q_level], batch["band"][layer]
-        thr, ptie = batch["sel_thr"][name]
+        thr, ptie = batch["sel_thr"][name] if mode == "threshold" else (None, None)
         s_rows = batch["points"][layer].shape[0]
         n_q_rows = batch["points"][q_level].shape[0]
         # strided blocks carry the wide pool band: the smaller tile keeps the
@@ -217,13 +231,25 @@ def search_inputs(batch, config, layer: int, strided: bool, radius: float,
         band_cap = level_band_cap(s_rows, num_clouds, config.band_frac,
                                   tile=tile, ratio=-(-s_rows // n_q_rows))
         starts, wends = band_windows(starts, ends, band_cap)
-        args = memo[name] = dict(q_rows=q_rows.contiguous(), thr=thr.contiguous(),
-                                 ptie=ptie.contiguous(), s_rows=sb["s_rows"], starts=starts,
-                                 wends=wends, query_tile=tile, chunk=pick_chunk(band_cap))
+        args = dict(q_rows=q_rows.contiguous(), thr=thr, ptie=ptie, s_rows=sb["s_rows"],
+                    starts=starts, wends=wends, query_tile=tile, chunk=pick_chunk(band_cap))
+        if mode == "threshold":
+            args.update(thr=thr.contiguous(), ptie=ptie.contiguous())
+        else:  # the padded queries list the shadow (d3feat_tpu/models/blocks.py:480-483)
+            lists = batch["pools" if strided else "neighbors"][layer]
+            pad = q_rows.shape[0] - lists.shape[0]
+            args["neighb"] = torch.cat([lists.T.to(torch.int32),
+                                        lists.new_full((lists.shape[1], pad), s_rows,
+                                                       dtype=torch.int32)], 1).contiguous()
+        memo[key] = args
     if "lists" not in args and uses_kernel(impl, args["q_rows"]):
-        args["lists"] = band_lists(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
-                                   args["starts"], args["wends"], query_tile=args["query_tile"],
-                                   impl=impl)
+        kw = {k: args[k] for k in ("starts", "wends", "query_tile")}
+        if mode == "threshold":
+            args["lists"] = band_lists(args["q_rows"], args["thr"], args["ptie"],
+                                       args["s_rows"], impl=impl, **kw)
+        else:
+            args["lists"] = band_lists_given(args["neighb"], n_rows=batch["points"][layer].shape[0],
+                                             impl=impl, **kw)
     return dict(args)
 
 

@@ -10,7 +10,10 @@ Detector head (parameter-free): with f normalised by its max,
   saliency   = softplus(f - mean of f over the level-0 neighborhood)
   channelmax = f / (1e-6 + max over channels)
   score      = max over channels of (saliency * channelmax)
-The neighborhood sums and counts come from the K3 band-head kernel. At eval
+The neighborhood sums and counts come from the K3 band-head kernel, or,
+when conv0 has no thresholds (list mode) or on the train path with
+``bandhead_train=False``, from a gather of the level-0 neighbourhoods (the
+JAX package's XLA route, outside any Pallas kernel). At eval
 time points that are not a per-channel local max of their neighborhood
 score zero (optionally only the top-M candidates are gated,
 ``eval_gate_topm``); the training head has no gate.
@@ -142,6 +145,18 @@ def band_head_inputs(batch, config, impl: str = "auto") -> dict:
     return args
 
 
+def gather_head_mean(f: torch.Tensor, neighbors: torch.Tensor) -> torch.Tensor:
+    """[C0, D] mean of each level-0 neighbourhood's features by a gather
+    (``neighbors`` [C0, K0], shadow C0 reads a zero row): the sum over the
+    neighbours divided by the count of neighbours whose feature sum is not
+    0, at least 1 (``d3feat_tpu/models/kpfcnn.py:220-227``)."""
+    from d3feat_tpu_torch.models.blocks import _gather_rows
+
+    nf = _gather_rows(f, neighbors)                                  # [C0, K0, D]
+    neighbor_num = torch.clamp((nf.sum(-1) != 0.0).sum(-1, keepdim=True), min=1).to(f.dtype)
+    return nf.sum(1) / neighbor_num
+
+
 def detection_scores(batch, features: torch.Tensor, *, config, train: bool = False,
                      per_cloud_norm: bool = False, impl: str = "auto") -> torch.Tensor:
     """Detector head over the sorted-space pyramid ``batch``.
@@ -150,7 +165,10 @@ def detection_scores(batch, features: torch.Tensor, *, config, train: bool = Fal
     extraction path, where independent fragments share a batch); otherwise
     one global max, as the reference. ``train`` drops the eval local-max
     gate. Differentiable in ``features`` (the K3 sums through
-    ``ops.head.BandHeadFn``, whose backward is K5)."""
+    ``ops.head.BandHeadFn``, whose backward is K5; or the gather head,
+    ``gather_head_mean``, as ``d3feat_tpu/models/kpfcnn.py:178-183``
+    chooses it)."""
+    from d3feat_tpu_torch.models.blocks import search_mode
     from d3feat_tpu_torch.ops.head import BandHeadFn
     from d3feat_tpu_torch.ops.subsample import lengths_to_cloud_ids
 
@@ -167,13 +185,18 @@ def detection_scores(batch, features: torch.Tensor, *, config, train: bool = Fal
     else:
         f = f / (f.amax() + 1e-6)
 
-    args = band_head_inputs(batch, config, impl)
-    s_rows = f.shape[0]
-    band_pad = args["s_rows"].shape[0] - s_rows
-    x_pad = torch.cat([f.float(), f.new_zeros((band_pad, f.shape[1]))]).contiguous()
-    fsum, cnt = BandHeadFn.apply(x_pad, args, impl)
-    neighbor_num = torch.clamp(cnt[:s_rows, None], min=1.0)  # a count: no gradient
-    mean_features = fsum[:s_rows, : f.shape[1]] / neighbor_num
+    use_band_head = ((not train or config.bandhead_train) and 0 in (batch.get("band") or {})
+                     and search_mode(batch, "conv0") == "threshold")
+    if use_band_head:
+        args = band_head_inputs(batch, config, impl)
+        s_rows = f.shape[0]
+        band_pad = args["s_rows"].shape[0] - s_rows
+        x_pad = torch.cat([f.float(), f.new_zeros((band_pad, f.shape[1]))]).contiguous()
+        fsum, cnt = BandHeadFn.apply(x_pad, args, impl)
+        neighbor_num = torch.clamp(cnt[:s_rows, None], min=1.0)  # a count: no gradient
+        mean_features = fsum[:s_rows, : f.shape[1]] / neighbor_num
+    else:
+        mean_features = gather_head_mean(f, batch["neighbors"][0])
     local_max_score = softplus(f - mean_features)
 
     depth_wise_max = f.amax(1, keepdim=True)

@@ -20,6 +20,14 @@ rows ``[Nq_pad, KP * Cin]`` for the backward. ``band_conv_plain`` and
 select from the windows themselves, as the TPU kernels do, ignoring
 ``lists``.
 
+List mode (``thr=None``, ``neighb=`` the search's position lists [K,
+Nq_pad]; the TPU kernels' ``use_thr=False``): a window row is selected
+as often as the query lists its position, and weighed from the
+coordinates alone, ``w = max(1 - sqrt(|s - (q + k)|^2) / extent, 0)``
+(``list_weights``), not by the threshold mode's expansion; the density
+counts the selections. The kernels take the list-mode lists of
+``ops.band_lists.band_lists_given`` (``lists.mode == "list"``).
+
 ``panel_dtype="bfloat16"`` (``compute_dtype="bfloat16"`` of the model)
 runs the products on bf16 operands with f32 accumulation, as the TPU
 kernels' bf16 panels do; geometry, selection, thresholds and the density
@@ -69,6 +77,53 @@ def threshold_select(rows, pos, inside, q_rows, thr, ptie, query_tile: int):
     sel = inside[:, None] & (s[..., 3] == q[..., 3]) & (
         (d2 < th) | ((d2 == th) & (pos.float()[:, None] <= pt)))
     return sel, d2
+
+
+def list_select(pos, inside, neighb, query_tile: int):
+    """[n_tiles, T, W] float: how often each query lists each window row
+    (list mode: the TPU kernel sums ``position == neighb[k]`` over k)."""
+    n, width = pos.shape
+    k = neighb.shape[0]
+    p = neighb.T.reshape(n, query_tile * k).long()                   # [n, T * K]
+    off = p - pos[:, :1]                                             # window offsets
+    ok = (off >= 0) & (off < width)
+    off = torch.where(ok, off, 0)
+    ok = ok & torch.gather(inside, 1, off)
+    sel = torch.zeros((n, query_tile * width), device=pos.device)
+    flat = (torch.arange(query_tile * k, device=pos.device) // k) * width
+    sel.scatter_add_(1, flat[None, :] + off, ok.float())
+    return sel.view(n, query_tile, width)
+
+
+def list_weights(s, q, k, extent: float):
+    """List mode's influence of kernel point ``k`` [3] on the pairs of
+    broadcastable support rows ``s`` and query rows ``q`` [..., 4], in the
+    TPU kernel's op order (``band_lists.cuh::kp_weight_list``): per axis
+    ``d = s - (q + k)``, ``d2 = (dx dx + dy dy) + dz dz``, then ``max(1 -
+    sqrt(d2) / extent, 0)``, a true division."""
+    dx = s[..., 0] - (q[..., 0] + k[0])
+    dy = s[..., 1] - (q[..., 1] + k[1])
+    dz = s[..., 2] - (q[..., 2] + k[2])
+    d2 = (dx * dx + dy * dy) + dz * dz
+    ext = torch.tensor(extent, dtype=torch.float32, device=d2.device)
+    return torch.clamp(1.0 - torch.sqrt(d2) / ext, min=0.0)
+
+
+def window_selection(rows, pos, inside, q_rows, thr, ptie, neighb, query_tile: int, extent):
+    """(sel [n, T, W] float, how often each query selects each window row,
+    and ``weight(k)``: [n, T, W] influence of kernel point ``k`` times the
+    selection) of threshold mode (``thr``/``ptie``) or list mode
+    (``thr=None``, ``neighb``)."""
+    n = rows.shape[0]
+    q = q_rows.view(n, query_tile, 4)
+    if thr is None:
+        if neighb is None:
+            raise ValueError("band_conv: list mode (thr=None) needs the position lists (neighb=)")
+        sel = list_select(pos, inside, neighb, query_tile)
+        return sel, lambda k: list_weights(rows[:, None], q[:, :, None], k, extent) * sel
+    selb, d2 = threshold_select(rows, pos, inside, q_rows, thr, ptie, query_tile)
+    d2m = torch.where(selb, d2, torch.tensor(_BIG, device=rows.device))
+    return selb.float(), lambda k: kp_weights(d2m, rows, q, k, extent)
 
 
 def inv_extent_f32(extent: float) -> float:
@@ -125,7 +180,7 @@ def weighted_hi_lo(w, xw, chunk: int):
 
 def band_conv_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends,
                     *, query_tile: int, extent: float, panel_dtype: str = "float32",
-                    chunk=None):
+                    chunk=None, neighb=None):
     """Twin of the K2 kernel (same contract), in plain PyTorch."""
     rnd = panel_rounding(panel_dtype)
     chunk = _chunk_of(panel_dtype, chunk)
@@ -136,17 +191,16 @@ def band_conv_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts
     if n == 0:
         return q_rows.new_zeros((0, cout)), q_rows.new_zeros((0,))
     rows, pos, inside = tile_windows(s_rows, starts, wends)        # [n, W, 4]
-    sel, d2 = threshold_select(rows, pos, inside, q_rows, thr, ptie, query_tile)
+    sel, weight = window_selection(rows, pos, inside, q_rows, thr, ptie, neighb, query_tile,
+                                   extent)
     xw = rnd(x[pos] * inside[..., None])                           # [n, W, C]
     active = xw.sum(-1) > 0.0
-    den = torch.clamp((sel & active[:, None]).sum(-1).float(), min=1.0)  # [n, T]
-    d2m = torch.where(sel, d2, torch.tensor(_BIG, device=dev))
-    q = q_rows.view(n, query_tile, 4)
+    den = torch.clamp((sel * active[:, None]).sum(-1), min=1.0)    # [n, T]
     wr = rnd(weights)
     acc = torch.zeros((n, query_tile, cout), device=dev)
     acc_lo = torch.zeros_like(acc)  # bf16: the products of the lo rows
     for k in range(kpn):
-        w = rnd(kp_weights(d2m, rows, q, kernel_points[k], extent))
+        w = rnd(weight(kernel_points[k]))
         if panel_dtype == "float32":
             acc += torch.bmm(w, xw) @ wr[k]
         else:
@@ -198,19 +252,39 @@ def _check_shapes(q_rows, s_rows, x, weights, query_tile, starts, panel_dtype):
     return -(-kpn * c // vec) * vec
 
 
-def _list_args(lists, q_rows):
+def _list_args(lists, q_rows, thr):
+    """The lists' pointers (``ld2`` None in list mode); raises unless the
+    lists' mode is the call's (``thr`` None: list mode)."""
     if lists is None:
         raise ValueError("band_conv kernels: no lists (ops.band_lists.band_lists of the search)")
-    for t, dt, name in ((lists.lpos, torch.int32, "lpos"), (lists.ld2, torch.float32, "ld2"),
-                        (lists.lcnt, torch.int32, "lcnt")):
+    if (lists.mode == "list") != (thr is None):
+        raise ValueError(f"band_conv kernels: {lists.mode}-mode lists for a "
+                         f"{'list' if thr is None else 'threshold'}-mode call")
+    for t, dt, name in ((lists.lpos, torch.int32, "lpos"), (lists.lcnt, torch.int32, "lcnt"),
+                        *(((lists.ld2, torch.float32, "ld2"),) if lists.ld2 is not None else ())):
         build.require(t, dt, name)
     if lists.lcnt.shape[0] != q_rows.shape[0]:
         raise ValueError("band_conv: lists of another search")
-    return build.ptr(lists.lpos), build.ptr(lists.ld2), build.ptr(lists.lcnt)
+    ld2 = None if lists.ld2 is None else build.ptr(lists.ld2)
+    return build.ptr(lists.lpos), ld2, build.ptr(lists.lcnt)
 
 
-_CONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
-    ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+def _count(wrapper, lists, bf16: bool) -> None:
+    """One launch more in the wrapper's count of the lists' mode and panel
+    dtype: ``launches`` (threshold mode, f32 panels), ``launches_bf16``,
+    ``launches_list`` and ``launches_list_bf16``."""
+    name = "launches" + ("_list" if lists.mode == "list" else "") + ("_bf16" if bf16 else "")
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def _influence(extent: float, lists):
+    """The kernels' influence arguments: 1 / extent (threshold mode), the
+    extent (list mode) and the mode flag."""
+    return inv_extent_f32(extent), float(np.float32(extent)), int(lists.mode == "list")
+
+
+_CONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
+    ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
 # + starts, tile, chunk and the bf16 panels of x and W
 _CONV_BF16_ARGS = _CONV_ARGS[:-1] + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
     ctypes.c_void_p] * 3
@@ -218,9 +292,10 @@ _CONV_BF16_ARGS = _CONV_ARGS[:-1] + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int
 
 def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends,
                      *, query_tile: int, extent: float, lists, keep_weighted=False,
-                     panel_dtype: str = "float32", chunk=None):
+                     panel_dtype: str = "float32", chunk=None, neighb=None):
     """Launch the K2 CUDA kernel (same contract as ``band_conv_plain``),
-    from the search's ``lists``: the f32 kernel, or with
+    from the search's ``lists`` (of the call's mode; ``neighb`` is not
+    read): the f32 kernel, or with
     ``panel_dtype="bfloat16"`` the bf16 one. With ``keep_weighted`` it also
     returns what K4 takes: the weighted rows, [Nq_pad, ldw] f32, or in bf16
     [2 * Nq_pad, ldw], the hi rows then the lo rows, and the bf16 panel of
@@ -231,7 +306,7 @@ def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, start
         build.require(t, f32, name)
     ldw = _check_shapes(q_rows, s_rows, x, weights, query_tile, starts, panel_dtype)
     chunk = _chunk_of(panel_dtype, chunk)
-    list_ptrs = _list_args(lists, q_rows)
+    list_ptrs = _list_args(lists, q_rows, thr)
     nq, ns = q_rows.shape[0], s_rows.shape[0]
     kpn, c, cout = weights.shape
     bf16 = panel_dtype == "bfloat16"
@@ -246,7 +321,7 @@ def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, start
     den = torch.empty((nq,), dtype=f32, device=dev)
     args = [build.ptr(q_rows), build.ptr(s_rows), build.ptr(x), build.ptr(weights),
             build.ptr(kernel_points), *list_ptrs, nq, ns, c, cout, kpn,
-            inv_extent_f32(extent), ldw, splits, kc, build.ptr(act), build.ptr(wtd),
+            *_influence(extent, lists), ldw, splits, kc, build.ptr(act), build.ptr(wtd),
             None if part is None else build.ptr(part), build.ptr(out), build.ptr(den)]
     wb = None
     if bf16:  # the bf16 panels of x and W, written by the launcher
@@ -256,44 +331,46 @@ def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, start
         fn = build.launcher("band_conv", "band_conv_bf16_launch", _CONV_BF16_ARGS)
         build.check(fn(*args, build.ptr(starts), query_tile, chunk, build.ptr(xb),
                        build.ptr(wb), build.stream_of(q_rows)), "band_conv_kernel (bf16)")
-        band_conv.launches_bf16 += 1
     else:
         fn = build.launcher("band_conv", "band_conv_launch", _CONV_ARGS)
         build.check(fn(*args, build.stream_of(q_rows)), "band_conv_kernel")
-        band_conv.launches += 1
+    _count(band_conv, lists, bf16)
     return (out, den, wtd, wb) if keep_weighted else (out, den)
 
 
 def band_conv(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends,
               *, query_tile: int, extent: float, impl: str = "auto", lists=None,
-              panel_dtype: str = "float32", chunk=None):
+              panel_dtype: str = "float32", chunk=None, neighb=None):
     """(out [Nq_pad, Cout] float32, den [Nq_pad] float32 clamped density).
 
     ``q_rows`` [Nq_pad, 4] sorted queries with their ``thr``/``ptie``
     [Nq_pad] (padding: cloud id -1), ``s_rows`` [Ns_pad, 4] and ``x``
     [Ns_pad, Cin] sorted supports and features (zero padding),
     ``weights`` [KP, Cin, Cout], ``kernel_points`` [KP, 3], windows
-    ``starts``/``wends`` [n_tiles]; ``lists`` the search's
-    ``ops.band_lists.BandLists`` (kernels only); ``panel_dtype``
+    ``starts``/``wends`` [n_tiles]; list mode: ``thr``/``ptie`` None and
+    ``neighb`` [K, Nq_pad] int32 the search's position lists (padded
+    queries list the shadow); ``lists`` the search's
+    ``ops.band_lists.BandLists`` of the same mode (kernels only); ``panel_dtype``
     "float32" or "bfloat16" (module docstring), with bf16 the window's
     ``chunk`` rows. ``impl`` as in ``ops.select.band_select``. Launches of
     the f32 kernel count in ``band_conv.launches``, of the bf16 one in
-    ``band_conv.launches_bf16``."""
+    ``band_conv.launches_bf16``, in list mode in ``launches_list`` and
+    ``launches_list_bf16``."""
     kw = dict(query_tile=query_tile, extent=extent, panel_dtype=panel_dtype, chunk=chunk)
     if not uses_kernel(impl, q_rows):
         return band_conv_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points,
-                               starts, wends, **kw)
+                               starts, wends, neighb=neighb, **kw)
     return band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points,
                             starts, wends, lists=lists, **kw)
 
 
-band_conv.launches = 0
-band_conv.launches_bf16 = 0
+band_conv.launches = band_conv.launches_bf16 = 0
+band_conv.launches_list = band_conv.launches_list_bf16 = 0
 
 
 def band_conv_bwd_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends,
                         gs, *, query_tile: int, extent: float, need_dx: bool = True,
-                        panel_dtype: str = "float32", chunk=None):
+                        panel_dtype: str = "float32", chunk=None, neighb=None):
     """Twin of the K4 kernel (same contract), in plain PyTorch: the
     explicit products per kernel point, with each tile's window rows
     added into ``dx`` tile after tile. With bf16 panels, dW from the hi and
@@ -311,16 +388,15 @@ def band_conv_bwd_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points, st
     if n == 0:
         return dx, dw
     rows, pos, inside = tile_windows(s_rows, starts, wends)        # [n, W, 4]
-    sel, d2 = threshold_select(rows, pos, inside, q_rows, thr, ptie, query_tile)
+    _, weight = window_selection(rows, pos, inside, q_rows, thr, ptie, neighb, query_tile,
+                                 extent)
     xw = rnd(x[pos] * inside[..., None])                           # [n, W, C]
-    d2m = torch.where(sel, d2, torch.tensor(_BIG, device=dev))
-    q = q_rows.view(n, query_tile, 4)
     gsv = rnd(gs).view(n, query_tile, cout)
     wr = rnd(weights)
     g2 = gsv.reshape(-1, cout)
     dxw = torch.zeros_like(xw) if need_dx else None
     for k in range(kpn):
-        w = rnd(kp_weights(d2m, rows, q, kernel_points[k], extent))  # [n, T, W]
+        w = rnd(weight(kernel_points[k]))                          # [n, T, W]
         if bf16:
             hi, lo = weighted_hi_lo(w, xw, chunk)                  # [n, T, C]
             dw[k] = hi.reshape(-1, c).T @ g2 + lo.reshape(-1, c).T @ g2
@@ -333,16 +409,16 @@ def band_conv_bwd_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points, st
     return dx, dw
 
 
-_CONV_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
-    ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
-_CONV_BWD_BF16_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] + [
-    ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+_CONV_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
+    ctypes.c_int] * 6 + [ctypes.c_void_p] * 6
+_CONV_BWD_BF16_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
+    ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
 
 
 def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends,
                          gs, *, query_tile: int, extent: float, need_dx: bool = True,
                          lists, weighted, weights_panel=None, panel_dtype: str = "float32",
-                         chunk=None):
+                         chunk=None, neighb=None):
     """Launch the K4 CUDA kernels (same contract as ``band_conv_bwd_plain``),
     from the search's ``lists`` and what the forward kept
     (``band_conv_kernel(..., keep_weighted=True)``, of the same
@@ -357,7 +433,7 @@ def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, s
                         (gs, f32, "gs"), (weighted, PANEL_DTYPES[panel_dtype], "weighted")):
         build.require(t, dt, name)
     ldw = _check_shapes(q_rows, s_rows, x, weights, query_tile, starts, panel_dtype)
-    list_ptrs = _list_args(lists, q_rows)
+    list_ptrs = _list_args(lists, q_rows, thr)
     nq, ns = q_rows.shape[0], s_rows.shape[0]
     kpn, c, cout = weights.shape
     bf16 = panel_dtype == "bfloat16"
@@ -383,7 +459,7 @@ def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, s
     row_ptr, pairs = lists.transpose(ns, impl="kernel") if need_dx else (None, None)
     opt = lambda t: None if t is None else build.ptr(t)  # noqa: E731
     geo = (build.ptr(q_rows), build.ptr(s_rows))
-    shape = (nq, ns, c, cout, kpn, inv_extent_f32(extent), ldw, splits, kc)
+    shape = (nq, ns, c, cout, kpn, *_influence(extent, lists), ldw, splits, kc)
     if bf16:
         # V = bf16(gs W^T) [Nq, KP * Cin] and U [Nq * LCAP, Cin] for dx, gs's bf16 panel
         v = torch.empty((nq, kpn * c), dtype=bf, device=dev) if need_dx else None
@@ -394,7 +470,6 @@ def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, s
                        build.ptr(gs), *list_ptrs, opt(row_ptr), opt(pairs), *shape,
                        build.ptr(weighted), opt(part), build.ptr(dw), opt(v), opt(u), opt(dx),
                        build.ptr(gsb), build.stream_of(q_rows)), "band_conv_bwd_kernel (bf16)")
-        band_conv_bwd.launches_bf16 += 1
     else:
         g_rows = torch.empty((ns, kpn * cout), dtype=f32, device=dev) if need_dx else None
         fn = build.launcher("band_conv_bwd", "band_conv_bwd_launch", _CONV_BWD_ARGS)
@@ -402,38 +477,39 @@ def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, s
                        list_ptrs[1], opt(row_ptr), opt(pairs), *shape, dx_splits, dx_kc,
                        build.ptr(weighted), opt(part), build.ptr(dw), opt(g_rows), opt(dx),
                        build.stream_of(q_rows)), "band_conv_bwd_kernel")
-        band_conv_bwd.launches += 1
+    _count(band_conv_bwd, lists, bf16)
     return dx, dw
 
 
 def band_conv_bwd(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wends, gs,
                   *, query_tile: int, extent: float, need_dx: bool = True,
                   impl: str = "auto", lists=None, weighted=None, weights_panel=None,
-                  panel_dtype: str = "float32", chunk=None):
+                  panel_dtype: str = "float32", chunk=None, neighb=None):
     """(dx [Ns_pad, Cin] or None, dW [KP, Cin, Cout]) float32 from the
     density-scaled cotangent ``gs`` [Nq_pad, Cout]; other arguments as in
     ``band_conv``, plus what the forward kept, its ``weighted`` rows and
     (bf16) ``weights_panel`` (kernels only). ``need_dx=False`` skips dx.
     Launches count in ``band_conv_bwd.launches`` (f32) and
-    ``band_conv_bwd.launches_bf16``."""
+    ``band_conv_bwd.launches_bf16``, in list mode in ``launches_list`` and
+    ``launches_list_bf16``."""
     kw = dict(query_tile=query_tile, extent=extent, need_dx=need_dx, panel_dtype=panel_dtype,
               chunk=chunk)
     if not uses_kernel(impl, q_rows):
         return band_conv_bwd_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points,
-                                   starts, wends, gs, **kw)
+                                   starts, wends, gs, neighb=neighb, **kw)
     return band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points,
                                 starts, wends, gs, lists=lists, weighted=weighted,
                                 weights_panel=weights_panel, **kw)
 
 
-band_conv_bwd.launches = 0
-band_conv_bwd.launches_bf16 = 0
+band_conv_bwd.launches = band_conv_bwd.launches_bf16 = 0
+band_conv_bwd.launches_list = band_conv_bwd.launches_list_bf16 = 0
 
 
 class BandConvFn(torch.autograd.Function):
     """``band_conv`` with K4 as its backward (port of
-    ``d3feat_tpu/ops/pallas/band_conv.py::band_conv_ad`` in threshold
-    mode): differentiable in ``x`` and ``weights``. The density is a count
+    ``d3feat_tpu/ops/pallas/band_conv.py::band_conv_ad``, threshold or
+    list mode, as ``args`` say): differentiable in ``x`` and ``weights``. The density is a count
     (constant), the kernel points are buffers (no gradient).
 
     ``apply(x, weights, kernel_points, args, impl)`` with ``args`` the

@@ -8,12 +8,19 @@ the query's K1 list), in ascending position: ``lpos`` [Nq_pad, LCAP] int32
 (-1 past the count), ``ld2`` [Nq_pad, LCAP] float32, their exact squared
 distances (0 past the count), and ``lcnt`` [Nq_pad] int32.
 
+List mode (``band_lists_given``), for a search without thresholds (the
+TPU kernels' ``use_thr=False``): the same lists built from the search's
+own position lists ``neighb`` [K, Nq_pad] instead: the listed positions
+inside the tile's window, in ascending position, a repeated position once
+per listing; ``ld2`` is None, as list mode weighs a pair from its
+coordinates alone (``band_conv.list_weights``).
+
 For K4's dx pass the lists are also transposed (``transpose_lists``):
 for each support row, the flat entries ``q * LCAP + j`` that list it, in
 ascending query order. Built at first use and kept with the lists.
 
-The kernels are in ``ops/cuda/band_lists.cu``; ``band_lists_plain`` and
-``transpose_lists_plain`` are their twins.
+The kernels are in ``ops/cuda/band_lists.cu``; ``band_lists_plain``,
+``band_lists_given_plain`` and ``transpose_lists_plain`` are their twins.
 """
 
 from __future__ import annotations
@@ -30,10 +37,14 @@ QB = 32    # queries per CTA of the kernel: tiles are multiples of it
 
 
 class BandLists:
-    """The lists of one search, and their transpose once K4 asked for it."""
+    """The lists of one search, and their transpose once K4 asked for it.
+    ``mode`` is the selection they came from, ``"threshold"`` or
+    ``"list"`` (no ``ld2``), and decides how K2 and K4 weigh them."""
 
-    def __init__(self, lpos: torch.Tensor, ld2: torch.Tensor, lcnt: torch.Tensor):
-        self.lpos, self.ld2, self.lcnt = lpos, ld2, lcnt
+    def __init__(self, lpos: torch.Tensor, ld2, lcnt: torch.Tensor, mode: str = "threshold"):
+        if mode not in ("threshold", "list") or (ld2 is None) != (mode == "list"):
+            raise ValueError(f"BandLists: mode {mode!r} with ld2 {type(ld2).__name__}")
+        self.lpos, self.ld2, self.lcnt, self.mode = lpos, ld2, lcnt, mode
         self._transposes = {}
 
     def transpose(self, n_rows: int, impl: str = "auto"):
@@ -162,3 +173,69 @@ def band_lists(q_rows, thr, ptie, s_rows, starts, wends, *, query_tile: int,
 
 
 band_lists.launches = 0
+
+
+def band_lists_given_plain(neighb, starts, wends, *, query_tile: int, n_rows: int) -> BandLists:
+    """Twin of the list-mode list stage (same contract as ``band_lists_given``)."""
+    k, nq = neighb.shape
+    if k > LCAP:
+        raise ValueError(f"band_lists_given: K = {k} listed positions > LCAP = {LCAP}")
+    dev = neighb.device
+    p = neighb.T.long()                                             # [Nq, K]
+    tile = torch.arange(nq, device=dev) // query_tile
+    ws = starts.long()[tile][:, None]
+    we = torch.clamp(wends.long(), max=n_rows)[tile][:, None]
+    keep = (p >= ws) & (p < we)
+    key = torch.where(keep, p, torch.iinfo(torch.int64).max)
+    key, order = torch.sort(key, dim=1, stable=True)                # ascending (position, k)
+    cnt = keep.sum(1)
+    lpos = torch.full((nq, LCAP), -1, dtype=torch.int32, device=dev)
+    lpos[:, :k] = torch.where(torch.arange(k, device=dev)[None, :] < cnt[:, None], key,
+                              -1).to(torch.int32)
+    return BandLists(lpos, None, cnt.to(torch.int32), mode="list")
+
+
+_GIVEN_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+    ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+
+
+def band_lists_given_kernel(neighb, starts, wends, *, query_tile: int, n_rows: int) -> BandLists:
+    """Launch the list-mode list-stage kernel (same contract as
+    ``band_lists_given_plain``)."""
+    i32 = torch.int32
+    for t, name in ((neighb, "neighb"), (starts, "starts"), (wends, "wends")):
+        build.require(t, i32, name)
+    k, nq = neighb.shape
+    if k > LCAP:
+        raise ValueError(f"band_lists_given: K = {k} listed positions > LCAP = {LCAP}")
+    if nq % query_tile or starts.shape[0] != nq // query_tile:
+        raise ValueError("band_lists_given: bad tile/shape arguments")
+    dev = neighb.device
+    lpos = torch.empty((nq, LCAP), dtype=i32, device=dev)
+    lcnt = torch.empty((nq,), dtype=i32, device=dev)
+    fn = build.launcher("band_lists", "band_lists_given_launch", _GIVEN_ARGS)
+    rc = fn(build.ptr(neighb), k, nq, build.ptr(starts), build.ptr(wends), query_tile, n_rows,
+            build.ptr(lpos), build.ptr(lcnt), build.stream_of(neighb))
+    build.check(rc, "band_lists_given_kernel")
+    band_lists_given.launches += 1
+    return BandLists(lpos, None, lcnt, mode="list")
+
+
+def band_lists_given(neighb, starts, wends, *, query_tile: int, n_rows: int,
+                     impl: str = "auto") -> BandLists:
+    """The list-mode lists of one search from its position lists ``neighb``
+    [K, Nq_pad] int32 (``neighbors[l].T`` or ``pools[l].T``, padded
+    queries listing the shadow ``n_rows``), windows ``starts``/``wends``
+    [n_tiles]: each query's positions p with ``start <= p < wend`` (the
+    rows the TPU kernel's chunk loop sees) and ``p < n_rows`` (the rows
+    from ``n_rows`` on are zero pads: they add exactly 0 to out, den and
+    dW, and their dx is dropped by the caller), ascending, a repeated
+    position once per listing. Raises for ``K > LCAP``. ``impl`` as in
+    ``ops.select.band_select``."""
+    kw = dict(query_tile=query_tile, n_rows=n_rows)
+    if uses_kernel(impl, neighb):
+        return band_lists_given_kernel(neighb, starts, wends, **kw)
+    return band_lists_given_plain(neighb, starts, wends, **kw)
+
+
+band_lists_given.launches = 0

@@ -2,7 +2,11 @@
 // Hopper (sm_90a).
 //
 // Replaces d3feat_tpu/ops/pallas/band_conv.py::_band_conv_kernel
-// (pallas_call in band_conv), forward, threshold mode. For each sorted
+// (pallas_call in band_conv), forward, threshold mode, and its list mode
+// (use_thr=False) with the list mode's lists (band_lists_given_kernel) and
+// weight (band_lists.cuh: kp_weight_list; the weighing kernels' LIST
+// instantiation, chosen by Influence.list at launch); the
+// passes below are the same for both. For each sorted
 // query q, over the rows its list selects (band_lists.cu: the rows of its
 // tile's window with d2 < thr[q] or d2 == thr[q] and position <= ptie[q],
 // which reproduces q's K1 list), per kernel point kp
@@ -60,7 +64,7 @@
 template <typename T>
 static int conv_launch(const void* q, const void* s, const T* x, const T* W, const void* kp,
                        const void* lpos, const void* ld2, const void* lcnt, int nq, int ns, int C,
-                       int Cout, int KP, float inv_extent, int ldw, int splits, int kc, void* act,
+                       int Cout, int KP, Influence inf, int ldw, int splits, int kc, void* act,
                        T* wtd, void* part, void* out, void* den, const int* starts, int tile,
                        int chunk, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);  // 16-byte row chunks of the products
@@ -74,8 +78,8 @@ static int conv_launch(const void* q, const void* s, const T* x, const T* W, con
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
   }
-  if ((e = weighted_rows<T>(q, s, x, kp, KP, lpos, ld2, lcnt, (const int*)act, nq, C, ldw,
-                            inv_extent, starts, tile, chunk, wtd, (float*)den, st)) != cudaSuccess)
+  if ((e = weighted_rows<T>(q, s, x, kp, KP, lpos, ld2, lcnt, (const int*)act, nq, C, ldw, inf,
+                            starts, tile, chunk, wtd, (float*)den, st)) != cudaSuccess)
     return (int)e;
   if constexpr (is_bf16<T>) {
     // out [nq, Cout] = ([hi | lo] [nq, 2 KP * C]) ([W; W]), rows / den
@@ -92,11 +96,13 @@ static int conv_launch(const void* q, const void* s, const T* x, const T* W, con
 extern "C" int band_conv_launch(const void* q, const void* s, const void* x, const void* W,
                                 const void* kp, const void* lpos, const void* ld2,
                                 const void* lcnt, int nq, int ns, int C, int Cout, int KP,
-                                float inv_extent, int ldw, int splits, int kc, void* act,
-                                void* wtd, void* part, void* out, void* den, void* stream) {
+                                float inv_extent, float extent, int list_mode, int ldw,
+                                int splits, int kc, void* act, void* wtd, void* part, void* out,
+                                void* den, void* stream) {
   return conv_launch<float>(q, s, (const float*)x, (const float*)W, kp, lpos, ld2, lcnt, nq, ns,
-                            C, Cout, KP, inv_extent, ldw, splits, kc, act, (float*)wtd, part,
-                            out, den, nullptr, 0, 0, (cudaStream_t)stream);
+                            C, Cout, KP, Influence{inv_extent, extent, list_mode}, ldw, splits,
+                            kc, act, (float*)wtd, part, out, den, nullptr, 0, 0,
+                            (cudaStream_t)stream);
 }
 
 // bf16 panels: x [ns, C] and W [KP * C, Cout] (f32) are first cast into
@@ -107,10 +113,11 @@ extern "C" int band_conv_launch(const void* q, const void* s, const void* x, con
 extern "C" int band_conv_bf16_launch(const void* q, const void* s, const void* x,
                                      const void* W, const void* kp, const void* lpos,
                                      const void* ld2, const void* lcnt, int nq, int ns, int C,
-                                     int Cout, int KP, float inv_extent, int ldw, int splits,
-                                     int kc, void* act, void* wtd, void* part, void* out,
-                                     void* den, const void* starts, int tile, int chunk,
-                                     void* xb, void* Wb, void* stream) {
+                                     int Cout, int KP, float inv_extent, float extent,
+                                     int list_mode, int ldw, int splits, int kc, void* act,
+                                     void* wtd, void* part, void* out, void* den,
+                                     const void* starts, int tile, int chunk, void* xb, void* Wb,
+                                     void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (C < 1 || Cout < 1 || KP < 1) return (int)cudaErrorInvalidValue;
   const size_t nw = (size_t)KP * C * Cout;
@@ -120,6 +127,6 @@ extern "C" int band_conv_bf16_launch(const void* q, const void* s, const void* x
   cudaError_t e;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return conv_launch<bf16>(q, s, (const bf16*)xb, (const bf16*)Wb, kp, lpos, ld2, lcnt, nq, ns,
-                           C, Cout, KP, inv_extent, ldw, splits, kc, act, (bf16*)wtd, part, out,
-                           den, (const int*)starts, tile, chunk, st);
+                           C, Cout, KP, Influence{inv_extent, extent, list_mode}, ldw, splits, kc,
+                           act, (bf16*)wtd, part, out, den, (const int*)starts, tile, chunk, st);
 }

@@ -2,7 +2,9 @@
 // (sm_90a).
 //
 // Replaces d3feat_tpu/ops/pallas/band_conv.py::_band_conv_bwd_kernel
-// (pallas_call in _bwd_call), threshold mode. With gs = g / den (the
+// (pallas_call in _bwd_call), threshold mode, and its list mode
+// (use_thr=False): the same passes over the list mode's lists with the
+// list mode's weight (band_lists.cuh, Influence). With gs = g / den (the
 // density-scaled cotangent, formed by the caller as the TPU path forms it
 // outside its kernel) and w_kp(q, r) the influence weights of the rows
 // listed for q (the list stage's lists and band_lists.cuh's weights, bit
@@ -60,12 +62,12 @@
 #define KPM 16  // kernel points a lane may hold: KP <= KPM
 
 // f32 G: NS channel slots per lane, one warp covers 32 * NS channels of gs
-template <int NS>
+template <int NS, bool LIST>
 __global__ void __launch_bounds__(RPB * 32)
 bwd_gather_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
                   const float* __restrict__ gs, const float* __restrict__ kp,
                   const float* __restrict__ ld2, const int* __restrict__ row_ptr,
-                  const int* __restrict__ pairs, int ns, int Cout, int KP, float inv_extent,
+                  const int* __restrict__ pairs, int ns, int Cout, int KP, Influence inf,
                   float* __restrict__ G) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * RPB + (threadIdx.x >> 5);
@@ -88,7 +90,8 @@ bwd_gather_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   for (int p = row_ptr[r]; p < pend; ++p) {
     const int f = pairs[p];
     const int qi = f / LCAP;
-    const float w = lane < KP ? kp_weight(ld2[f], sr, q[qi], kx, ky, kz, kk, inv_extent) : 0.f;
+    const float w =
+        lane < KP ? influence<LIST>(inf, entry_d2<LIST>(ld2, f), sr, q[qi], kx, ky, kz, kk) : 0.f;
     const float* g = gs + (size_t)qi * Cout;
     float gv[NS];
 #pragma unroll
@@ -129,11 +132,12 @@ bwd_gather_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
 #define UW 64            // channels of one pass
 #define ULD (UW + 8)     // padded shared rows: 16-byte aligned, conflict-free
 #define WLDU (LCAP + 8)
+template <bool LIST>
 __global__ void __launch_bounds__(UQ * 32)
 bwd_u_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
              const bf16* __restrict__ V, const float* __restrict__ kp, int KP,
              const int* __restrict__ lpos, const float* __restrict__ ld2,
-             const int* __restrict__ lcnt, int nq, int C, float inv_extent,
+             const int* __restrict__ lcnt, int nq, int C, Influence inf,
              float* __restrict__ U) {
   __shared__ __align__(16) bf16 w_all[UQ][16 * WLDU];
   __shared__ __align__(16) bf16 v_all[UQ][16 * ULD];
@@ -153,12 +157,12 @@ bwd_u_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
     const int j = lane + 32 * h;
     const bool v = j < n;
     const float4 sr = s[v ? lpos[(size_t)qi * LCAP + j] : 0];
-    const float d2 = v ? ld2[(size_t)qi * LCAP + j] : 0.f;
+    const float d2 = v ? entry_d2<LIST>(ld2, (size_t)qi * LCAP + j) : 0.f;
     for (int k = 0; k < 16; ++k) {
       float w = 0.f;
       if (v && k < KP) {
         const float kx = kps[3 * k], ky = kps[3 * k + 1], kz = kps[3 * k + 2];
-        w = kp_weight(d2, sr, qq, kx, ky, kz, dot3(kx, ky, kz, kx, ky, kz), inv_extent);
+        w = influence<LIST>(inf, d2, sr, qq, kx, ky, kz, dot3(kx, ky, kz, kx, ky, kz));
       }
       wsm[k * WLDU + j] = __float2bfloat16_rn(w);
     }
@@ -234,7 +238,7 @@ bwd_dx_sum_kernel(const float* __restrict__ U, const int* __restrict__ row_ptr,
 // the f32 panels (3xTF32): G [ns, KP * Cout] f32 scratch
 static int bwd_launch(const void* q, const void* s, const float* W, const void* kp,
                       const float* gs, const void* ld2, const void* row_ptr, const void* pairs,
-                      int nq, int ns, int C, int Cout, int KP, float inv_extent, int ldw,
+                      int nq, int ns, int C, int Cout, int KP, Influence inf, int ldw,
                       int splits, int kc, int dx_splits, int dx_kc, const float* wtd, void* part,
                       void* dW, float* G, void* dx, cudaStream_t st) {
   constexpr int V = 4;  // 16-byte row chunks of the products
@@ -251,11 +255,18 @@ static int bwd_launch(const void* q, const void* s, const float* W, const void* 
   // G [ns, KP * Cout]
 #define G_ARGS                                                                              \
   (const float4*)q, (const float4*)s, gs, (const float*)kp, (const float*)ld2,               \
-      (const int*)row_ptr, (const int*)pairs, ns, Cout, KP, inv_extent, G
+      (const int*)row_ptr, (const int*)pairs, ns, Cout, KP, inf, G
   const unsigned rows = (unsigned)((ns + RPB - 1) / RPB);
-  if (Cout <= 32) bwd_gather_kernel<1><<<rows, RPB * 32, 0, st>>>(G_ARGS);
-  else if (Cout <= 64) bwd_gather_kernel<2><<<rows, RPB * 32, 0, st>>>(G_ARGS);
-  else bwd_gather_kernel<4><<<dim3(rows, (Cout + 127) / 128), RPB * 32, 0, st>>>(G_ARGS);
+  const dim3 wide(rows, (Cout + 127) / 128);
+  if (inf.list) {
+    if (Cout <= 32) bwd_gather_kernel<1, true><<<rows, RPB * 32, 0, st>>>(G_ARGS);
+    else if (Cout <= 64) bwd_gather_kernel<2, true><<<rows, RPB * 32, 0, st>>>(G_ARGS);
+    else bwd_gather_kernel<4, true><<<wide, RPB * 32, 0, st>>>(G_ARGS);
+  } else {
+    if (Cout <= 32) bwd_gather_kernel<1, false><<<rows, RPB * 32, 0, st>>>(G_ARGS);
+    else if (Cout <= 64) bwd_gather_kernel<2, false><<<rows, RPB * 32, 0, st>>>(G_ARGS);
+    else bwd_gather_kernel<4, false><<<wide, RPB * 32, 0, st>>>(G_ARGS);
+  }
 #undef G_ARGS
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   // dx [ns, C] = G W^T: the reduction index k * Cout + co reads W[k][c][co];
@@ -268,12 +279,13 @@ static int bwd_launch(const void* q, const void* s, const float* W, const void* 
 extern "C" int band_conv_bwd_launch(const void* q, const void* s, const void* W, const void* kp,
                                     const void* gs, const void* ld2, const void* row_ptr,
                                     const void* pairs, int nq, int ns, int C, int Cout, int KP,
-                                    float inv_extent, int ldw, int splits, int kc, int dx_splits,
-                                    int dx_kc, const void* wtd, void* part, void* dW, void* G,
-                                    void* dx, void* stream) {
+                                    float inv_extent, float extent, int list_mode, int ldw,
+                                    int splits, int kc, int dx_splits, int dx_kc, const void* wtd,
+                                    void* part, void* dW, void* G, void* dx, void* stream) {
   return bwd_launch(q, s, (const float*)W, kp, (const float*)gs, ld2, row_ptr, pairs, nq, ns, C,
-                    Cout, KP, inv_extent, ldw, splits, kc, dx_splits, dx_kc, (const float*)wtd,
-                    part, dW, (float*)G, dx, (cudaStream_t)stream);
+                    Cout, KP, Influence{inv_extent, extent, list_mode}, ldw, splits, kc,
+                    dx_splits, dx_kc, (const float*)wtd, part, dW, (float*)G, dx,
+                    (cudaStream_t)stream);
 }
 
 // bf16 panels: gs [nq, Cout] (f32) is cast once into the bf16 scratch gsb;
@@ -285,9 +297,10 @@ extern "C" int band_conv_bwd_bf16_launch(const void* q, const void* s, const voi
                                          const void* kp, const void* gs, const void* lpos,
                                          const void* ld2, const void* lcnt, const void* row_ptr,
                                          const void* pairs, int nq, int ns, int C, int Cout,
-                                         int KP, float inv_extent, int ldw, int splits, int kc,
-                                         const void* wtd, void* part, void* dW, void* V, void* U,
-                                         void* dx, void* gsb, void* stream) {
+                                         int KP, float inv_extent, float extent, int list_mode,
+                                         int ldw, int splits, int kc, const void* wtd,
+                                         void* part, void* dW, void* V, void* U, void* dx,
+                                         void* gsb, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (C < 1 || Cout < 1 || Cout % 8 || KP < 1 || KP > KPM || ldw < KP * C || ldw % 8 ||
       splits < 1 || kc < 1 || kc % GBK ||
@@ -309,9 +322,14 @@ extern "C" int band_conv_bwd_bf16_launch(const void* q, const void* s, const voi
                                                  (Cout + GBK - 1) / GBK * GBK, nullptr, nullptr,
                                                  st)) != cudaSuccess)
       return (int)e;
-    bwd_u_kernel<<<(unsigned)((nq + UQ - 1) / UQ), UQ * 32, 0, st>>>(
-        (const float4*)q, (const float4*)s, (const bf16*)V, (const float*)kp, KP,
-        (const int*)lpos, (const float*)ld2, (const int*)lcnt, nq, C, inv_extent, (float*)U);
+    const unsigned ctas = (unsigned)((nq + UQ - 1) / UQ);
+#define U_ARGS                                                                          \
+  (const float4*)q, (const float4*)s, (const bf16*)V, (const float*)kp, KP,              \
+      (const int*)lpos, (const float*)ld2, (const int*)lcnt, nq, C,                      \
+      Influence{inv_extent, extent, list_mode}, (float*)U
+    if (list_mode) bwd_u_kernel<true><<<ctas, UQ * 32, 0, st>>>(U_ARGS);
+    else bwd_u_kernel<false><<<ctas, UQ * 32, 0, st>>>(U_ARGS);
+#undef U_ARGS
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   bwd_dx_sum_kernel<<<(unsigned)((ns + RPB - 1) / RPB), RPB * 32, 0, st>>>(

@@ -21,6 +21,10 @@
 // are the window rows (L2-resident, re-read by the tile / QB CTAs of a
 // tile) and the lists.
 //
+// List mode (band_lists_given_launch) builds the same lists from a
+// search's own position lists instead, for the TPU kernels' selection
+// without thresholds (use_thr=False); see band_lists_given_kernel.
+//
 // The transpose (band_lists_transpose_launch) turns a search's lists into
 // K4's dx gather order: for each support row r, the entries e = q * LCAP
 // + j with lpos[e] == r, ascending (ascending query order). A counting
@@ -169,6 +173,64 @@ extern "C" int band_lists_transpose_launch(const void* lpos, const void* lcnt, i
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   sort_rows_kernel<<<(unsigned)((ns + 7) / 8), 256, 0, st>>>((const int*)row_ptr, ns,
                                                              (const int*)filled, (int*)pairs);
+  return (int)cudaGetLastError();
+}
+
+// List mode (no thresholds): the lists from a search's own position lists
+// neighb [K, nq] (K <= LCAP, transposed as the TPU kernel takes them). One
+// warp per query: entry k = lane, lane + 32 is kept when its position p
+// lies in the tile's window [start, wend), as the TPU kernel's chunk loop
+// sees only those rows, and p < n_rows: positions from n_rows on (the
+// shadow) are zero rows of x, which add exactly 0 to out, den and dW, and
+// whose dx the caller drops. Repeated positions stay separate entries (the
+// TPU kernel's selection counts them). The kept entries are written in
+// ascending (position, k): an entry's place is the number of kept entries
+// below its key p * LCAP + k (keys are distinct).
+__global__ void __launch_bounds__(NTHREADS)
+band_lists_given_kernel(const int* __restrict__ neighb, int K, int nq,
+                        const int* __restrict__ starts, const int* __restrict__ wends, int tile,
+                        int n_rows, int* __restrict__ lpos, int* __restrict__ lcnt) {
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * (NTHREADS / 32) + (threadIdx.x >> 5);
+  if (qi >= nq) return;
+  const int ws = starts[qi / tile], we = min(wends[qi / tile], n_rows);
+  int p[2], key[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = lane + 32 * h;
+    p[h] = k < K ? neighb[(size_t)k * nq + qi] : -1;
+    key[h] = (p[h] >= ws && p[h] < we) ? p[h] * LCAP + k : INT_MAX;
+  }
+  int rank[2] = {0, 0};
+  for (int src = 0; src < 32; ++src) {
+#pragma unroll
+    for (int hs = 0; hs < 2; ++hs) {
+      const int other = __shfl_sync(0xffffffffu, key[hs], src);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rank[h] += other < key[h];
+    }
+  }
+  const int cnt = __popc(__ballot_sync(0xffffffffu, key[0] != INT_MAX)) +
+                  __popc(__ballot_sync(0xffffffffu, key[1] != INT_MAX));
+  int* out = lpos + (size_t)qi * LCAP;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (key[h] != INT_MAX) out[rank[h]] = p[h];
+  for (int j = cnt + lane; j < LCAP; j += 32) out[j] = -1;
+  if (lane == 0) lcnt[qi] = cnt;
+}
+
+extern "C" int band_lists_given_launch(const void* neighb, int K, int nq, const void* starts,
+                                       const void* wends, int tile, int n_rows, void* lpos,
+                                       void* lcnt, void* stream) {
+  if (K < 0 || K > LCAP || tile < 1 || nq % tile || (long long)n_rows * LCAP >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (nq == 0) return 0;
+  const unsigned warps = NTHREADS / 32;
+  band_lists_given_kernel<<<(unsigned)((nq + warps - 1) / warps), NTHREADS, 0,
+                            (cudaStream_t)stream>>>((const int*)neighb, K, nq,
+                                                    (const int*)starts, (const int*)wends, tile,
+                                                    n_rows, (int*)lpos, (int*)lcnt);
   return (int)cudaGetLastError();
 }
 

@@ -189,13 +189,13 @@ __device__ __forceinline__ void list_density(const int* __restrict__ lp, int n,
 // list rows. Each lane computes the influence weights of its A-fragment
 // entries (kernel points g, g + 8 and list rows t, t + 4 of the k-step)
 // and loads its B-fragment entries straight from the gathered rows.
-template <typename T, int NTL>
+template <typename T, int NTL, bool LIST>
 __global__ void __launch_bounds__(256)
 weighted_mma_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
                     const T* __restrict__ x, const float* __restrict__ kp, int KP,
                     const int* __restrict__ lpos, const float* __restrict__ ld2,
                     const int* __restrict__ lcnt, const int* __restrict__ act, int nq, int C,
-                    int ldw, float inv_extent, const int* __restrict__ starts, int tile,
+                    int ldw, Influence inf, const int* __restrict__ starts, int tile,
                     int chunk, T* __restrict__ wtd, float* __restrict__ den) {
   static_assert(!is_bf16<T>, "bf16 panels: weighted_bf16_kernel");
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -204,7 +204,6 @@ weighted_mma_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   const int n = lcnt[qi];
   const float4 qq = q[qi];
   const int* lp = lpos + (size_t)qi * LCAP;
-  const float* ldd = ld2 + (size_t)qi * LCAP;
   T* out = wtd + (size_t)qi * ldw;
   const bool has0 = g < KP, has1 = g + 8 < KP;
   float k0x = 0.f, k0y = 0.f, k0z = 0.f, k1x = 0.f, k1y = 0.f, k1z = 0.f;
@@ -232,9 +231,9 @@ weighted_mma_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
         w[0][i] = w[1][i] = 0.f;
         if (v[i]) {
           const float4 sr = s[p[i]];
-          const float d2 = ldd[j];
-          if (has0) w[0][i] = kp_weight(d2, sr, qq, k0x, k0y, k0z, kk0, inv_extent);
-          if (has1) w[1][i] = kp_weight(d2, sr, qq, k1x, k1y, k1z, kk1, inv_extent);
+          const float d2 = entry_d2<LIST>(ld2, (size_t)qi * LCAP + j);
+          if (has0) w[0][i] = influence<LIST>(inf, d2, sr, qq, k0x, k0y, k0z, kk0);
+          if (has1) w[1][i] = influence<LIST>(inf, d2, sr, qq, k1x, k1y, k1z, kk1);
         }
       }
       unsigned ah[4], al[4];
@@ -282,13 +281,13 @@ weighted_mma_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
 // rounded to bf16 and added into the query's f32 total.
 #define WQ 3
 #define WLD 24  // padded shared rows of the weights (16 kernel points): 16-byte aligned, conflict-free
-template <int NTL>
+template <int NTL, bool LIST>
 __global__ void __launch_bounds__(WQ * 32)
 weighted_bf16_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
                      const bf16* __restrict__ x, const float* __restrict__ kp, int KP,
                      const int* __restrict__ lpos, const float* __restrict__ ld2,
                      const int* __restrict__ lcnt, const int* __restrict__ act, int nq, int C,
-                     int ldw, float inv_extent, const int* __restrict__ starts, int tile,
+                     int ldw, Influence inf, const int* __restrict__ starts, int tile,
                      int chunk, bf16* __restrict__ wtd, float* __restrict__ den) {
   static_assert(NTL % 2 == 0, "B fragments come two n-tiles a load");
   constexpr int XLD = 8 * NTL + 8;  // padded shared rows of the gathered x
@@ -307,7 +306,6 @@ weighted_bf16_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   const int n = lcnt[qi];
   const float4 qq = q[qi];
   const int* lp = lpos + (size_t)qi * LCAP;
-  const float* ldd = ld2 + (size_t)qi * LCAP;
   const int ws = starts[qi / tile];  // the window's first row
   const bf16 zero = __float2bfloat16_rn(0.f);
   int cid[2];
@@ -319,14 +317,14 @@ weighted_bf16_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
     cid[h] = v ? (p - ws) / chunk : -1;
     ps[j] = p;
     const float4 sr = s[p];
-    const float d2 = v ? ldd[j] : 0.f;
+    const float d2 = v ? entry_d2<LIST>(ld2, (size_t)qi * LCAP + j) : 0.f;
     float w[16];
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       w[k] = 0.f;
       if (v && k < KP) {
         const float kx = kps[3 * k], ky = kps[3 * k + 1], kz = kps[3 * k + 2];
-        w[k] = kp_weight(d2, sr, qq, kx, ky, kz, dot3(kx, ky, kz, kx, ky, kz), inv_extent);
+        w[k] = influence<LIST>(inf, d2, sr, qq, kx, ky, kz, dot3(kx, ky, kz, kx, ky, kz));
       }
     }
     uint4* row = reinterpret_cast<uint4*>(wsm + j * WLD);
@@ -430,13 +428,13 @@ weighted_bf16_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
 // chunk's piece rounded to bf16 and the pieces added, as in the MMA
 // kernel).
 #define SIMT_CMAX 8
-template <typename T>
+template <typename T, bool LIST>
 __global__ void __launch_bounds__(256)
 weighted_simt_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
                      const T* __restrict__ x, const float* __restrict__ kp, int KP,
                      const int* __restrict__ lpos, const float* __restrict__ ld2,
                      const int* __restrict__ lcnt, const int* __restrict__ act, int nq, int C,
-                     int ldw, float inv_extent, const int* __restrict__ starts, int tile,
+                     int ldw, Influence inf, const int* __restrict__ starts, int tile,
                      int chunk, T* __restrict__ wtd, float* __restrict__ den) {
   constexpr bool BF = is_bf16<T>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -445,7 +443,6 @@ weighted_simt_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   const int n = lcnt[qi];
   const float4 qq = q[qi];
   const int* lp = lpos + (size_t)qi * LCAP;
-  const float* ldd = ld2 + (size_t)qi * LCAP;
   T* out = wtd + (size_t)qi * ldw;
   T* out_lo = wtd + (size_t)(nq + qi) * ldw;  // bf16: the lo rows
   if (k < KP) {
@@ -466,8 +463,8 @@ weighted_simt_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
           acc[c] = 0.f;
         }
       }
-      const float w =
-          panel_round<T>(kp_weight(ldd[j], s[p], qq, kx, ky, kz, kk, inv_extent));
+      const float d2 = entry_d2<LIST>(ld2, (size_t)qi * LCAP + j);
+      const float w = panel_round<T>(influence<LIST>(inf, d2, s[p], qq, kx, ky, kz, kk));
 #pragma unroll
       for (int c = 0; c < SIMT_CMAX; ++c)
         if (c < C) acc[c] = __fmaf_rn(w, to_f32(x[(size_t)p * C + c]), acc[c]);
@@ -500,37 +497,55 @@ weighted_simt_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
 // ldw], the hi rows then the lo rows, the pieces cut at the chunks of
 // `chunk` rows from each tile's window start starts[q / tile]) and the
 // densities (act: row_active_kernel's flags)
+template <typename T, bool LIST>
+static inline void weighted_rows_in(const void* q, const void* s, const T* x, const void* kp,
+                                    int KP, const void* lpos, const void* ld2, const void* lcnt,
+                                    const int* act, int nq, int C, int ldw, Influence inf,
+                                    const int* starts, int tile, int chunk, T* wtd, float* den,
+                                    cudaStream_t st) {
+#define W_ARGS                                                                             \
+  (const float4*)q, (const float4*)s, x, (const float*)kp, KP, (const int*)lpos,            \
+      (const float*)ld2, (const int*)lcnt, act, nq, C, ldw, inf, starts, tile,             \
+      chunk, wtd, den
+  const unsigned warps = (unsigned)((nq + 7) / 8);
+  if (C < SIMT_CMAX) {
+    weighted_simt_kernel<T, LIST><<<(unsigned)((nq * 16 + 255) / 256), 256, 0, st>>>(W_ARGS);
+  } else if constexpr (is_bf16<T>) {
+    const unsigned ctas = (unsigned)((nq + WQ - 1) / WQ);
+    if (C <= 16) weighted_bf16_kernel<2, LIST><<<ctas, WQ * 32, 0, st>>>(W_ARGS);
+    else if (C <= 32) weighted_bf16_kernel<4, LIST><<<ctas, WQ * 32, 0, st>>>(W_ARGS);
+    else weighted_bf16_kernel<8, LIST><<<ctas, WQ * 32, 0, st>>>(W_ARGS);
+  } else {
+    if (C <= 8) weighted_mma_kernel<T, 1, LIST><<<warps, 256, 0, st>>>(W_ARGS);
+    else if (C <= 16) weighted_mma_kernel<T, 2, LIST><<<warps, 256, 0, st>>>(W_ARGS);
+    else if (C <= 32) weighted_mma_kernel<T, 4, LIST><<<warps, 256, 0, st>>>(W_ARGS);
+    else if (C <= 64) weighted_mma_kernel<T, 8, LIST><<<warps, 256, 0, st>>>(W_ARGS);
+    else weighted_mma_kernel<T, 16, LIST><<<warps, 256, 0, st>>>(W_ARGS);
+  }
+#undef W_ARGS
+}
+
+// weighted rows [nq, ldw] (ldw >= KP * C, padding zero; bf16: [2 * nq,
+// ldw], the hi rows then the lo rows, the pieces cut at the chunks of
+// `chunk` rows from each tile's window start starts[q / tile]) and the
+// densities (act: row_active_kernel's flags), weighed by inf's mode
 template <typename T>
 static inline cudaError_t weighted_rows(const void* q, const void* s, const T* x,
                                         const void* kp, int KP, const void* lpos,
                                         const void* ld2, const void* lcnt, const int* act,
-                                        int nq, int C, int ldw, float inv_extent,
+                                        int nq, int C, int ldw, Influence inf,
                                         const int* starts, int tile, int chunk, T* wtd,
                                         float* den, cudaStream_t st) {
   if (nq == 0) return cudaSuccess;
   // bf16: the window starts and chunks, and rows of whole 16-byte chunks
   if (is_bf16<T> && (!starts || tile < 1 || chunk < 1 || (C >= SIMT_CMAX && C % 8)))
     return cudaErrorInvalidValue;
-#define W_ARGS                                                                             \
-  (const float4*)q, (const float4*)s, x, (const float*)kp, KP, (const int*)lpos,            \
-      (const float*)ld2, (const int*)lcnt, act, nq, C, ldw, inv_extent, starts, tile,      \
-      chunk, wtd, den
-  const unsigned warps = (unsigned)((nq + 7) / 8);
-  if (C < SIMT_CMAX) {
-    weighted_simt_kernel<T><<<(unsigned)((nq * 16 + 255) / 256), 256, 0, st>>>(W_ARGS);
-  } else if constexpr (is_bf16<T>) {
-    const unsigned ctas = (unsigned)((nq + WQ - 1) / WQ);
-    if (C <= 16) weighted_bf16_kernel<2><<<ctas, WQ * 32, 0, st>>>(W_ARGS);
-    else if (C <= 32) weighted_bf16_kernel<4><<<ctas, WQ * 32, 0, st>>>(W_ARGS);
-    else weighted_bf16_kernel<8><<<ctas, WQ * 32, 0, st>>>(W_ARGS);
-  } else {
-    if (C <= 8) weighted_mma_kernel<T, 1><<<warps, 256, 0, st>>>(W_ARGS);
-    else if (C <= 16) weighted_mma_kernel<T, 2><<<warps, 256, 0, st>>>(W_ARGS);
-    else if (C <= 32) weighted_mma_kernel<T, 4><<<warps, 256, 0, st>>>(W_ARGS);
-    else if (C <= 64) weighted_mma_kernel<T, 8><<<warps, 256, 0, st>>>(W_ARGS);
-    else weighted_mma_kernel<T, 16><<<warps, 256, 0, st>>>(W_ARGS);
-  }
-#undef W_ARGS
+  if (inf.list)
+    weighted_rows_in<T, true>(q, s, x, kp, KP, lpos, ld2, lcnt, act, nq, C, ldw, inf, starts,
+                              tile, chunk, wtd, den, st);
+  else
+    weighted_rows_in<T, false>(q, s, x, kp, KP, lpos, ld2, lcnt, act, nq, C, ldw, inf, starts,
+                               tile, chunk, wtd, den, st);
   return cudaGetLastError();
 }
 

@@ -13,6 +13,14 @@ anchors indexing cloud 0 and positives cloud 1 (offset by ``lengths[0]``).
 When any gradient is not finite no update is made: parameters, optimizer
 state and the step count stay as they were (``skipped`` = 1).
 
+With a process ``group`` (data parallelism, ``d3feat_tpu_torch.parallel``;
+the counterpart of the JAX step's ``axis_name``) every rank runs the step
+on its own pair: the gradients and the loss metrics travel in one flat
+buffer through one all-reduce (sum, then divided by the world size, as
+``jax.lax.pmean``), the overflow flag as their max, and the non-finite
+skip is decided on the reduced gradients, so every rank applies the same
+update or skips with the others.
+
 The extraction step returns descriptors and scores in the caller's row
 order, plus the overflow flag (a level exceeded its point or neighbor
 capacity, so lists were truncated and the outputs are degraded — callers
@@ -25,6 +33,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from d3feat_tpu_torch.losses.descriptor import circle_loss, contrastive_loss
 from d3feat_tpu_torch.losses.detector import det_loss
@@ -100,7 +109,21 @@ def _forward_losses(model, batch, config, pyramid_spec, *, train: bool, impl: st
     return loss, [desc.loss, dl, desc.accuracy, desc.d_pos, desc.d_neg, overflow]
 
 
-def make_train_step(config, pyramid_spec=None, impl: str = "auto"):
+def reduce_mean(tensors, extra, group):
+    """All-reduce ``tensors`` and the 1-D ``extra`` in one flat buffer
+    (sum, then divided by the group's size), writing the means back into
+    ``tensors``; returns the mean of ``extra``."""
+    flat = torch.cat([t.reshape(-1) for t in tensors] + [extra.reshape(-1)])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat /= dist.get_world_size(group)
+    at = 0
+    for t in tensors:
+        t.copy_(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
+    return flat[at:]
+
+
+def make_train_step(config, pyramid_spec=None, impl: str = "auto", group=None):
     """``train_step(state, batch, epoch, pyramid=None) -> (state,
     StepMetrics)``, updating ``state`` in place.
 
@@ -109,7 +132,8 @@ def make_train_step(config, pyramid_spec=None, impl: str = "auto"):
     [M], ``dist_keypts`` [M, M] — one packed pair (``data.pack.pack_pair``).
     ``pyramid``: a sorted-space pyramid of those points built elsewhere,
     used instead of building one. ``impl`` selects kernels or their plain
-    twins (see ``ops.select.band_select``)."""
+    twins (see ``ops.select.band_select``). With a process ``group``, the
+    data-parallel step of this rank's pair (module docstring)."""
     _compute_dtype(config)
     pyramid_spec = pyramid_spec or make_pyramid_spec(config)
 
@@ -120,10 +144,13 @@ def make_train_step(config, pyramid_spec=None, impl: str = "auto"):
                                         impl=impl, pyramid=pyramid)
         loss.backward()
         grads = [t.grad for _, t in train_tensors(model) if t.grad is not None]
+        vals = torch.stack([loss.detach(), *(m.detach().float() for m in metrics)])
+        if group is not None:  # overflow (0 or 1) rides the sum: its max is (mean > 0)
+            vals = reduce_mean(grads, vals, group)
+            vals[-1] = (vals[-1] > 0).float()
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         # one device-to-host copy for the skip decision and the metrics
-        vals = torch.stack([loss.detach(), *(m.detach().float() for m in metrics),
-                            finite.float()]).tolist()
+        vals = torch.cat([vals, finite.float()[None]]).tolist()
         loss_v, desc_l, det_l, acc, d_pos, d_neg, overflow, ok = vals
         lr = learning_rate(config, epoch)
         if ok:
@@ -136,10 +163,11 @@ def make_train_step(config, pyramid_spec=None, impl: str = "auto"):
     return train_step
 
 
-def make_eval_step(config, pyramid_spec=None, impl: str = "auto"):
+def make_eval_step(config, pyramid_spec=None, impl: str = "auto", group=None):
     """Validation step ``eval_step(model, batch, pyramid=None) ->
     StepMetrics``: the same losses with the eval detector head, no
-    gradients."""
+    gradients. With a process ``group`` the metrics are averaged across
+    its ranks and the overflow flag is their max."""
     _compute_dtype(config)
     pyramid_spec = pyramid_spec or make_pyramid_spec(config)
 
@@ -147,7 +175,11 @@ def make_eval_step(config, pyramid_spec=None, impl: str = "auto"):
     def eval_step(model, batch, pyramid=None):
         loss, metrics = _forward_losses(model, batch, config, pyramid_spec, train=False,
                                         impl=impl, pyramid=pyramid)
-        vals = torch.stack([loss, *(m.float() for m in metrics)]).tolist()
+        vals = torch.stack([loss, *(m.float() for m in metrics)])
+        if group is not None:
+            vals = reduce_mean([], vals, group)
+            vals[-1] = (vals[-1] > 0).float()
+        vals = vals.tolist()
         loss_v, desc_l, det_l, acc, d_pos, d_neg, overflow = vals
         return StepMetrics(loss=loss_v, desc_loss=desc_l, det_loss=det_l, accuracy=acc,
                            d_pos=d_pos, d_neg=d_neg, lr=0.0, skipped=0.0, overflow=overflow)
@@ -156,18 +188,20 @@ def make_eval_step(config, pyramid_spec=None, impl: str = "auto"):
 
 
 def make_extract_step(config, pyramid_spec=None, num_clouds: int = 2, impl: str = "auto"):
-    """``extract_step(model, batch) -> (features [C0, D], scores [C0, 1],
-    overflow [] bool)`` for a packed ``batch`` of tensors (``points``
-    [C0, 3], ``features`` [C0, F], ``lengths`` [num_clouds]) on the
-    model's device. Scores use per-cloud max normalisation, so fragments
-    batched on the cloud axis do not perturb each other. ``impl`` selects
-    kernels or their plain twins (see ``ops.select.band_select``)."""
+    """``extract_step(model, batch, pyramid=None) -> (features [C0, D],
+    scores [C0, 1], overflow [] bool)`` for a packed ``batch`` of tensors
+    (``points`` [C0, 3], ``features`` [C0, F], ``lengths`` [num_clouds]) on
+    the model's device; ``pyramid`` as in ``make_train_step``. Scores use
+    per-cloud max normalisation, so fragments batched on the cloud axis do
+    not perturb each other. ``impl`` selects kernels or their plain twins
+    (see ``ops.select.band_select``)."""
     compute_dtype = _compute_dtype(config)
     pyramid_spec = pyramid_spec or make_pyramid_spec(config, num_clouds=num_clouds)
 
     @torch.no_grad()
-    def extract_step(model, batch):
-        pyr = build_pyramid(batch["points"], batch["lengths"], spec=pyramid_spec, impl=impl)
+    def extract_step(model, batch, pyramid=None):
+        pyr = pyramid if pyramid is not None else build_pyramid(
+            batch["points"], batch["lengths"], spec=pyramid_spec, impl=impl)
         order0, inv0 = pyr["band"][0]["order"], pyr["band"][0]["inv"]
         full = dict(pyr, features=permute_rows(batch["features"], order0))
         out = apply_kpfcnn(model, full, per_cloud_norm=True, impl=impl,

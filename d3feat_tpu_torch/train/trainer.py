@@ -10,8 +10,15 @@ port's ``make_train_step`` (pyramid, forward, losses, backward, update on
 the card, K1-K5), which copies its metrics to the host once per step; the
 JAX package's batched drain of device metrics has no counterpart.
 
-One device: ``num_devices > 1`` (the JAX package's data-parallel branch)
-raises.
+``num_devices > 1`` is the JAX package's data-parallel branch
+(``d3feat_tpu/train/trainer.py:67-80``) on ``torch.distributed``: one
+process per device (``torchrun --nproc_per_node N``), in an initialised
+default process group of exactly ``num_devices`` ranks
+(``parallel.mesh.init_group``). Every rank runs the same loader (it
+stacks ``num_devices`` pairs a batch), takes pair ``rank``, and steps with
+the averaged gradients and metrics (``parallel.data_parallel``), so every
+rank holds the same weights and takes the same decisions; rank 0 alone
+writes the snapshots, the metrics log and the autoexport.
 """
 
 from __future__ import annotations
@@ -21,10 +28,13 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from d3feat_tpu_torch import resolve_device
 from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
 from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
+from d3feat_tpu_torch.parallel.data_parallel import make_dp_eval_step, make_dp_train_step
+from d3feat_tpu_torch.parallel.mesh import rank_device, shard_batch
 from d3feat_tpu_torch.train.checkpoint import BEST_ACC, BEST_LOSS, SnapshotManager
 from d3feat_tpu_torch.train.logging_utils import MetricsLogger
 from d3feat_tpu_torch.train.optim import make_optimizer
@@ -40,10 +50,10 @@ class Trainer:
     Args:
       config: D3FeatConfig.
       train_loader / val_loader: iterables of stacked batch dicts (leading
-        axis = config.num_devices = 1), e.g.
+        axis = config.num_devices), e.g.
         :class:`d3feat_tpu_torch.data.loader.PairLoader`.
-      device: ``"cuda"`` (the kernels; raises without CUDA) or ``"cpu"``
-        (their plain twins).
+      device: ``"cuda"`` (the kernels, on the rank's own card; raises
+        without CUDA) or ``"cpu"`` (their plain twins).
 
     The model starts from ``init_kpfcnn(config, seed=config.seed)``, or
     from ``config.pretrain``.
@@ -52,27 +62,38 @@ class Trainer:
     def __init__(self, config, train_loader, val_loader=None,
                  snapshot_dir: Optional[str] = None, verbose: Optional[bool] = None,
                  device="cuda"):
+        self.rank = 0
         if config.num_devices > 1:
-            raise NotImplementedError(
-                f"num_devices={config.num_devices}: data parallelism is not ported yet "
-                f"(ROADMAP Queue 1 item 5)")
-        self.device = resolve_device(device)
+            n = dist.get_world_size() if dist.is_initialized() else 0
+            if n != config.num_devices:
+                raise RuntimeError(
+                    f"num_devices={config.num_devices} needs an initialised process group "
+                    f"of that size (parallel.mesh.init_group; torchrun --nproc_per_node "
+                    f"{config.num_devices}), have {n or 'none'}")
+            self.rank = dist.get_rank()
+        self.device = (rank_device(device, self.rank) if config.num_devices > 1
+                       else resolve_device(device))
         self.config = config
         self.train_loader = train_loader
         self.val_loader = val_loader
-        self.verbose = config.verbose if verbose is None else verbose
+        self.verbose = (config.verbose if verbose is None else verbose) and self.rank == 0
 
         self.pyramid_spec = make_pyramid_spec(config)
-        self._train_step = make_train_step(config, self.pyramid_spec)
-        self._eval_step = make_eval_step(config, self.pyramid_spec)
+        if config.num_devices > 1:
+            self._train_step = make_dp_train_step(config, pyramid_spec=self.pyramid_spec)
+            self._eval_step = make_dp_eval_step(config, pyramid_spec=self.pyramid_spec)
+        else:
+            self._train_step = make_train_step(config, self.pyramid_spec)
+            self._eval_step = make_eval_step(config, self.pyramid_spec)
         model = init_kpfcnn(config, seed=config.seed, device=self.device)
         self.state = TrainState(model, make_optimizer(config, model))
 
         snapshot_dir = snapshot_dir or os.path.join(
             config.snapshot_root, config.experiment_id
         )
-        self.snapshots = SnapshotManager(snapshot_dir, config)
-        self.logger = MetricsLogger(snapshot_dir)
+        # every rank reads snapshots (a resume), rank 0 alone writes
+        self.snapshots = SnapshotManager(snapshot_dir, config if self.rank == 0 else None)
+        self.logger = MetricsLogger(snapshot_dir) if self.rank == 0 else None
         self.data_timer, self.step_timer = Timer(), Timer()
 
         self.start_epoch = 0
@@ -84,8 +105,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _device_put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """The single pair of a stacked batch, as tensors on the device."""
-        return {k: torch.from_numpy(v[0]).to(self.device) for k, v in batch.items()}
+        """This rank's pair of a stacked batch, as tensors on its device."""
+        return shard_batch(batch, self.rank, self.device, self.config.num_devices)
+
+    def _log(self, tag_values, step: int, prefix: str) -> None:
+        if self.logger is not None:
+            self.logger.log(tag_values, step, prefix=prefix)
 
     def _load_pretrain(self, name: str) -> None:
         """Resume from a snapshot name inside the snapshot dir, or a path.
@@ -174,7 +199,7 @@ class Trainer:
             self.global_iter += 1
 
             if self.global_iter % 100 == 0:
-                self.logger.log(
+                self._log(
                     {
                         "Desc_Loss": meters["desc_loss"].avg,
                         "Det_Loss": meters["det_loss"].avg,
@@ -211,7 +236,7 @@ class Trainer:
             for k in _METRIC_KEYS:
                 meters[k].update(float(getattr(m, k)))
         res = {k: m.avg for k, m in meters.items()}
-        self.logger.log(
+        self._log(
             {"Loss": res["loss"], "Accuracy": res["accuracy"],
              "Desc_Loss": res["desc_loss"], "Det_Loss": res["det_loss"]},
             epoch, prefix="val/",
@@ -228,7 +253,7 @@ class Trainer:
         corrupt the artifact; failure to export never kills the run.
         """
         path = self.config.autoexport
-        if not path:
+        if not path or self.rank != 0:
             return
         try:
             from d3feat_tpu_torch.compat.portable import export_npz
@@ -249,6 +274,8 @@ class Trainer:
             print(f"[trainer] autoexport FAILED: {e!r}")
 
     def _snapshot(self, name: str, epoch: int) -> None:
+        if self.rank != 0:
+            return
         self.snapshots.save(
             name, self.state, epoch=epoch + 1,
             best_loss=self.best_loss, best_acc=self.best_acc,

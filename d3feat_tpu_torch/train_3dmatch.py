@@ -18,6 +18,13 @@ Snapshots (``torch.save`` directories) and ``metrics.jsonl`` go to
 ``<snapshot_root>/<experiment_id>``; ``--autoexport PATH`` writes the
 portable npz on every new best accuracy. Without ``--cpu`` it needs a
 CUDA device.
+
+Data parallelism, one process per card::
+
+    torchrun --nproc_per_node N -m d3feat_tpu_torch.train_3dmatch --corpus DIR --num_devices N
+
+joins torchrun's process group (NCCL; gloo with ``--cpu``), and every
+rank trains on its own pair of each stacked batch (``train.trainer``).
 """
 
 import sys
@@ -111,9 +118,18 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     train_loader, val_loader = make_loaders(config, flags["--synthetic"], flags["--scan"],
                                             corpus)
-    trainer = Trainer(config, train_loader, val_loader,
-                      device="cpu" if flags["--cpu"] else "cuda")
-    trainer.train()
+    device = "cpu" if flags["--cpu"] else "cuda"
+    if config.num_devices > 1:
+        import torch.distributed as dist
+
+        from d3feat_tpu_torch.parallel.mesh import init_group
+
+        init_group(device)
+    try:
+        Trainer(config, train_loader, val_loader, device=device).train()
+    finally:
+        if config.num_devices > 1:
+            dist.destroy_process_group()
     return 0
 
 

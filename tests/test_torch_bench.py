@@ -1,7 +1,9 @@
 """The port's bench (``d3feat_tpu_torch/bench.py``) on the CPU at a tiny
 size: its fragment draws follow ``bench.py``'s rejection loop, its JSON line
 has ``bench.py``'s keys plus the card and compute dtype, it warns on
-stderr when the capacities overflow, and its command line needs a card."""
+stderr when the capacities overflow, its data-parallel path (``--dp``)
+gives the per-chip line in a gloo group of one, and its command line
+needs a card."""
 
 import numpy as np
 import pytest
@@ -59,5 +61,25 @@ def test_command_line_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the bench would run")
     assert main([]) == 2
-    with pytest.raises(NotImplementedError):
-        main(["--dp"])
+    assert main(["--dp"]) == 2
+
+
+def test_dp_json_line(fragments, tmp_path):
+    """``--dp``'s path at world size 1 (a gloo group of one): the per-chip
+    metric with ``n_devices``, one fragment a call on two cloud slots."""
+    import torch.distributed as dist
+
+    from d3feat_tpu_torch.parallel import init_group
+
+    init_group("cpu", world_size=1, rank=0, init_method=f"file://{tmp_path}/store",
+               timeout_s=60)
+    try:
+        line, overflowed = run_bench(fragments, _config(False, (512, 256, 128)), frags=1,
+                                     device="cpu", warmup=1, iters=2, group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    assert set(line) == {"metric", "value", "unit", "vs_baseline", "card", "compute_dtype",
+                         "n_devices"}
+    assert line["metric"] == "dp_fragment_extraction_throughput_per_chip"
+    assert line["n_devices"] == 1 and line["value"] > 0 and line["card"] == "cpu"
+    assert not overflowed

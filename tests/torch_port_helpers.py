@@ -150,6 +150,19 @@ def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
+def _entry_weights(lists, ld2, valid, rows, q, k, extent):
+    """[n, T, L] influence of kernel point ``k`` on the listed pairs of
+    support rows ``rows`` [n, L, 4] and queries ``q`` [n, T, 4], 0 where not
+    ``valid`` [n, T, L], by the rule of the lists' mode: threshold mode from
+    the entries' exact d2 ``ld2`` [n, T, L], list mode from the coordinates
+    alone."""
+    from d3feat_tpu_torch.ops.band_conv import _BIG, kp_weights, list_weights
+
+    if lists.mode == "list":
+        return list_weights(rows[:, None], q[:, :, None], k, extent) * valid
+    return kp_weights(torch.where(valid, ld2, _BIG), rows, q, k, extent)
+
+
 def weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent, chunk=None,
                         starts=None, tile=None):
     """[Nq_pad, KP * Cin] first product per query over its listed rows:
@@ -160,17 +173,16 @@ def weighted_from_lists(lists, q_rows, s_rows, x, kernel_points, extent, chunk=N
     (``starts``, ``tile``), each piece rounded to bf16 and the pieces added
     in f32 (``S``): [2 * Nq_pad, KP * Cin], the rows ``bf16(S)`` then
     ``bf16(S - bf16(S))``."""
-    from d3feat_tpu_torch.ops.band_conv import _BIG, kp_weights
-
     nq = q_rows.shape[0]
     valid = lists.lpos >= 0                                           # [Nq, L]
     pos = lists.lpos.clamp(min=0).long()
-    d2m = torch.where(valid, lists.ld2, _BIG)[:, None, :]            # [Nq, 1, L]
+    ld2 = None if lists.ld2 is None else lists.ld2[:, None, :]        # [Nq, 1, L]
     rows, q = s_rows[pos], q_rows[:, None, :]
     rnd = (lambda t: t) if chunk is None else _bf16
     xg = rnd(x)[pos] * valid[..., None]                               # [Nq, L, C]
     kpn = kernel_points.shape[0]
-    w = [rnd(kp_weights(d2m, rows, q, kernel_points[k], extent)) for k in range(kpn)]
+    w = [rnd(_entry_weights(lists, ld2, valid[:, None, :], rows, q, kernel_points[k], extent))
+         for k in range(kpn)]
     if chunk is None:
         return torch.cat([torch.bmm(wk, xg) for wk in w], 1).reshape(nq, -1)
     ws = starts.long().repeat_interleave(tile)[:, None]
@@ -213,7 +225,6 @@ def band_conv_bwd_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, g
     gs`` and ``dx[r] = sum_q sum_kp w_kp(q, r) V[q, kp]`` gathered over the
     same pairs, ``V = bf16(gs W^T)``, gs, W and the weights rounded to
     bf16."""
-    from d3feat_tpu_torch.ops.band_conv import kp_weights
     from d3feat_tpu_torch.ops.band_lists import LCAP
 
     kpn, c, cout = weights.shape
@@ -234,10 +245,11 @@ def band_conv_bwd_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, g
     r = torch.repeat_interleave(torch.arange(ns, device=f.device),
                                 (row_ptr[1:] - row_ptr[:-1]).long())
     qi = f // LCAP
-    d2 = lists.ld2.reshape(-1)[f][:, None, None]                      # [E, 1, 1]
+    d2 = None if lists.ld2 is None else lists.ld2.reshape(-1)[f][:, None, None]  # [E, 1, 1]
     rows, q = s_rows[r][:, None, :], q_rows[qi][:, None, :]
-    w = torch.stack([rnd(kp_weights(d2, rows, q, kernel_points[k], extent))[:, 0, 0]
-                     for k in range(kpn)], 1)                         # [E, KP]
+    every = torch.ones((f.shape[0], 1, 1), dtype=torch.bool)
+    w = torch.stack([rnd(_entry_weights(lists, d2, every, rows, q, kernel_points[k],
+                                        extent))[:, 0, 0] for k in range(kpn)], 1)  # [E, KP]
     if chunk is not None:
         v = _bf16(gs @ _bf16(weights).reshape(kpn * c, cout).T).reshape(nq, kpn, c)
         return gs.new_zeros((ns, c)).index_add_(0, r, (w[:, :, None] * v[qi]).sum(1)), dw
@@ -340,13 +352,12 @@ def mma_bf16_two_staged(a, a2, b):
 def _route_inputs(lists, q_rows, s_rows, x, kernel_points, extent):
     """(valid [Nq, L], gathered bf16 rows [Nq, L, C], bf16 weights [Nq, KP, L])
     of the lists, as float64 numpy."""
-    from d3feat_tpu_torch.ops.band_conv import _BIG, kp_weights
-
     valid = lists.lpos >= 0
     pos = lists.lpos.clamp(min=0).long()
-    d2m = torch.where(valid, lists.ld2, _BIG)[:, None, :]
+    ld2 = None if lists.ld2 is None else lists.ld2[:, None, :]
     rows, q = s_rows[pos], q_rows[:, None, :]
-    w = torch.cat([_bf16(kp_weights(d2m, rows, q, kernel_points[k], extent))
+    w = torch.cat([_bf16(_entry_weights(lists, ld2, valid[:, None, :], rows, q,
+                                        kernel_points[k], extent))
                    for k in range(kernel_points.shape[0])], 1)
     xg = _bf16(x)[pos] * valid[..., None]
     return valid.numpy(), xg.double().numpy(), w.double().numpy()
