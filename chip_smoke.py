@@ -8,8 +8,9 @@ Run from the repository root with no arguments::
 It needs one CUDA device, ``nvcc`` (the CUDA toolkit), the committed r5
 weights (``artifacts/model_best_acc_r5.npz``), the committed eval-cache
 fragments and poses (``artifacts/eval_cache``) and the JAX recall
-reference (``tests/torch_port_recall_r5.json``); it imports nothing of
-JAX or of the JAX package. Besides the kernels' build directory
+references (``tests/torch_port_recall_r5.json``, and
+``tests/torch_port_recall_r5_gather.json`` for the gather route); it
+imports nothing of JAX or of the JAX package. Besides the kernels' build directory
 (``d3feat_tpu_torch/_build``) it writes only into a temporary directory
 (under ``TMPDIR``) that it removes. Phases, each announced with the elapsed seconds:
 
@@ -18,8 +19,14 @@ JAX or of the JAX package. Besides the kernels' build directory
    ``nvcc``, one process per source, all started together;
 3. kernels vs twins on one real pyramid (two eval-cache fragments at the
    bench capacities): K1 bit for bit (positions, d2, thr, ptie) on all 13
-   searches, each timed; the list stage of K2/K4 and its transpose bit for
-   bit on the 9 searches the convs use; K2 at all 14 convs (atol 3e-5,
+   searches, each timed; K1 on the same two fragments not pre-sorted
+   (``radius_neighbors_pallas``, the original-order route's use) bit for
+   bit on their conv0 and pool0 searches, each timed, its device time by
+   events on a held stream (``held_ms``: a spin kernel holds the stream
+   until the calls are queued, so no launch is left out; the profiler's
+   figure and the launches it recorded printed beside); the list stage of
+   K2/K4 and its transpose bit for bit on the 9 searches the convs use;
+   K2 at all 14 convs (atol 3e-5,
    rtol 1e-4, density exact); K3 from conv0's lists (sums atol 1e-6,
    counts exact); K4 at all 14 convs from the forward's lists and weighted
    rows and a seeded cotangent (dx and dW at atol 5e-4, rtol 1e-3); K5
@@ -35,6 +42,9 @@ JAX or of the JAX package. Besides the kernels' build directory
    SpMM (``torch.sparse.mm``) of the same lists as a CSR matrix of ones,
    as the library's yardstick. K2's and K4's device time is also printed
    by stage (CUDA kernel name), summed over the 14 convs, f32 and bf16.
+   The gather KPConv's device time (forward, and forward and backward) at
+   the 14 convs beside K2's route and K4's on the same lists, for phase 11
+   (a), by ``held_ms``, and by the profiler beside.
    Then list mode (the TPU kernels' ``use_thr=False``) on the same pyramid
    without ``sel_thr``: the list-mode list stage (``band_lists_given``)
    and its transpose bit for bit on the 9 searches, K2 and K4 in list mode,
@@ -44,7 +54,8 @@ JAX or of the JAX package. Besides the kernels' build directory
    distance to threshold mode printed (not gated);
 4. serving path: ``FeatureExtractor(batch_fragments=2)`` with the r5
    weights on the eval-cache fragments of 12k-16k points: launch counts of
-   one counted call, output checks, the same batch through the twins on
+   one counted call (K1 on unsorted clouds counted too: none on this
+   route), output checks, the same batch through the twins on
    the card, and fragments/s over 20 calls after warm-up; then the same
    in bf16: one counted call (K2's bf16 kernel, never its f32 one),
    descriptors within relative L2 1e-2 of the bf16 twins', finite, unit
@@ -127,17 +138,54 @@ JAX or of the JAX package. Besides the kernels' build directory
    printed. Then the same in bf16 (K2's bf16 kernel, never its f32 one;
    finite), printed beside f32, not gated on recall; one JSON line
    ``{"recall": ...}``;
-11. with ``--profile``, device time by kernel and the device busy share
+11. the gather route (``gather_phase``; the JAX package's XLA route:
+   ``neighbor_search`` ``'banded'``, ``'grid'``, ``'brute'``, and the
+   gather KPConv), its seconds printed: (a) on the band pyramid of the
+   serving batch, the gather KPConv at each of the 14 convs against K2
+   (atol 3e-5, rtol 1e-4) and its autograd dx and dW for a seeded
+   cotangent against K4 (atol 5e-4, rtol 1e-3) on the same sorted lists,
+   the forwards timed by events (their device ms come from phase 3, by
+   events on a held stream: a profile may leave launches out); one
+   extraction call
+   with every conv on the gather KPConv (``bandconv_max_layer=-1``, no
+   K2 or K4 launch) against the band route's (descriptors within 1e-4,
+   the same top-250 sets) and one f32 train step on the training pair
+   against the band route's (loss rtol 1e-3, gradients atol/rtol 5e-3),
+   peak memory printed; (b) the original-order pyramid of the serving
+   batch for each of the three searches, every level's points, lists,
+   lengths, masks and overflow flags equal bit for bit to the same
+   function on the CPU, no overflow for ``banded``, each timed on the card
+   (and the CPU's seconds); (c) serving on the gather route
+   (``'banded'``, r5): one counted call with no K1-K5 launch and no twin
+   call, finite unit descriptors, fragments/s over 20 calls, then the
+   recall pass on the 4 axis scenes held pair by pair (``hold_recall``)
+   to the JAX package's own CPU route,
+   ``tests/torch_port_recall_r5_gather.json``; (d) training on the
+   gather route from r5: one counted step with no K1-K5 launch and no
+   twin call (finite, not skipped, no overflow), 10 more steps and steps/s,
+   peak memory and the loss beside a band-route step (not gated); (e) K1
+   on clouds that are not pre-sorted (``radius_neighbors_pallas``) for
+   the serving batch's conv0 and pool0 searches: one counted call each
+   (one launch), kernel against twin bit for bit, each row's set equal to
+   the banded search's wherever neither list is full (the truncated rows
+   counted), the whole wrapper timed by events beside the kernel's times
+   and bound from phase 3; (f) ``calibrate_caps`` on 4 eval-cache pairs
+   of fragments: the card's caps equal the CPU's, both timed. One JSON
+   line ``{"gather_route": ...}``;
+12. with ``--profile``, device time by kernel and the device busy share
    over 4 extraction calls (f32 and bf16) and over 3 train steps (f32
    and bf16) (``torch.profiler``);
-12. one JSON line with every kernel's numbers, then the result line.
+13. one JSON line with every kernel's numbers (K1 on unsorted clouds with
+   its launches counted on the main path, 0 on the band route, and those
+   of phase 11's counted calls as ``gather_phase_launches``), then the
+   result line.
 
 The JSON lines come in this order before the last: the bench's two, then
 ``{"recall": ...}``, ``{"trainer": ...}`` (corpus seconds, per dtype the
 epochs' losses and accuracies, steps, steps/s, data-wait and overflow
 shares; the bests written, the resume comparison, the counted step's
 launches, the recall on scene 424245, the card), ``{"data_parallel": ...}``,
-the throughput line and the kernels line.
+``{"gather_route": ...}``, the throughput line and the kernels line.
 
 Any failed check exits non-zero before the result line.
 """
@@ -222,7 +270,9 @@ def device_ms(fn, reps=5, stages=None):
     copies) ran on the card, without the host's launch overhead, over
     ``reps`` calls after one warm-up call (``torch.profiler``). With a dict
     ``stages``, adds each kernel's device ms and launches per call into it
-    by ``stage_name``."""
+    by ``stage_name``. The profiler may leave launches out of a profile
+    (phase 3 prints how many of K1 unsorted's it recorded), so a figure
+    that a check depends on is taken by ``held_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -238,6 +288,34 @@ def device_ms(fn, reps=5, stages=None):
             ms0, n0 = stages.get(stage_name(key), (0.0, 0.0))
             stages[stage_name(key)] = (ms0 + ms / reps, n0 + n / reps)
     return sum(ms for ms, _, _ in events) / reps
+
+
+def held_ms(fn, reps=5):
+    """Device milliseconds per call of ``fn()`` by CUDA events, with the
+    stream held by a spin kernel (``torch.cuda._sleep``) until all ``reps``
+    calls are queued: the events then time the card's work back to back,
+    every launch included, without the host's launch gaps. Fails if the
+    hold ran out before the calls were queued (``fn`` waited for the card,
+    or the host stalled), since the events would then time the host too."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * (0.02 + 4 * reps * host_s)))  # cycles, at most ~2 GHz
+    held = torch.cuda.Event()
+    held.record()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    check(not held.query(), f"held_ms: the hold ran out before {reps} calls were queued")
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def print_stages(label, stages):
@@ -844,6 +922,7 @@ def main_path(cfg, model, frags, report, device="cuda"):
     from d3feat_tpu_torch.ops.band_conv import band_conv
     from d3feat_tpu_torch.ops.band_lists import band_lists
     from d3feat_tpu_torch.ops.head import band_head
+    from d3feat_tpu_torch.ops.neighbors import radius_neighbors_pallas
     from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
     from d3feat_tpu_torch.ops.select import band_select
 
@@ -857,7 +936,7 @@ def main_path(cfg, model, frags, report, device="cuda"):
         ex.extract_many(groups[i % len(groups)])
     torch.cuda.synchronize()
 
-    for w in wrappers.values():
+    for w in (*wrappers.values(), radius_neighbors_pallas):
         w.launches = 0
     band_conv.launches_bf16 = 0
     ex._steps.clear()
@@ -869,8 +948,10 @@ def main_path(cfg, model, frags, report, device="cuda"):
     for name, w in wrappers.items():
         report[name]["launches"] = w.launches
         check(w.launches > 0, f"{name}: no launch on the main path")
+    # K1 on unsorted clouds is the original-order route's; the main path is the band route
+    report["K1 select unsorted"]["launches"] = radius_neighbors_pallas.launches
     phase("main path launches per call: " + ", ".join(
-        f"{n} {report[n]['launches']}" for n in wrappers))
+        f"{n} {report[n]['launches']}" for n in (*wrappers, "K1 select unsorted")))
 
     for (desc, scores), frag in zip(out, groups[0]):
         check(desc.shape == (len(frag), cfg.output_dim) and scores.shape == (len(frag),),
@@ -918,12 +999,18 @@ def main_path(cfg, model, frags, report, device="cuda"):
     return fps, out
 
 
-def bf16_config(cfg):
+def route_config(cfg, **fields):
+    """A copy of ``cfg`` with ``fields`` set."""
     from d3feat_tpu_torch.config import D3FeatConfig
 
-    bcfg = D3FeatConfig.from_dict(cfg.to_dict())
-    bcfg.compute_dtype = "bfloat16"
-    return bcfg
+    c = D3FeatConfig.from_dict(cfg.to_dict())
+    for k, v in fields.items():
+        setattr(c, k, v)
+    return c
+
+
+def bf16_config(cfg):
+    return route_config(cfg, compute_dtype="bfloat16")
 
 
 def top_set(scores):
@@ -1265,10 +1352,11 @@ def reset_launches():
     from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
     from d3feat_tpu_torch.ops.band_lists import band_lists, band_lists_given, transpose_lists
     from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
+    from d3feat_tpu_torch.ops.neighbors import radius_neighbors_pallas
     from d3feat_tpu_torch.ops.select import band_select
 
     for w in (band_select, band_lists, band_lists_given, transpose_lists, band_head,
-              band_head_bwd):
+              band_head_bwd, radius_neighbors_pallas):
         w.launches = 0
     for w in (band_conv, band_conv_bwd):
         w.launches = w.launches_bf16 = w.launches_list = w.launches_list_bf16 = 0
@@ -1982,6 +2070,490 @@ def bench_phase(card):
     return lines
 
 
+GATHER_REFERENCE = os.path.join("tests", "torch_port_recall_r5_gather.json")
+GATHER_SEARCHES = ("banded", "grid", "brute")  # the original-order route's searches
+CALIBRATION_PAIRS = 4
+
+
+def kernel_launches():
+    """Every K1-K5 kernel launch counted since ``reset_launches``."""
+    from d3feat_tpu_torch.ops.neighbors import radius_neighbors_pallas
+    from d3feat_tpu_torch.ops.select import band_select
+
+    return sum(list_counts().values()) + band_select.launches + radius_neighbors_pallas.launches
+
+
+def packed_batch(frags, cap, device):
+    import torch
+    from d3feat_tpu_torch.data.pack import pack_fragments
+
+    b = pack_fragments(frags, point_capacity=cap, num_clouds=2)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def gather_conv_cases(cfg, model, pyr, device="cuda"):
+    """(spec, conv, features, cotangent, {"band": K2's route, "gather": the
+    gather KPConv}) at each of the model's 14 convs on the band pyramid
+    ``pyr``: seeded leaky-ReLU features on the valid rows, zeros on the
+    padding, and a seeded cotangent."""
+    import torch
+    from d3feat_tpu_torch.models.blocks import apply_band_kpconv, apply_gather_kpconv
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    for spec, blk in zip(model.specs.encoder, model.encoder):
+        if not hasattr(blk, "conv"):
+            continue
+        conv = blk.conv
+        q_level = spec.layer + 1 if spec.strided else spec.layer
+        n_rows, n_q = (pyr["points"][l].shape[0] for l in (spec.layer, q_level))
+        n_valid = int(pyr["lengths"][spec.layer].sum())
+        x = torch.zeros((n_rows, conv.weights.shape[1]), device=device)
+        x[:n_valid] = torch.nn.functional.leaky_relu(
+            torch.randn((n_valid, x.shape[1]), generator=gen, device=device), 0.1)
+        ct = torch.randn((n_q, conv.weights.shape[2]), generator=gen, device=device)
+        fns = {"band": lambda a, conv=conv, spec=spec: apply_band_kpconv(conv, spec, a, pyr, cfg,
+                                                                          impl="kernel"),
+               "gather": lambda a, conv=conv, spec=spec: apply_gather_kpconv(conv, spec, a, pyr,
+                                                                              cfg)}
+        yield spec, conv, x, ct, fns
+
+
+def time_gather_kpconv(pyr, cfg, model, report):
+    """The gather KPConv's device ms beside K2's route (K2 and its list
+    stage) and, forward and backward, beside K2's and K4's, summed over the
+    14 convs of ``gather_conv_cases`` on the kernel phase's pyramid, by
+    events on a held stream (``held_ms``: no launch can be left out); the
+    same by ``torch.profiler`` beside them."""
+    import torch
+
+    ms = dict(gather=0.0, gather_bwd=0.0, band=0.0, band_bwd=0.0)
+    prof = dict(ms)
+    for _, conv, x, ct, fns in gather_conv_cases(cfg, model, pyr):
+        for name, fn in fns.items():
+            def fwd_bwd(fn=fn):
+                xb = x.clone().requires_grad_(True)
+                (fn(xb) * ct).sum().backward()
+
+            with torch.no_grad():
+                ms[name] += held_ms(lambda fn=fn: fn(x), reps=3)
+                prof[name] += device_ms(lambda fn=fn: fn(x), reps=3)
+            ms[name + "_bwd"] += held_ms(fwd_bwd, reps=3)
+            prof[name + "_bwd"] += device_ms(fwd_bwd, reps=3)
+        conv.weights.grad = None
+    for label, m in (("events on a held stream", ms), ("torch.profiler", prof)):
+        phase(f"gather KPConv device ms summed over the 14 convs ({label}): forward "
+              f"{m['gather']:.4f}, forward and backward {m['gather_bwd']:.4f}; band route (K2 "
+              f"and its lists) {m['band']:.4f}, forward and backward (K2, K4) "
+              f"{m['band_bwd']:.4f}")
+    report["gather KPConv"] = ms
+    report["gather KPConv profiler"] = prof
+
+
+def gather_mixed(cfg, model, frags, batch, report, line, device="cuda"):
+    """(a) The gather KPConv on the band pyramid of the serving batch: at
+    each of the 14 convs against K2 and its autograd gradients against K4
+    on the same sorted lists and windows; the forward's ms by events (the
+    device ms are ``time_gather_kpconv``'s, from phase 3); one extraction
+    call with every conv on the gather KPConv against the band route's
+    (K2 and K4 never launched); one f32 train step on the training pair
+    against the band route's."""
+    import copy
+
+    import numpy as np
+    import torch
+    from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
+    from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
+    from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+    from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
+    from d3feat_tpu_torch.train.step import TrainState, make_extract_step, make_train_step
+
+    b = packed_batch(frags[:2], cfg.caps.points[0], device)
+    pyr = build_pyramid(b["points"], b["lengths"], spec=make_pyramid_spec(cfg, num_clouds=2))
+    check(not bool(pyr["overflow"]), "gather (a): the serving batch's band pyramid overflowed")
+    worst = dict(out=0.0, dx=0.0, dw=0.0)
+    ev = dict(gather=0.0, band=0.0)  # forward ms by events
+    n_convs = 0
+    for spec, conv, x, ct, fns in gather_conv_cases(cfg, model, pyr, device):
+        n_convs += 1
+        res = {}
+        for name, fn in fns.items():
+            xa = x.clone().requires_grad_(True)
+            conv.weights.grad = None
+            out = fn(xa)
+            (out * ct).sum().backward()
+            res[name] = (out.detach(), xa.grad, conv.weights.grad.clone())
+            with torch.no_grad():
+                ev[name] += cuda_ms(lambda fn=fn: fn(x), reps=3)
+        conv.weights.grad = None
+        (ob, dxb, dwb), (og, dxg, dwg) = res["band"], res["gather"]
+        label = f"gather KPConv {conv_label(spec, conv, dict(q_rows=ob))}"
+        check(torch.allclose(og, ob, atol=3e-5, rtol=1e-4),
+              f"{label}: max |gather - K2| = {float((og - ob).abs().max())}")
+        check(torch.allclose(dxg, dxb, atol=5e-4, rtol=1e-3),
+              f"{label}: dx max |gather - K4| = {float((dxg - dxb).abs().max())}")
+        check(torch.allclose(dwg, dwb, atol=5e-4, rtol=1e-3),
+              f"{label}: dW max |gather - K4| = {float((dwg - dwb).abs().max())}")
+        for k, a, c in (("out", og, ob), ("dx", dxg, dxb), ("dw", dwg, dwb)):
+            worst[k] = max(worst[k], float((a - c).abs().max()))
+    ms = report["gather KPConv"]
+    phase(f"gather (a): the gather KPConv at all {n_convs} convs of the band pyramid "
+          f"against K2 (max diff {worst['out']:.3g}, atol 3e-5 rtol 1e-4) and its autograd "
+          f"dx, dW against K4 (max {worst['dx']:.3g}, {worst['dw']:.3g}; atol 5e-4 rtol 1e-3); "
+          f"forward by events summed over the convs: gather {ev['gather']:.4f} ms, band "
+          f"{ev['band']:.4f} ms; device ms (phase 3): gather forward {ms['gather']:.4f}, "
+          f"forward and backward {ms['gather_bwd']:.4f}; band {ms['band']:.4f}, forward and "
+          f"backward {ms['band_bwd']:.4f}")
+    line["mixed"] = dict(max_diff=worst, device_ms=ms,
+                         profiler_ms=report["gather KPConv profiler"], forward_ms=ev)
+
+    gcfg = route_config(cfg, bandconv_max_layer=-1)
+    gmodel = init_kpfcnn(gcfg, device=device)  # the blocks read their model's config
+    gmodel.load_state_dict(model.state_dict())
+    ext_b, ext_g = make_extract_step(cfg), make_extract_step(gcfg)
+    fb, sb, _ = ext_b(model, b)
+    reset_launches()
+    fg, sg, ov = ext_g(gmodel, b)
+    torch.cuda.synchronize()
+    k2k4 = (band_conv.launches + band_conv.launches_bf16 + band_conv.launches_list
+            + band_conv_bwd.launches + band_conv_bwd.launches_list)
+    check(k2k4 == 0, f"gather (a): the all-gather extraction launched K2/K4 {k2k4} times")
+    check(not bool(ov), "gather (a): the all-gather extraction overflowed")
+    lens = b["lengths"].tolist()
+    d = float((fg - fb).abs().max())
+    check(d <= 1e-4, f"gather (a): all-gather descriptors differ from the band route's by {d}")
+    at = 0
+    for n in lens:
+        check(topk_agree(sg[at:at + n, 0].cpu().numpy(), sb[at:at + n, 0].cpu().numpy(), TOPK,
+                         1e-4), "gather (a): top-250 sets differ from the band route's")
+        at += n
+    phase(f"gather (a): extraction with every conv on the gather KPConv "
+          f"(bandconv_max_layer=-1), no K2/K4 launch: descriptors within {d:.3g} of the band "
+          f"route's, top-{TOPK} sets agree")
+
+    states = []
+    for c, src in ((cfg, model), (gcfg, gmodel)):
+        m = copy.deepcopy(src)
+        states.append((TrainState(m, make_optimizer(c, m)), make_train_step(c)))
+    (sb_, stb), (sg_, stg) = states
+    _, mb = stb(sb_, batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, mg = stg(sg_, batch, 0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fb_ = torch.cat([t.grad.reshape(-1) for _, t in train_tensors(sb_.model)])
+    fg_ = torch.cat([t.grad.reshape(-1) for _, t in train_tensors(sg_.model)])
+    gerr = float((fg_ - fb_).abs().max())
+    check(np.isfinite(mg.loss) and abs(mg.loss - mb.loss) <= 1e-3 * abs(mb.loss),
+          f"gather (a): all-gather step loss {mg.loss} vs the band route's {mb.loss}")
+    check(torch.allclose(fg_, fb_, atol=5e-3, rtol=5e-3),
+          f"gather (a): all-gather step gradients differ from the band route's by {gerr}")
+    phase(f"gather (a): train step with every conv on the gather KPConv: loss {mg.loss:.6f} vs "
+          f"the band route's {mb.loss:.6f}, max gradient diff {gerr:.3g}; peak memory "
+          f"{peak:.2f} GiB")
+    line["mixed"].update(extract_max_diff=d, step_loss=mg.loss, band_step_loss=mb.loss,
+                         step_grad_max_diff=gerr, step_peak_gib=peak)
+
+
+def gather_pyramids(cfg, frags, line, device="cuda"):
+    """(b) The original-order pyramid of the serving batch for each search,
+    on the card and on the CPU: every array and flag bit for bit; no
+    overflow for ``banded``; the card's ms by events."""
+    import torch
+    from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+
+    b = packed_batch(frags[:2], cfg.caps.points[0], "cpu")
+    line["pyramids"] = {}
+    for search in GATHER_SEARCHES:
+        spec = make_pyramid_spec(route_config(cfg, neighbor_search=search), num_clouds=2)
+
+        def run(spec=spec):
+            return build_pyramid(b["points"].to(device), b["lengths"].to(device), spec=spec)
+
+        got = run()
+        t = time.perf_counter()
+        ref = build_pyramid(b["points"], b["lengths"], spec=spec)
+        cpu_s = time.perf_counter() - t
+        check(got["band"] == {} and got["sel_thr"] == {}, f"{search} pyramid: band state")
+        for k in ("points", "neighbors", "pools", "upsamples", "lengths", "masks"):
+            for l, (a, c) in enumerate(zip(got[k], ref[k])):
+                check(torch.equal(a.cpu(), c), f"{search} pyramid: {k}[{l}] differs from the CPU's")
+        check(sorted(got["overflow_by"]) == sorted(ref["overflow_by"]) and all(
+            bool(v) == bool(ref["overflow_by"][n]) for n, v in got["overflow_by"].items()),
+            f"{search} pyramid: overflow flags differ from the CPU's")
+        over = sorted(n for n, v in got["overflow_by"].items() if bool(v))
+        if search == "banded":
+            check(not over, f"banded pyramid overflowed at the bench capacities: {over}")
+        ms = cuda_ms(run, reps=3)
+        phase(f"gather (b): {search} pyramid on the card equals the CPU's bit for bit (every "
+              f"level's points, lists, lengths, masks, overflow flags); overflow {over or 'none'}; "
+              f"card {ms:.3f} ms, CPU {cpu_s:.2f} s")
+        line["pyramids"][search] = dict(ms=ms, cpu_s=cpu_s, overflow=over)
+
+
+def gather_serving(cfg, model, frags, line, device="cuda"):
+    """(c) Serving on the gather route (``neighbor_search='banded'``, r5):
+    one counted call without any K1-K5 launch or twin call; finite unit
+    descriptors; fragments/s; then the recall pass held pair by pair to the
+    JAX package's CPU route (``tests/torch_port_recall_r5_gather.json``)."""
+    import numpy as np
+    import torch
+    from d3feat_tpu_torch.eval.extract import FeatureExtractor
+    from d3feat_tpu_torch.final_recall import load_snapshot
+
+    bcfg = route_config(cfg, neighbor_search="banded")
+    ex = FeatureExtractor(bcfg, model, batch_fragments=2, device=device)
+    groups = [frags[i:i + 2] for i in range(0, len(frags) - 1, 2)]
+    for i in range(WARMUP):
+        ex.extract_many(groups[i % len(groups)])
+    torch.cuda.synchronize()
+    with count_twins() as twins:
+        reset_launches()
+        out = ex.extract_many(groups[0])
+        torch.cuda.synchronize()
+        launched = kernel_launches()
+    check(launched == 0 and not any(twins.values()),
+          f"gather (c): the counted call launched {launched} kernels, twins {twins}")
+    for (desc, scores), frag in zip(out, groups[0]):
+        err = float(np.abs(np.linalg.norm(desc, axis=1) - 1.0).max())
+        check(desc.shape == (len(frag), cfg.output_dim) and np.isfinite(desc).all()
+              and np.isfinite(scores).all() and err < 1e-5,
+              f"gather (c): descriptors non-finite or norms off by {err}")
+    t = time.perf_counter()
+    for i in range(ITERS):
+        ex.extract_many(groups[i % len(groups)])
+    torch.cuda.synchronize()
+    fps = 2 * ITERS / (time.perf_counter() - t)
+    phase(f"gather (c): serving on the gather route: no kernel or twin in a counted call, finite "
+          f"unit descriptors; {fps:.3f} fragments/s ({ITERS} calls of 2 fragments)")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, GATHER_REFERENCE)) as f:
+        ref = json.load(f)
+    rcfg, rmodel, _ = load_snapshot(os.path.join(here, "artifacts", "model_best_acc_r5.npz"),
+                                    device)
+    rcfg.neighbor_search = "banded"
+    got, secs = recall_pass(rcfg, rmodel, recall_scenes(), device)
+    mean = recall_lines(got, "gather (c) recall")
+    bad = hold_recall(ref["scenes"], got, ref["meta"]["route"], "gather route vs JAX's CPU route")
+    check(not bad, "gather (c) recall vs the JAX CPU route: " + "; ".join(bad))
+    phase(f"gather (c): recall held pair by pair to the JAX package's CPU route; "
+          f"{sum(len(f) for f, _ in recall_scenes().values())} fragments in {secs:.3f} s")
+    line["serving"] = dict(fragments_per_s=fps, mean_recall=mean, recall_seconds=secs,
+                           scenes={s: {k: g[k] for k in ("gt_pairs", "matched_pairs", "recall")}
+                                   for s, g in got.items()})
+
+
+def gather_training(cfg, model, batch, line, device="cuda"):
+    """(d) Training on the gather route, one pair at full width from r5: a
+    counted step without any K1-K5 launch or twin call (finite loss, not
+    skipped, no overflow), then ``TRAIN_STEPS`` steps and steps/s; peak
+    memory and the loss's distance to a band-route step, printed."""
+    import copy
+    import math
+
+    import torch
+    from d3feat_tpu_torch.train.optim import make_optimizer
+    from d3feat_tpu_torch.train.step import TrainState, make_train_step
+
+    bcfg = route_config(cfg, neighbor_search="banded")
+    band = copy.deepcopy(model)
+    _, mb = make_train_step(cfg)(TrainState(band, make_optimizer(cfg, band)), batch, 0)
+    m = copy.deepcopy(model)
+    state = TrainState(m, make_optimizer(bcfg, m))
+    step = make_train_step(bcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with count_twins() as twins:
+        reset_launches()
+        state, mt = step(state, batch, 0)
+        torch.cuda.synchronize()
+        launched = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launched == 0 and not any(twins.values()),
+          f"gather (d): the counted step launched {launched} kernels, twins {twins}")
+    check(math.isfinite(mt.loss) and mt.skipped == 0.0 and mt.overflow == 0.0,
+          f"gather (d): loss {mt.loss}, skipped {mt.skipped}, overflow {mt.overflow}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        state, mt2 = step(state, batch, 0)
+        check(math.isfinite(mt2.loss) and mt2.skipped == 0.0 and mt2.overflow == 0.0,
+              f"gather (d) step {i + 1}: loss {mt2.loss}, skipped {mt2.skipped}")
+    torch.cuda.synchronize()
+    sps = TRAIN_STEPS / (time.perf_counter() - t)
+    phase(f"gather (d): training on the gather route: no kernel or twin in a counted step, loss "
+          f"{mt.loss:.6f} (band route {mb.loss:.6f}, not gated: the lists differ at the "
+          f"boundary), peak memory {peak:.2f} GiB; {sps:.3f} train steps/s ({TRAIN_STEPS} steps)")
+    line["training"] = dict(train_steps_per_s=sps, loss=mt.loss, band_loss=mb.loss,
+                            peak_gib=peak)
+
+
+def k1_unsorted_searches(cfg, frags, device="cuda"):
+    """K1's searches on clouds that are not pre-sorted, as the
+    original-order route would make them of the serving batch: (name,
+    queries, query lengths, supports, support lengths, radius, keyword
+    arguments of ``radius_neighbors_pallas``) of its level 0's conv search
+    and its pool0 search (queries the voxel-subsampled level)."""
+    from d3feat_tpu_torch.ops.pyramid import level_band_cap, make_pyramid_spec
+    from d3feat_tpu_torch.ops.subsample import voxel_subsample
+
+    spec = make_pyramid_spec(cfg, num_clouds=2)
+    b = packed_batch(frags[:2], cfg.caps.points[0], device)
+    p0, l0 = b["points"], b["lengths"]
+    r0 = spec.radii[0]
+    sub = voxel_subsample(p0, l0, 2.0 * r0 / spec.conv_radius, out_capacity=spec.point_caps[1],
+                          num_clouds=2)
+    out = []
+    for name, (q, ql), tile in (("conv0", (p0, l0), 256),
+                                ("pool0", (sub.points, sub.lengths), 128)):
+        ratio = -(-p0.shape[0] // q.shape[0])
+        cap = level_band_cap(p0.shape[0], 2, spec.band_frac, tile=tile, ratio=ratio)
+        out.append((name, q, ql, p0, l0, r0, dict(max_k=spec.neighbor_caps[0], num_clouds=2,
+                                                  query_tile=tile, band_cap=cap)))
+    return out
+
+
+def check_k1_unsorted(cfg, frags, report):
+    """K1 on clouds that are not pre-sorted (``radius_neighbors_pallas``),
+    on ``k1_unsorted_searches``: kernel against twin bit for bit, through
+    the wrapper (lists, overflow) and raw (positions, d2); each search's
+    K1 call timed (kernel and twin by events, kernel device time by events
+    on a held stream, and by ``torch.profiler`` with the launches it
+    recorded) beside its bound computed as for K1; the kernels line's ms
+    are the sums over the two searches."""
+    import torch
+    from d3feat_tpu_torch.ops.neighbors import radius_neighbors_pallas, unsorted_select_args
+    from d3feat_tpu_torch.ops.select import band_select
+
+    tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0)
+    for name, q, ql, s, sl, r, kw in k1_unsorted_searches(cfg, frags):
+        got = radius_neighbors_pallas(q, s, ql, sl, r, impl="kernel", **kw)
+        ref = radius_neighbors_pallas(q, s, ql, sl, r, impl="plain", **kw)
+        check(torch.equal(got[0], ref[0]) and bool(got[1]) == bool(ref[1]),
+              f"K1 unsorted {name}: kernel differs from the twin")
+        a = unsorted_select_args(q, s, ql, sl, r, **kw)
+        skw = {x: a[x] for x in ("q_rows", "s_rows", "starts", "wends", "query_tile", "r2",
+                                 "max_k")}
+        kp, kd = band_select(impl="kernel", **skw)
+        pp, pd = band_select(impl="plain", **skw)
+        check(torch.equal(kp, pp) and torch.equal(kd, pd), f"K1 unsorted {name}: raw outputs "
+              "differ from the twin's")
+        ms = cuda_ms(lambda: band_select(impl="kernel", **skw))
+        dev_ms = held_ms(lambda: band_select(impl="kernel", **skw))
+        stages = {}
+        prof_ms = device_ms(lambda: band_select(impl="kernel", **skw), stages=stages)
+        seen = stages.get("select_kernel", (0.0, 0.0))[1]
+        plain_ms = cuda_ms(lambda: band_select(impl="plain", **skw), reps=3)
+        nb = nbytes(a["q_rows"], a["s_rows"], a["starts"], a["wends"], kp, kd)
+        ops = D2_OPS * window_rows(a)
+        b_ms, b_by = bound(nb, ops)
+        for f, v in (("ms", ms), ("dev_ms", dev_ms), ("plain_ms", plain_ms), ("bytes", nb),
+                     ("ops", ops)):
+            tot[f] += v
+        phase(f"K1 select unsorted {name} ({q.shape[0]} queries x {kw['max_k']}, band "
+              f"{kw['band_cap']}): bit-exact vs twin; kernel {ms:.4f} ms (device {dev_ms:.4f} "
+              f"ms), twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); torch.profiler: "
+              f"{prof_ms:.4f} ms, {seen:g} of 1 launch a call recorded")
+    b_ms, b_by = bound(tot["bytes"], tot["ops"])
+    phase(f"K1 select unsorted, sum over conv0 and pool0: kernel {tot['ms']:.4f} ms (device "
+          f"{tot['dev_ms']:.4f} ms), twin {tot['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    report["K1 select unsorted"] = dict(max_abs_err=0.0, ms=tot["ms"], device_ms=tot["dev_ms"],
+                                        plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                                        library_ms=None)
+
+
+def gather_k1(cfg, frags, report, line, device="cuda"):
+    """(e) K1 on clouds that are not pre-sorted (``radius_neighbors_pallas``)
+    on ``k1_unsorted_searches``: one counted call a search (one launch),
+    kernel against twin bit for bit; each row's set equal to the banded
+    search's wherever neither list is full; the whole wrapper timed by
+    events. The kernel's own times and bound are those of
+    ``check_k1_unsorted``, taken in the kernel phase."""
+    import torch
+    from d3feat_tpu_torch.ops.neighbors import radius_neighbors_banded, radius_neighbors_pallas
+
+    launches, fn_ms, trunc = 0, 0.0, {}
+    for name, q, ql, s, sl, r, kw in k1_unsorted_searches(cfg, frags, device):
+        radius_neighbors_pallas.launches = 0
+        got, gov = radius_neighbors_pallas(q, s, ql, sl, r, impl="kernel", **kw)
+        torch.cuda.synchronize()
+        check(radius_neighbors_pallas.launches == 1, f"K1 unsorted {name}: "
+              f"{radius_neighbors_pallas.launches} launches counted in one call")
+        launches += radius_neighbors_pallas.launches
+        ref, rov = radius_neighbors_pallas(q, s, ql, sl, r, impl="plain", **kw)
+        check(torch.equal(got, ref) and bool(gov) == bool(rov),
+              f"K1 unsorted {name}: kernel differs from the twin")
+        check(not bool(gov), f"K1 unsorted {name}: overflow")
+        band, _ = radius_neighbors_banded(q, s, ql, sl, r, max_k=kw["max_k"], num_clouds=2,
+                                          query_tile=kw["query_tile"], band_cap=kw["band_cap"])
+        ns = s.shape[0]
+        free = ((got == ns).any(1)) & ((band == ns).any(1))
+        sg, sb = torch.sort(got, 1).values, torch.sort(band, 1).values
+        check(torch.equal(sg[free], sb[free]),
+              f"K1 unsorted {name}: sets differ from the banded search's on untruncated rows")
+        trunc[name] = int((~free[:int(ql.sum())]).sum())
+        ms = cuda_ms(lambda: radius_neighbors_pallas(q, s, ql, sl, r, **kw), reps=3)
+        fn_ms += ms
+        phase(f"gather (e): K1 unsorted {name} ({q.shape[0]} queries x {kw['max_k']}, band "
+              f"{kw['band_cap']}): one launch in a counted call, bit-exact vs twin, sets equal "
+              f"the banded search's on the {int(free.sum())} rows where neither list is full "
+              f"({trunc[name]} valid rows truncated); radius_neighbors_pallas whole {ms:.3f} ms")
+    k1 = report["K1 select unsorted"]
+    k1["gather_phase_launches"] = launches
+    phase(f"gather (e): K1 unsorted over conv0 and pool0: {launches} launches in the counted "
+          f"calls, {k1['launches']} on the main path; kernel {k1['ms']:.4f} ms (device "
+          f"{k1['device_ms']:.4f} ms), bound {k1['bound_ms']:.4f} ms (kernel phase); whole "
+          f"wrappers {fn_ms:.3f} ms")
+    line["k1_unsorted"] = dict(ms=k1["ms"], dev_ms=k1["device_ms"], plain_ms=k1["plain_ms"],
+                               bound_ms=k1["bound_ms"], fn_ms=fn_ms, truncated=trunc,
+                               launches=launches, main_path_launches=k1["launches"])
+
+
+def gather_calibration(cfg, frags, line, device="cuda"):
+    """(f) ``calibrate_caps`` on ``CALIBRATION_PAIRS`` eval-cache pairs of
+    fragments, on the card and on the CPU: the same caps."""
+    import torch
+    from d3feat_tpu_torch.data.calibrate import calibrate_caps
+
+    pairs = []
+    for i in range(CALIBRATION_PAIRS):
+        b = packed_batch(frags[2 * i:2 * i + 2], cfg.caps.points[0], "cpu")
+        pairs.append({"points": b["points"].numpy(), "lengths": b["lengths"].numpy()})
+    t = time.perf_counter()
+    got = calibrate_caps(pairs, cfg, device=device)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ref = calibrate_caps(pairs, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t
+    check((got.points, got.neighbors, got.corr) == (ref.points, ref.neighbors, ref.corr),
+          f"gather (f): caps on the card {got} differ from the CPU's {ref}")
+    phase(f"gather (f): calibrate_caps on {len(pairs)} eval-cache pairs: points {got.points}, "
+          f"neighbors {got.neighbors}, equal on the card and the CPU; card {card_s:.2f} s, "
+          f"CPU {cpu_s:.2f} s")
+    line["calibration"] = dict(points=list(got.points), neighbors=list(got.neighbors),
+                               card_s=card_s, cpu_s=cpu_s)
+
+
+def gather_phase(cfg, model, frags, batch, report, card, device="cuda"):
+    """The gather route (``neighbor_search`` ``'banded'``, ``'grid'``,
+    ``'brute'`` and the gather KPConv), subphases (a)-(f) of the module
+    docstring. Returns the JSON line's dict."""
+    t = time.perf_counter()
+    line = {"card": card}
+    gather_mixed(cfg, model, frags, batch, report, line, device)
+    gather_pyramids(cfg, frags, line, device)
+    gather_serving(cfg, model, frags, line, device)
+    gather_training(cfg, model, batch, line, device)
+    gather_k1(cfg, frags, report, line, device)
+    gather_calibration(cfg, frags, line, device)
+    line["seconds"] = time.perf_counter() - t
+    phase(f"gather route: {line['seconds']:.1f} s")
+    return line
+
+
 def main():
     import torch
 
@@ -2030,11 +2602,13 @@ def main():
     check(not bool(pyr["overflow"]), "reference pyramid overflowed")
     report = {}
     check_k1(pyr, spec, report)
+    check_k1_unsorted(cfg, frags, report)
     check_lists(pyr, cfg, model, report)
     check_k2(pyr, cfg, model, report)
     check_k3(pyr, cfg, report)
     check_k4(pyr, cfg, model, report)
     check_k5(pyr, cfg, report)
+    time_gather_kpconv(pyr, cfg, model, report)
     phase("bf16 kernels vs bf16 twins")
     check_k2(pyr, cfg, model, report, panel="bfloat16")
     check_k4(pyr, cfg, model, report, panel="bfloat16")
@@ -2066,6 +2640,8 @@ def main():
     bench_lines = bench_phase(smi)
     phase("recall")
     recall_line = recall_phase(smi)
+    phase("gather route")
+    gather_line = gather_phase(cfg, model, frags, batch, report, smi)
 
     sources = {"K1 select": ("select.cu", "d3feat_tpu/ops/pallas/select.py:252"),
                # the selection that K2's and K4's TPU kernels redo in every conv
@@ -2090,7 +2666,9 @@ def main():
                "K4 band_conv_bwd list": ("band_conv_bwd.cu",
                                          "d3feat_tpu/ops/pallas/band_conv.py:586"),
                "K4 band_conv_bwd list bf16": ("band_conv_bwd.cu",
-                                              "d3feat_tpu/ops/pallas/band_conv.py:586")}
+                                              "d3feat_tpu/ops/pallas/band_conv.py:586"),
+               # radius_neighbors_pallas: K1 on clouds that are not pre-sorted
+               "K1 select unsorted": ("select.cu", "d3feat_tpu/ops/pallas/select.py:252")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[name]
@@ -2099,6 +2677,8 @@ def main():
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if "gather_phase_launches" in r:  # off the main path: its launches in phase 11
+            kernels[-1]["gather_phase_launches"] = r["gather_phase_launches"]
     phase("library_ms: K3's sums and K5 by one cuSPARSE SpMM of their lists as a CSR of "
           "ones; null for the others, which no single PyTorch call computes (each includes "
           "the threshold selection of its rows)")
@@ -2107,6 +2687,7 @@ def main():
     print(json.dumps({"recall": recall_line}), flush=True)
     print(json.dumps({"trainer": trainer_line}), flush=True)
     print(json.dumps({"data_parallel": dp_line}), flush=True)
+    print(json.dumps({"gather_route": gather_line}), flush=True)
     print(json.dumps({"fragments_per_s": fps, "fragments_per_s_bf16": fps_bf16,
                       "train_steps_per_s": sps, "train_steps_per_s_bf16": sps_bf16,
                       "card": smi}), flush=True)

@@ -2,9 +2,16 @@
 
 The port keeps its own copy (it imports nothing of the JAX package) with the
 same fields, defaults, ``architecture()`` and JSON round trip, so a config
-written by either stack loads in the other. Knobs that only steer the JAX
-package's TPU paths (``neighbor_search``, ``use_pallas``, ...) are kept for
-that round trip; the port always runs the sorted-band path. ``get_config``
+written by either stack loads in the other. ``neighbor_search`` picks the
+route: ``'pallas'`` (the default) is the band route, the JAX package's TPU
+route (K1-K5); ``'banded'``, ``'brute'`` and ``'grid'`` take the
+original-order route, the JAX package's XLA route (its searches, the
+gather KPConv and the gather head), with ``query_tile`` and
+``cell_capacity``. On the band route a block the band kernels do not cover
+(``KP_influence`` other than linear, ``aggregation_mode='closest'``,
+beyond ``bandconv_max_panel_mb`` or ``bandconv_max_layer``) runs the gather
+KPConv on the sorted lists. ``use_pallas`` only steers the JAX package and
+is kept for the round trip. ``get_config``
 is the same argparse surface (every field as ``--name``, plus
 ``--cap_points``, ``--cap_neighbors`` and ``--cap_corr``).
 """
@@ -143,11 +150,10 @@ class D3FeatConfig:
     data_axis: str = "data"  # mesh axis name for data parallelism
     num_devices: int = 1  # data-parallel width (pairs processed per step)
     query_tile: int = 1024  # neighbor-search query tile size
-    neighbor_search: str = "pallas"  # 'pallas' | 'banded' | 'brute' | 'grid'; pallas = banded
-    # preprocessing + fused VMEM distance/select kernel (TPU only; falls back to
-    # banded elsewhere). banded sorts by
-    # the longest axis and searches a contiguous support band (TPU-friendly: no
-    # gathers). 'grid' (cell hash) measured SLOWER on TPU v5e: gathers are VPU-bound.
+    # 'pallas' = the band route (sorted levels, K1-K5); 'banded' | 'brute' |
+    # 'grid' = the original-order route (banded above 4096 support rows,
+    # else brute; or the cell grid), with the gather KPConv
+    neighbor_search: str = "pallas"
     band_frac: float = 0.1  # banded: band margin ~ 2*frac*rows/clouds (overflow-flagged)
     cell_capacity: int = 32  # candidates per grid cell in the grid search
     use_pallas: bool = True  # use Pallas kernels where available (TPU only)

@@ -1,7 +1,8 @@
 """Network blocks (port of ``d3feat_tpu.models.blocks``): unary and
 last_unary, simple and resnet-bottleneck KPConv blocks (plain and strided),
-nearest-upsample, and the band KPConv (K2 forward, K4 backward) that every
-rigid KPConv runs through.
+nearest-upsample, and the two rigid KPConvs: the band KPConv (K2 forward, K4
+backward) where ``band_conv_eligible`` holds, the gather KPConv
+(``models.kpconv.kpconv``) everywhere else.
 
 Modules carry the JAX package's parameter names, so a parameter's
 ``state_dict`` name is its JAX key path written with dots
@@ -12,7 +13,8 @@ zero.
 Every block's forward takes ``compute_dtype`` (``torch.float32`` or
 ``torch.bfloat16``, the model config's ``compute_dtype``): in bf16 the
 linear layers multiply bf16 operands and the band KPConvs run bf16
-panels, as the JAX package's blocks do; everything else stays f32.
+panels (the gather KPConvs bf16 operands), as the JAX package's blocks
+do; everything else stays f32.
 """
 
 from __future__ import annotations
@@ -21,10 +23,9 @@ import math
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from d3feat_tpu_torch.models.kpconv import KPConv, torch_kaiming_uniform
+from d3feat_tpu_torch.models.kpconv import KPConv, gather_rows, kpconv, torch_kaiming_uniform
 
 LEAKY_SLOPE = 0.1
 
@@ -67,25 +68,14 @@ def classify_block(name: str) -> str:
     raise ValueError(f"unknown block name {name!r}")
 
 
-def _gather_rows(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
-    """``x`` rows at ``inds``, where index ``len(x)`` (the shadow) reads a
-    zero row. An embedding lookup with the shadow as padding index: the
-    same values as indexing the zero-extended ``x``, but its backward sums
-    the rows' gradients by sorted segments and skips the shadow entries,
-    where indexing's backward walks each repeated index serially (the
-    shadow is repeated in most lists of a padded level)."""
-    ext = torch.cat([x, x.new_zeros((1, x.shape[1]))])
-    return F.embedding(inds.long(), ext, padding_idx=x.shape[0])
-
-
 def closest_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     """Features of the nearest (first) neighbor; shadow -> zeros."""
-    return _gather_rows(x, inds[:, 0])
+    return gather_rows(x, inds[:, 0])
 
 
 def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     """Max over each neighborhood with a zero shadow row."""
-    return _gather_rows(x, inds).amax(1)
+    return gather_rows(x, inds).amax(1)
 
 
 class Linear(nn.Module):
@@ -278,6 +268,22 @@ def apply_band_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, con
     return out[:n_q_rows]
 
 
+def apply_gather_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, config,
+                        compute_dtype=torch.float32) -> torch.Tensor:
+    """Rigid KPConv of one block through the gather KPConv
+    (``models.kpconv.kpconv``), for the blocks the band kernels do not
+    cover (``band_conv_eligible``): on the original-order pyramid with its
+    original indices, or on the band pyramid with its sorted points and
+    positions (the mixed route)."""
+    l = spec.layer
+    q_level = l + 1 if spec.strided else l
+    inds = batch["pools"][l] if spec.strided else batch["neighbors"][l]
+    return kpconv(batch["points"][q_level], batch["points"][l], inds, x, conv.weights,
+                  conv.kernel_points, KP_extent=spec.radius * config.KP_extent / config.conv_radius,
+                  KP_influence=config.KP_influence, aggregation_mode=config.aggregation_mode,
+                  compute_dtype=compute_dtype)
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -290,12 +296,10 @@ class _ConvBlock(nn.Module):
         self.config = config
 
     def _conv(self, x, batch, impl, compute_dtype):
-        if not band_conv_eligible(self.spec, batch, self.config):
-            raise NotImplementedError(
-                f"block {self.spec.name} at layer {self.spec.layer} is not covered by the "
-                f"band KPConv; the gather KPConv is not ported yet")
-        return apply_band_kpconv(self.conv, self.spec, x, batch, self.config, impl,
-                                 compute_dtype)
+        if band_conv_eligible(self.spec, batch, self.config):
+            return apply_band_kpconv(self.conv, self.spec, x, batch, self.config, impl,
+                                     compute_dtype)
+        return apply_gather_kpconv(self.conv, self.spec, x, batch, self.config, compute_dtype)
 
 
 class SimpleBlock(_ConvBlock):
@@ -363,9 +367,10 @@ class NearestUpsampleBlock(nn.Module):
 def make_block(spec: BlockSpec, config, kernel_points, generator: torch.Generator) -> nn.Module:
     """The module of one block with freshly initialised parameters."""
     if config.use_batch_norm:
-        raise NotImplementedError("batch norm is not ported yet (use_batch_norm=True)")
+        raise NotImplementedError("batch norm is not ported yet (use_batch_norm=True; "
+                                  "ROADMAP Queue 1 item 7)")
     if spec.deformable:
-        raise NotImplementedError("deformable KPConv is not ported yet")
+        raise NotImplementedError("deformable KPConv is not ported yet (ROADMAP Queue 1 item 7)")
     kind = spec.kind
     if kind == "unary":
         return UnaryBlock(spec, generator)
@@ -377,4 +382,4 @@ def make_block(spec: BlockSpec, config, kernel_points, generator: torch.Generato
         return SimpleBlock(spec, config, kernel_points, generator)
     if kind == "resnetb":
         return ResnetBBlock(spec, config, kernel_points, generator)
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP Queue 1 item 7)")

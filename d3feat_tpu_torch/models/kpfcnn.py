@@ -111,7 +111,8 @@ def init_kpfcnn(config, seed: int = 0, device="cuda", specs: KPFCNNSpecs = None)
     """A ``KPFCNN`` with random weights drawn from ``torch.Generator`` seeded
     with ``seed``, on ``device``."""
     if not config.deterministic_kernel_points:
-        raise NotImplementedError("randomised kernel-point loading is not ported yet")
+        raise NotImplementedError("randomised kernel-point loading is not ported yet "
+                                  "(ROADMAP Queue 1 item 7)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -150,9 +151,9 @@ def gather_head_mean(f: torch.Tensor, neighbors: torch.Tensor) -> torch.Tensor:
     (``neighbors`` [C0, K0], shadow C0 reads a zero row): the sum over the
     neighbours divided by the count of neighbours whose feature sum is not
     0, at least 1 (``d3feat_tpu/models/kpfcnn.py:220-227``)."""
-    from d3feat_tpu_torch.models.blocks import _gather_rows
+    from d3feat_tpu_torch.models.kpconv import gather_rows
 
-    nf = _gather_rows(f, neighbors)                                  # [C0, K0, D]
+    nf = gather_rows(f, neighbors)                                  # [C0, K0, D]
     neighbor_num = torch.clamp((nf.sum(-1) != 0.0).sum(-1, keepdim=True), min=1).to(f.dtype)
     return nf.sum(1) / neighbor_num
 

@@ -1,13 +1,23 @@
-"""On-device multi-scale pyramid construction (port of the band path of
+"""On-device multi-scale pyramid construction (port of
 ``d3feat_tpu.ops.pyramid``).
 
 Radius schedule: r_0 = first_subsampling_dl * conv_radius, doubling per
 level; the voxel from level l to l + 1 is 2 r_l / conv_radius; pool
 neighbors at r_l, nearest-upsample at 2 r_l.
 
-Everything is in sorted space: each level's points and its conv, pool and
-upsample lists are in the level's key-sorted row order, and list values are
-sorted-support positions (shadow = the support level's capacity). ``band``
+Two routes, chosen by ``PyramidSpec.search`` (the config's
+``neighbor_search``). ``'pallas'`` is the band route, the JAX package's TPU
+route: everything is in sorted space (below). ``'banded'``, ``'brute'``
+and ``'grid'`` take the original-order route, the JAX package's XLA route:
+levels keep the subsampler's row order, lists hold original support
+indices (shadow = the support level's capacity), every search is the
+original-order search of ``ops.neighbors`` that the reference picks for
+it, and ``band`` and ``sel_thr`` are empty, so every KPConv runs the gather
+KPConv and the head the gather head.
+
+On the band route everything is in sorted space: each level's points and
+its conv, pool and upsample lists are in the level's key-sorted row order,
+and list values are sorted-support positions (shadow = the support level's capacity). ``band``
 holds each level's sorted state for the band kernels, ``sel_thr`` the
 per-query selection thresholds of every conv and pool search.
 """
@@ -22,6 +32,9 @@ import torch
 from d3feat_tpu_torch.ops.neighbors import (
     SortedLevel,
     make_level_frame,
+    radius_neighbors,
+    radius_neighbors_banded,
+    radius_neighbors_grid,
     radius_neighbors_sorted,
 )
 from d3feat_tpu_torch.ops.subsample import lengths_to_mask, voxel_subsample
@@ -39,7 +52,10 @@ class PyramidSpec:
     conv_r_scale: Tuple[float, ...]  # [L] 1.0 or deform_radius/conv_radius
     pool_r_scale: Tuple[float, ...]  # [L] same, for strided blocks
     num_clouds: int = 2
+    query_tile: int = 1024           # query tile of the original-order searches
+    search: str = "pallas"           # 'pallas' (band route) | 'banded' | 'brute' | 'grid'
     band_frac: float = 0.1           # band margin ~ 2*frac*rows/clouds
+    cell_capacity: int = 32          # candidates kept per grid cell ('grid')
 
     @property
     def radii(self) -> Tuple[float, ...]:
@@ -100,7 +116,10 @@ def make_pyramid_spec(config, num_clouds: int = 2) -> PyramidSpec:
         conv_r_scale=tuple(conv_scale),
         pool_r_scale=tuple(pool_scale) + (1.0,) * (num_levels - len(pool_scale)),
         num_clouds=num_clouds,
+        query_tile=config.query_tile,
+        search=config.neighbor_search,
         band_frac=config.band_frac,
+        cell_capacity=config.cell_capacity,
     )
 
 
@@ -128,10 +147,35 @@ def level_search(q_lv: SortedLevel, s_lv: SortedLevel, radius: float, max_k: int
         with_threshold=max_k > 1, impl=impl)
 
 
+SEARCHES = ("pallas", "banded", "brute", "grid")
+
+
+def original_search(q, s, ql, sl, r: float, k: int, spec: PyramidSpec):
+    """One search of the original-order route, as the JAX package's
+    ``build_pyramid`` picks it off the TPU (``d3feat_tpu/ops/pyramid.py``,
+    ``search``): the banded search for supports above 4096 rows under
+    ``'banded'``, the grid search under ``'grid'``, the brute search
+    otherwise. The query tile shrinks with the density ratio for pool
+    searches. Returns (lists, overflow or None)."""
+    B = spec.num_clouds
+    ratio = -(-s.shape[0] // q.shape[0])
+    tile = min(spec.query_tile, q.shape[0])
+    if s.shape[0] > q.shape[0]:
+        tile = max(128, (tile * q.shape[0]) // s.shape[0])
+    if spec.search == "banded" and s.shape[0] > 4096:
+        band = level_band_cap(s.shape[0], B, spec.band_frac, tile=tile, ratio=ratio)
+        return radius_neighbors_banded(q, s, ql, sl, r, max_k=k, num_clouds=B,
+                                       query_tile=tile, band_cap=band)
+    if spec.search == "grid":
+        return radius_neighbors_grid(q, s, ql, sl, r, max_k=k, num_clouds=B, query_tile=tile,
+                                     cell_capacity=spec.cell_capacity)
+    return radius_neighbors(q, s, ql, sl, r, max_k=k, num_clouds=B, query_tile=tile), None
+
+
 def build_pyramid(points: torch.Tensor, lengths: torch.Tensor, *, spec: PyramidSpec,
                   impl: str = "auto") -> Dict:
-    """Build the full sorted-space multi-scale structure for one stacked
-    batch.
+    """Build the full multi-scale structure for one stacked batch, on the
+    route of ``spec.search`` (module docstring).
 
     ``points`` [C0, 3] stacked contiguous clouds padded to
     ``spec.point_caps[0]``, ``lengths`` [num_clouds] int32. Returns a dict
@@ -139,10 +183,14 @@ def build_pyramid(points: torch.Tensor, lengths: torch.Tensor, *, spec: PyramidS
     ``lengths``, ``masks``; ``band`` {level: sorted state}; ``sel_thr``
     {search name: (thr, ptie)}; ``overflow`` (any capacity exceeded) and
     ``overflow_by`` {source: flag}. ``impl`` selects the K1 implementation
-    (see ``ops.select.band_select``).
+    (see ``ops.select.band_select``); the original-order route runs no
+    kernel.
     """
     if points.shape[0] != spec.point_caps[0]:
         raise ValueError(f"points capacity {points.shape[0]} != spec {spec.point_caps[0]}")
+    if spec.search not in SEARCHES:
+        raise ValueError(f"neighbor_search {spec.search!r} is not one of {SEARCHES}")
+    band_route = spec.search == "pallas"
     L = spec.num_levels
     B = spec.num_clouds
     r0 = spec.first_subsampling_dl * spec.conv_radius
@@ -151,31 +199,44 @@ def build_pyramid(points: torch.Tensor, lengths: torch.Tensor, *, spec: PyramidS
     pts, lens = points.float(), lengths.to(torch.int32)
     overflow = torch.zeros((), dtype=torch.bool, device=points.device)
     overflow_by = {}
-    frame_axis, frame_origin = make_level_frame(pts, lens, B)
+    if band_route:
+        frame_axis, frame_origin = make_level_frame(pts, lens, B)
+    levels: Dict[int, SortedLevel] = {}
 
     def level(l: int, p, ln) -> SortedLevel:
-        return SortedLevel(p, ln, B, frame_axis, frame_origin,
-                           band_pad=level_band_pad(spec, l, p.shape[0]))
+        """The band route's sorted state of level ``l``, built once."""
+        if l not in levels:
+            levels[l] = SortedLevel(p, ln, B, frame_axis, frame_origin,
+                                    band_pad=level_band_pad(spec, l, p.shape[0]))
+        return levels[l]
 
-    def search(q_lv, s_lv, r, k, name):
+    def search(q, s, ql, sl, r, k, q_level, s_level, name):
         nonlocal overflow
-        res = level_search(q_lv, s_lv, r, k, spec, impl)
-        if k > 1:  # conv/pool searches feed the band kernels
-            out["sel_thr"][name] = (res[2], res[3])
-        overflow = overflow | res[1]
-        overflow_by[name] = res[1]
-        return res[0]
+        if band_route:
+            res = level_search(level(q_level, q, ql), level(s_level, s, sl), r, k, spec, impl)
+            if k > 1:  # conv/pool searches feed the band kernels
+                out["sel_thr"][name] = (res[2], res[3])
+            idx, ov = res[0], res[1]
+        else:
+            idx, ov = original_search(q, s, ql, sl, r, k, spec)
+        if ov is not None:
+            overflow = overflow | ov
+            overflow_by[name] = ov
+        return idx
 
-    lv = level(0, pts, lens)
     for l in range(L):
         r = r0 * (2.0**l)
-        out["points"].append(lv.pts_sorted)
+        if band_route:
+            lv = level(l, pts, lens)
+            out["points"].append(lv.pts_sorted)
+            out["band"][l] = {"key_sorted": lv.key_sorted, "order": lv.order, "inv": lv.inv,
+                              "q_rows": lv.q_rows, "s_rows": lv.s_rows}
+        else:
+            out["points"].append(pts)
         out["lengths"].append(lens)
         out["masks"].append(lengths_to_mask(lens, pts.shape[0]))
-        out["band"][l] = {"key_sorted": lv.key_sorted, "order": lv.order, "inv": lv.inv,
-                          "q_rows": lv.q_rows, "s_rows": lv.s_rows}
-        out["neighbors"].append(
-            search(lv, lv, r * spec.conv_r_scale[l], spec.neighbor_caps[l], f"conv{l}"))
+        out["neighbors"].append(search(pts, pts, lens, lens, r * spec.conv_r_scale[l],
+                                       spec.neighbor_caps[l], l, l, f"conv{l}"))
         if l + 1 < L:
             sub = voxel_subsample(
                 pts, lens, 2.0 * r / spec.conv_radius,
@@ -185,11 +246,12 @@ def build_pyramid(points: torch.Tensor, lengths: torch.Tensor, *, spec: PyramidS
                 occupancy_cap=64 if l == 0 else 32)
             overflow = overflow | sub.overflow
             overflow_by[f"sub{l}"] = sub.overflow
-            sub_lv = level(l + 1, sub.points, sub.lengths)
-            out["pools"].append(search(sub_lv, lv, r * spec.pool_r_scale[l],
-                                       spec.neighbor_caps[l], f"pool{l}"))
-            out["upsamples"].append(search(lv, sub_lv, 2.0 * r, 1, f"up{l}"))
-            pts, lens, lv = sub.points, sub.lengths, sub_lv
+            out["pools"].append(search(sub.points, pts, sub.lengths, lens,
+                                       r * spec.pool_r_scale[l], spec.neighbor_caps[l],
+                                       l + 1, l, f"pool{l}"))
+            out["upsamples"].append(search(pts, sub.points, lens, sub.lengths, 2.0 * r, 1,
+                                           l, l + 1, f"up{l}"))
+            pts, lens = sub.points, sub.lengths
     out["overflow"] = overflow
     out["overflow_by"] = overflow_by
     return out

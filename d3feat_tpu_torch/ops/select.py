@@ -22,20 +22,30 @@ KMAX = 64  # top-K capacity of the kernel: two slots per lane of a warp
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` with one rounding, as a fused multiply-add.
+    """float32 ``a * b + c`` with one rounding, as a fused multiply-add, for
+    broadcast operands.
 
-    In float64 the product is exact; TwoSum gives the sum's rounding error,
-    which makes the float64 sum round-to-odd, and a round-to-odd value with
-    29 spare bits rounds to float32 exactly as the single-rounded result."""
+    In float64 the product is exact, and the float64 sum rounded to float32
+    is already the single-rounded result unless it lies exactly halfway
+    between two float32 values (or in their subnormal range), where the
+    float64 rounding may have decided the tie. Only those entries, usually
+    none, are redone: TwoSum gives the sum's rounding error, which makes the
+    float64 sum round-to-odd, and a round-to-odd value with 29 spare bits
+    rounds to float32 exactly as the single-rounded result."""
     p = a.double() * b.double()
     cd = c.double()
     s = p + cd
-    bb = s - p
-    err = (p - (s - bb)) + (cd - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.float()
+    r = s.float()
+    fix = (((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000)
+           | ((s.abs() < 2.0**-125) & (s != 0.0)))
+    if bool(fix.any()):
+        p, cd, s = p.expand(s.shape)[fix], cd.expand(s.shape)[fix], s[fix]
+        bb = s - p
+        err = (p - (s - bb)) + (cd - bb)
+        even = (s.view(torch.int64) & 1) == 0
+        toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+        r[fix] = torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+    return r
 
 
 def exact_d2(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

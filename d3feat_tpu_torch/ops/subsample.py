@@ -46,12 +46,16 @@ def lengths_to_mask(lengths: torch.Tensor, n: int) -> torch.Tensor:
 
 def voxel_subsample(points: torch.Tensor, lengths: torch.Tensor, voxel_size: float,
                     *, out_capacity: int, num_clouds: int,
-                    occupancy_cap: int = 64) -> SubsampleResult:
+                    occupancy_cap: int = 64, divide: bool = False) -> SubsampleResult:
     """Barycenter voxel subsampling of a stacked, contiguous batch of clouds.
 
     ``points`` [N, 3] float32 (rows beyond ``sum(lengths)`` are padding),
     ``lengths`` [num_clouds] int32. Returns barycenters sorted by
     (cloud, voxel z, y, x), contiguous per cloud, padded to ``out_capacity``.
+    ``divide`` divides by the voxel size where the default multiplies by its
+    float32 reciprocal: the reference's own arithmetic when its jitted
+    subsampler is called with the voxel size as an argument (the cap
+    calibration) rather than a constant (the pyramid).
     """
     n = points.shape[0]
     b = num_clouds
@@ -66,9 +70,10 @@ def voxel_subsample(points: torch.Tensor, lengths: torch.Tensor, voxel_size: flo
         torch.where((cid == c)[:, None], points, big).amin(0) for c in range(b)
     ])
     cid_c = torch.clamp(cid, max=b - 1).long()
-    origin = torch.floor(mins * inv_dl) * dl
+    scale = (lambda v: v / dl) if divide else (lambda v: v * inv_dl)
+    origin = torch.floor(scale(mins)) * dl
 
-    rel = (points - origin[cid_c]) * inv_dl
+    rel = scale(points - origin[cid_c])
     cell = torch.clamp(torch.floor(rel).to(torch.int32), 0, _MAX_CELLS - 1).long()
 
     # one int64 key = (cloud, z) high word, (y, x) low word; invalid last

@@ -64,7 +64,7 @@ def load_model(args, device):
 
     if args.torch_checkpoint:
         raise NotImplementedError("--torch_checkpoint: reference .pth import waits for "
-                                  "compat/torch_import.py (ROADMAP Queue 1 item 6)")
+                                  "compat/torch_import.py (ROADMAP Queue 1 item 8)")
     if args.snapshot or args.chosen_snapshot:
         from d3feat_tpu_torch.final_recall import load_snapshot
 

@@ -7,9 +7,12 @@ correspondence gather -> descriptor loss (circle | contrastive) + detector
 loss -> backward (K4 and K5 through the band autograd functions) ->
 non-finite skip -> SGD/Adam update at ``learning_rate(epoch)``.
 
-The network runs in the pyramid's sorted row order: features are permuted
-by ``order0``, and the correspondences are remapped through ``inv0``,
-anchors indexing cloud 0 and positives cloud 1 (offset by ``lengths[0]``).
+On the band route (``neighbor_search='pallas'``) the network runs in the
+pyramid's sorted row order: features are permuted by ``order0``, and the
+correspondences are remapped through ``inv0``, anchors indexing cloud 0
+and positives cloud 1 (offset by ``lengths[0]``). On the original-order
+route (``'banded'``, ``'brute'``, ``'grid'``) it runs in the caller's row
+order, with the gather KPConv and the gather head.
 When any gradient is not finite no update is made: parameters, optimizer
 state and the step count stay as they were (``skipped`` = 1).
 
@@ -74,23 +77,36 @@ def _compute_dtype(config) -> torch.dtype:
     if config.compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype: {config.compute_dtype!r}")
     if config.use_batch_norm:
-        raise NotImplementedError("batch norm is not ported yet (use_batch_norm=True)")
+        raise NotImplementedError("batch norm is not ported yet (use_batch_norm=True; "
+                                  "ROADMAP Queue 1 item 7)")
     return _COMPUTE_DTYPES[config.compute_dtype]
+
+
+def sorted_order(pyr):
+    """``(order0, inv0)`` of a band-route pyramid, whose network runs in
+    level 0's sorted row order; ``(None, None)`` on the original-order
+    route (``band`` empty), which runs in the caller's row order."""
+    if not pyr["band"]:
+        return None, None
+    return pyr["band"][0]["order"], pyr["band"][0]["inv"]
 
 
 def _forward_losses(model, batch, config, pyramid_spec, *, train: bool, impl: str,
                     pyramid=None):
-    """Pyramid (or the given sorted-space ``pyramid``) + forward + losses.
+    """Pyramid (or the given ``pyramid``) + forward + losses.
     Returns (loss, [desc_loss, det_loss, accuracy, d_pos, d_neg, overflow])."""
     pyr = pyramid if pyramid is not None else build_pyramid(
         batch["points"], batch["lengths"], spec=pyramid_spec, impl=impl)
-    order0, inv0 = pyr["band"][0]["order"], pyr["band"][0]["inv"]
-    full = dict(pyr, features=permute_rows(batch["features"], order0))
+    order0, inv0 = sorted_order(pyr)
+    full = dict(pyr, features=batch["features"] if order0 is None
+                else permute_rows(batch["features"], order0))
     out = apply_kpfcnn(model, full, train=train, impl=impl, compute_dtype=_compute_dtype(config))
 
     corr = batch["corr"].long()
-    anc_idx = inv0[corr[:, 0]]
-    pos_idx = inv0[corr[:, 1] + batch["lengths"][0].long()]
+    anc_idx = corr[:, 0]
+    pos_idx = corr[:, 1] + batch["lengths"][0].long()
+    if inv0 is not None:  # original stacked rows -> sorted rows
+        anc_idx, pos_idx = inv0[anc_idx], inv0[pos_idx]
     valid = batch["corr_valid"].bool()
     anc_f, pos_f = out.features[anc_idx], out.features[pos_idx]
     anc_s, pos_s = out.scores[anc_idx], out.scores[pos_idx]
@@ -130,7 +146,7 @@ def make_train_step(config, pyramid_spec=None, impl: str = "auto", group=None):
     ``batch``: tensors on the model's device, ``points`` [C0, 3],
     ``features`` [C0, F], ``lengths`` [2], ``corr`` [M, 2], ``corr_valid``
     [M], ``dist_keypts`` [M, M] — one packed pair (``data.pack.pack_pair``).
-    ``pyramid``: a sorted-space pyramid of those points built elsewhere,
+    ``pyramid``: a pyramid of those points built elsewhere (either route),
     used instead of building one. ``impl`` selects kernels or their plain
     twins (see ``ops.select.band_select``). With a process ``group``, the
     data-parallel step of this rank's pair (module docstring)."""
@@ -202,7 +218,11 @@ def make_extract_step(config, pyramid_spec=None, num_clouds: int = 2, impl: str 
     def extract_step(model, batch, pyramid=None):
         pyr = pyramid if pyramid is not None else build_pyramid(
             batch["points"], batch["lengths"], spec=pyramid_spec, impl=impl)
-        order0, inv0 = pyr["band"][0]["order"], pyr["band"][0]["inv"]
+        order0, inv0 = sorted_order(pyr)
+        if order0 is None:
+            out = apply_kpfcnn(model, dict(pyr, features=batch["features"]),
+                               per_cloud_norm=True, impl=impl, compute_dtype=compute_dtype)
+            return out.features, out.scores, pyr["overflow"]
         full = dict(pyr, features=permute_rows(batch["features"], order0))
         out = apply_kpfcnn(model, full, per_cloud_norm=True, impl=impl,
                            compute_dtype=compute_dtype)

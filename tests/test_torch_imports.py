@@ -51,6 +51,7 @@ for m in ("d3feat_tpu_torch.bench", "d3feat_tpu_torch.data.synthetic",
           "d3feat_tpu_torch.eval.scene_cache", "d3feat_tpu_torch.final_recall",
           "d3feat_tpu_torch.test_3dmatch", "d3feat_tpu_torch.compat.portable",
           "d3feat_tpu_torch.data.loader", "d3feat_tpu_torch.data.prepare",
+          "d3feat_tpu_torch.data.calibrate",
           "d3feat_tpu_torch.train.checkpoint", "d3feat_tpu_torch.train.logging_utils",
           "d3feat_tpu_torch.train.trainer", "d3feat_tpu_torch.train_3dmatch",
           "d3feat_tpu_torch.gen_corpus"):
