@@ -172,20 +172,52 @@ imports nothing of JAX or of the JAX package. Besides the kernels' build directo
    and bound from phase 3; (f) ``calibrate_caps`` on 4 eval-cache pairs
    of fragments: the card's caps equal the CPU's, both timed. One JSON
    line ``{"gather_route": ...}``;
-12. with ``--profile``, device time by kernel and the device busy share
+12. the modules that the JAX package keeps in XLA around its kernels
+   (``variants_phase``), at full width on the bench capacities, its
+   seconds printed; every run below is counted (the launch counts set to 0
+   just before, read just after, no twin called on the card) and held
+   against the same run through the twins on the card: (a) batch norm
+   (``use_batch_norm``; r5's weights, each norm's scale 1 and offset r5's
+   bias: at a random draw the step is near-tie noise): one train step on
+   the training pair (K1-K5; loss rtol 1e-3, gradients atol/rtol 5e-3,
+   the new running statistics within 1e-5; a twin step from weights one
+   ulp away printed beside), 10 more steps and steps/s, one eval-mode
+   extraction of the serving batch with the running statistics (K1-K3;
+   descriptors within 1e-4, the same top-250 sets, the statistics
+   unmoved); (b) levels 3 and 4 deformable (``resnetb_deformable_strided``,
+   ``resnetb_deformable`` twice), neighbour caps from ``calibrate_caps``
+   (keep ratio 1, times 1.15; at ``deform_radius`` on the levels whose
+   searches it widens), r5's weights where the shapes allow: the 13 K1
+   searches at those caps (up to 256, four and eight slots a lane) bit for
+   bit against the twin, then unmodulated and modulated one extraction
+   (K1, K3, K2 at each rigid conv ``band_conv_eligible`` admits) and one
+   train step (K2 and K4 at those convs, K5; the train gates), the
+   fitting regularizer finite and positive, no overflow, steps/s and peak
+   memory; (c) ``init_kpfcnn`` with randomised kernel points: every conv's
+   kernel points equal to the same call on the CPU bit for bit, one
+   extraction through K2 and K3 on them; (d) KPCNN (encoder to 2048
+   channels, head 1024, 40 classes; its encoder from r5) on the serving
+   batch's two fragments as clouds with fixed labels: one forward on the
+   band route (K1, K2; logits atol 1e-4), one loss and backward (K4;
+   gradients atol/rtol 5e-3), 3 SGD steps with finite losses, the logits
+   on ``'banded'`` within 1e-4 of the band route's, clouds/s. One JSON line
+   ``{"variants": ...}``;
+13. with ``--profile``, device time by kernel and the device busy share
    over 4 extraction calls (f32 and bf16) and over 3 train steps (f32
    and bf16) (``torch.profiler``);
-13. one JSON line with every kernel's numbers (K1 on unsorted clouds with
+14. one JSON line with every kernel's numbers (K1 on unsorted clouds with
    its launches counted on the main path, 0 on the band route, and those
-   of phase 11's counted calls as ``gather_phase_launches``), then the
-   result line.
+   of phase 11's counted calls as ``gather_phase_launches``; every
+   kernel's launches in phase 12's counted runs as
+   ``variants_phase_launches``), then the result line.
 
 The JSON lines come in this order before the last: the bench's two, then
 ``{"recall": ...}``, ``{"trainer": ...}`` (corpus seconds, per dtype the
 epochs' losses and accuracies, steps, steps/s, data-wait and overflow
 shares; the bests written, the resume comparison, the counted step's
 launches, the recall on scene 424245, the card), ``{"data_parallel": ...}``,
-``{"gather_route": ...}``, the throughput line and the kernels line.
+``{"gather_route": ...}``, ``{"variants": ...}``, the throughput line and
+the kernels line.
 
 Any failed check exits non-zero before the result line.
 """
@@ -340,6 +372,42 @@ def rel_l2(a, b):
 
 PANELS = {"float32": ("", PEAK_3XTF32_S), "bfloat16": (" bf16", PEAK_BF16_S)}
 
+_BC, _BW = "d3feat_tpu/ops/pallas/band_conv.py:351", "d3feat_tpu/ops/pallas/band_conv.py:586"
+# Every kernel of the kernels line: (its name there, the wrapper's module and
+# name, the wrapper's count attribute, the CUDA source, the TPU kernel it
+# replaces). The one table the launch counts are reset and read from.
+KERNELS = (
+    ("K1 select", "ops.select", "band_select", "launches", "select.cu",
+     "d3feat_tpu/ops/pallas/select.py:252"),
+    # the selection that K2's and K4's TPU kernels redo in every conv
+    ("K2/K4 band_lists", "ops.band_lists", "band_lists", "launches", "band_lists.cu", _BC),
+    ("K2 band_conv", "ops.band_conv", "band_conv", "launches", "band_conv.cu", _BC),
+    ("K3 band_head", "ops.head", "band_head", "launches", "head.cu",
+     "d3feat_tpu/ops/pallas/head.py:173"),
+    # the dx order of K4's TPU kernel, which walks each window's rows
+    ("K4 band_lists transpose", "ops.band_lists", "transpose_lists", "launches", "band_lists.cu",
+     _BW),
+    ("K4 band_conv_bwd", "ops.band_conv", "band_conv_bwd", "launches", "band_conv_bwd.cu", _BW),
+    ("K5 band_head_bwd", "ops.head", "band_head_bwd", "launches", "head_bwd.cu",
+     "d3feat_tpu/ops/pallas/head.py:304"),
+    ("K2 band_conv bf16", "ops.band_conv", "band_conv", "launches_bf16", "band_conv.cu", _BC),
+    ("K4 band_conv_bwd bf16", "ops.band_conv", "band_conv_bwd", "launches_bf16",
+     "band_conv_bwd.cu", _BW),
+    # list mode (use_thr=False): the selection of :111 and :379 from the lists
+    ("K2/K4 band_lists list", "ops.band_lists", "band_lists_given", "launches",
+     "band_lists.cu", _BC),
+    ("K2 band_conv list", "ops.band_conv", "band_conv", "launches_list", "band_conv.cu", _BC),
+    ("K2 band_conv list bf16", "ops.band_conv", "band_conv", "launches_list_bf16",
+     "band_conv.cu", _BC),
+    ("K4 band_conv_bwd list", "ops.band_conv", "band_conv_bwd", "launches_list",
+     "band_conv_bwd.cu", _BW),
+    ("K4 band_conv_bwd list bf16", "ops.band_conv", "band_conv_bwd", "launches_list_bf16",
+     "band_conv_bwd.cu", _BW),
+    # radius_neighbors_pallas: K1 on clouds that are not pre-sorted
+    ("K1 select unsorted", "ops.neighbors", "radius_neighbors_pallas", "launches", "select.cu",
+     "d3feat_tpu/ops/pallas/select.py:252"),
+)
+
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
@@ -472,13 +540,16 @@ def check_k1(pyr, spec, report):
                                bound_by=bound(tot["bytes"], tot["ops"])[1], library_ms=None)
 
 
-def conv_cases(pyr, cfg, model):
-    """(spec, conv, band_conv_inputs) of every band conv of the encoder, in
-    the order the forward runs them (14 at the default config)."""
-    from d3feat_tpu_torch.models.blocks import band_conv_inputs
+def conv_cases(pyr, cfg, model, min_width=0):
+    """(spec, conv, band_conv_inputs) of every band conv of the encoder
+    (``band_conv_eligible``) whose lists are wider than ``min_width``, in the
+    order the forward runs them (14 at the default config)."""
+    from d3feat_tpu_torch.models.blocks import band_conv_eligible, band_conv_inputs
 
-    return [(model.specs.encoder[i], blk.conv, band_conv_inputs(model.specs.encoder[i], pyr, cfg))
-            for i, blk in enumerate(model.encoder) if hasattr(blk, "conv")]
+    cases = [(spec, blk.conv, band_conv_inputs(spec, pyr, cfg))
+             for spec, blk in zip(model.specs.encoder, model.encoder)
+             if hasattr(blk, "conv") and band_conv_eligible(spec, pyr, cfg)]
+    return [c for c in cases if c[2]["lists"].width > min_width]
 
 
 def conv_features(spec, pyr, args, cin, gen, device):
@@ -515,23 +586,25 @@ def without_thresholds(pyr):
     return dict(pyr, sel_thr={}, band_args=pyr.setdefault("band_args", {}))
 
 
-def check_lists(pyr, cfg, model, report):
+def check_lists(pyr, cfg, model, report, min_width=0):
     """The list stage and its transpose (K4's dx order) bit for bit against
-    their twins on every search the convs use (9 at the default config);
-    their ms in the kernels line are the sums over those searches (the
-    builds: one extraction call's; the transposes: one train step's)."""
+    their twins on every search the convs use (9 at the default config;
+    ``min_width`` as in ``conv_cases``); their ms in the kernels line are
+    the sums over those searches (the builds: one extraction call's; the
+    transposes: one train step's)."""
     import torch
     from d3feat_tpu_torch.ops.band_lists import band_lists, transpose_lists
 
     seen = {}
     tot = {k: dict(ms=0.0, plain_ms=0.0, dev_ms=0.0, bound_ms=0.0, ops=0.0, bytes=0.0)
            for k in "lt"}
-    for spec, conv, args in conv_cases(pyr, cfg, model):
+    for spec, conv, args in conv_cases(pyr, cfg, model, min_width):
         name = f"{'pool' if spec.strided else 'conv'}{spec.layer}"
         if name in seen:
             continue
         kw = {k: args[k] for k in ("q_rows", "thr", "ptie", "s_rows", "starts", "wends",
                                    "query_tile")}
+        kw["width"] = args["lists"].width
         got = band_lists(impl="kernel", **kw)
         ref = band_lists(impl="plain", **kw)
         for f in ("lpos", "ld2", "lcnt"):
@@ -555,8 +628,8 @@ def check_lists(pyr, cfg, model, report):
             for f, v in (("ms", times[k][0]), ("plain_ms", times[k][1]), ("dev_ms", times[k][2]),
                          ("bound_ms", b_ms), ("bytes", work[k][0]), ("ops", work[k][1])):
                 tot[k][f] += v
-        phase(f"band_lists {name} ({args['q_rows'].shape[0]} queries, {seen[name]} listed "
-              f"rows): bit-exact vs twin; kernel {times['l'][0]:.4f} ms (device "
+        phase(f"band_lists {name} ({args['q_rows'].shape[0]} queries x {got.width}, "
+              f"{seen[name]} listed rows): bit-exact vs twin; kernel {times['l'][0]:.4f} ms (device "
               f"{times['l'][2]:.4f} ms), twin {times['l'][1]:.3f} ms, bound "
               f"{bound(*work['l'])[0]:.4f} ms; transpose bit-exact, kernel {times['t'][0]:.4f} ms "
               f"(device {times['t'][2]:.4f} ms), twin {times['t'][1]:.3f} ms, bound "
@@ -571,19 +644,20 @@ def check_lists(pyr, cfg, model, report):
                            bound_by=bound(tot[k]["bytes"], tot[k]["ops"])[1], library_ms=None)
 
 
-def check_list_stage(pyr, cfg, model, report):
+def check_list_stage(pyr, cfg, model, report, min_width=0):
     """List mode's list stage (``band_lists_given``) bit for bit against its
-    twin on every search the convs use, from the searches' own position
-    lists (the pyramid without thresholds), with the transpose of its
-    lists bit for bit; its ms in the kernels line is the sum over the
-    searches of one extraction call."""
+    twin on every search the convs use (``min_width`` as in
+    ``conv_cases``), from the searches' own position lists (the pyramid
+    without thresholds), with the transpose of its lists bit for bit; its
+    ms in the kernels line is the sum over the searches of one extraction
+    call."""
     import torch
     from d3feat_tpu_torch.ops.band_lists import band_lists_given, transpose_lists
 
     lpyr = without_thresholds(pyr)
     seen = {}
     tot = dict(ms=0.0, plain_ms=0.0, dev_ms=0.0, bound_ms=0.0, bytes=0.0)
-    for spec, conv, args in conv_cases(lpyr, cfg, model):
+    for spec, conv, args in conv_cases(lpyr, cfg, model, min_width):
         name = f"{'pool' if spec.strided else 'conv'}{spec.layer}"
         if name in seen:
             continue
@@ -634,9 +708,11 @@ def k2_work(spec, conv, args, pyr, panel="float32"):
     return simt, (0 if cin < 8 else first) + rows * 2 * q_live * kpn * cin * cout
 
 
-def check_k2(pyr, cfg, model, report, device="cuda", panel="float32", mode="threshold"):
-    """K2 against its twin at every conv of the forward; its ms in the
-    kernels line is the sum over the 14 convs of one extraction call. With
+def check_k2(pyr, cfg, model, report, device="cuda", panel="float32", mode="threshold",
+             min_width=0):
+    """K2 against its twin at every conv of the forward (``min_width`` as
+    in ``conv_cases``); its ms in the kernels line is the sum over the 14
+    convs of one extraction call. With
     ``panel="bfloat16"``, the bf16 kernel against the bf16 twin (relative
     L2 ``BF16_TWIN_L2``, density exact) and against the f32 kernel
     (``BF16_L2``). With ``mode="list"``, list mode (the pyramid without
@@ -648,14 +724,15 @@ def check_k2(pyr, cfg, model, report, device="cuda", panel="float32", mode="thre
     tag, tc_rate = PANELS[panel]
     if mode == "list":
         tag = " list" + tag
-        thr_cases = conv_cases(pyr, cfg, model)
+        thr_cases = conv_cases(pyr, cfg, model, min_width)
         pyr = without_thresholds(pyr)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     worst = 0.0
     tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, tc=0.0, bytes=0.0)
     stages = {}
-    for ci, (spec, conv, args) in enumerate(conv_cases(pyr, cfg, model)):
+    cases = conv_cases(pyr, cfg, model, min_width)
+    for ci, (spec, conv, args) in enumerate(cases):
         kpn, cin, cout = conv.weights.shape
         x = conv_features(spec, pyr, args, cin, gen, device)
         kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points,
@@ -695,8 +772,7 @@ def check_k2(pyr, cfg, model, report, device="cuda", panel="float32", mode="thre
         phase(f"K2 band_conv{tag} {conv_label(spec, conv, args)}: max err {err:.3g}{note}; "
               f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, bound "
               f"{b_ms:.4f} ms ({b_by})")
-    phase(f"K2 band_conv{tag}, sum over the {len(conv_cases(pyr, cfg, model))} convs of one "
-          f"extraction call: kernel {tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin "
+    phase(f"K2 band_conv{tag}, sum over the {len(cases)} convs of one extraction call: kernel {tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin "
           f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
     print_stages(f"K2 band_conv{tag}, sum over the convs of one extraction call", stages)
     report[f"K2 band_conv{tag}"] = dict(
@@ -750,9 +826,11 @@ def check_k3(pyr, cfg, report, device="cuda"):
           f"{lib_err:.3g} from the twin)")
 
 
-def check_k4(pyr, cfg, model, report, device="cuda", panel="float32", mode="threshold"):
-    """K4 against its twin at every conv of the backward (the first, on the
-    input features, without dx as in the train step), from the lists and
+def check_k4(pyr, cfg, model, report, device="cuda", panel="float32", mode="threshold",
+             min_width=0):
+    """K4 against its twin at every conv of the backward (``min_width`` as
+    in ``conv_cases``; the first conv of the encoder, on the input
+    features, without dx as in the train step), from the lists and
     the weighted rows of the forward as the train step runs it; its ms in
     the kernels line is the sum over the 14 convs of one train step. With
     ``panel="bfloat16"``, dx and dW of the bf16 kernel against the bf16
@@ -772,14 +850,14 @@ def check_k4(pyr, cfg, model, report, device="cuda", panel="float32", mode="thre
     worst = 0.0
     tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, tc=0.0, bytes=0.0)
     stages = {}
-    for ci, (spec, conv, args) in enumerate(conv_cases(pyr, cfg, model)):
+    for ci, (spec, conv, args) in enumerate(conv_cases(pyr, cfg, model, min_width)):
         kpn, cin, cout = conv.weights.shape
         nq = args["q_rows"].shape[0]
         n_q = pyr["points"][spec.layer + 1 if spec.strided else spec.layer].shape[0]
         x = conv_features(spec, pyr, args, cin, gen, device)
         gs = torch.zeros((nq, cout), device=device)
         gs[:n_q] = torch.randn((n_q, cout), generator=gen, device=device) * 1e-2
-        need_dx = ci > 0
+        need_dx = ci > 0 or spec.layer > 0
         kw = dict(args, x=x, weights=conv.weights.data, kernel_points=conv.kernel_points,
                   panel_dtype=panel)
         _, _, wtd, wb = band_conv_kernel(keep_weighted=True, **kw)
@@ -863,7 +941,7 @@ def check_k5(pyr, cfg, report, device="cuda"):
     route that selects from the windows, and one SpMM of the transpose."""
     import torch
     from d3feat_tpu_torch.models.kpfcnn import band_head_inputs
-    from d3feat_tpu_torch.ops.band_lists import LCAP, transpose_lists_plain
+    from d3feat_tpu_torch.ops.band_lists import transpose_lists_plain
     from d3feat_tpu_torch.ops.head import band_head_bwd
 
     args = band_head_inputs(pyr, cfg)
@@ -892,7 +970,7 @@ def check_k5(pyr, cfg, report, device="cuda"):
     # the windows' route: every window row tested against every query of its tile
     w_ms, w_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
                               g, kdx), D2_OPS * window_rows(args) + n_ent * c)
-    lib_ms, lib_dev, lib = csr_spmm(row_ptr, pairs[:n_ent] // LCAP, (ns, nq), g)
+    lib_ms, lib_dev, lib = csr_spmm(row_ptr, pairs[:n_ent] // lists.width, (ns, nq), g)
     lib_err = float((lib - pdx).abs().max())
     report["K5 band_head_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                       bound_by=b_by, library_ms=lib_ms)
@@ -919,15 +997,9 @@ def main_path(cfg, model, frags, report, device="cuda"):
     import torch
     from d3feat_tpu_torch.data.pack import pack_fragments
     from d3feat_tpu_torch.eval.extract import FeatureExtractor
-    from d3feat_tpu_torch.ops.band_conv import band_conv
-    from d3feat_tpu_torch.ops.band_lists import band_lists
-    from d3feat_tpu_torch.ops.head import band_head
-    from d3feat_tpu_torch.ops.neighbors import radius_neighbors_pallas
     from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
-    from d3feat_tpu_torch.ops.select import band_select
 
-    wrappers = {"K1 select": band_select, "K2/K4 band_lists": band_lists,
-                "K2 band_conv": band_conv, "K3 band_head": band_head}
+    names = ("K1 select", "K2/K4 band_lists", "K2 band_conv", "K3 band_head")
     # the serving policy: a group that overflows the bench bucket is run
     # again in the next larger one, so no served output is degraded
     ex = FeatureExtractor(cfg, model, batch_fragments=2, device=device)
@@ -936,22 +1008,19 @@ def main_path(cfg, model, frags, report, device="cuda"):
         ex.extract_many(groups[i % len(groups)])
     torch.cuda.synchronize()
 
-    for w in (*wrappers.values(), radius_neighbors_pallas):
-        w.launches = 0
-    band_conv.launches_bf16 = 0
     ex._steps.clear()
-    out = ex.extract_many(groups[0])  # one extraction call: the counted main-path run
-    torch.cuda.synchronize()
+    # one extraction call: the counted main-path run
+    out, c = counted_run(lambda: ex.extract_many(groups[0]))
     check(list(ex._steps) == [(cfg.caps.points[0], 2)],
           "main path: the counted call overflowed the bench bucket")
-    check(band_conv.launches_bf16 == 0, "main path: f32 serving launched K2's bf16 kernel")
-    for name, w in wrappers.items():
-        report[name]["launches"] = w.launches
-        check(w.launches > 0, f"{name}: no launch on the main path")
+    check(c["K2 band_conv bf16"] == 0, "main path: f32 serving launched K2's bf16 kernel")
+    for name in names:
+        report[name]["launches"] = c[name]
+        check(c[name] > 0, f"{name}: no launch on the main path")
     # K1 on unsorted clouds is the original-order route's; the main path is the band route
-    report["K1 select unsorted"]["launches"] = radius_neighbors_pallas.launches
+    report["K1 select unsorted"]["launches"] = c["K1 select unsorted"]
     phase("main path launches per call: " + ", ".join(
-        f"{n} {report[n]['launches']}" for n in (*wrappers, "K1 select unsorted")))
+        f"{n} {report[n]['launches']}" for n in (*names, "K1 select unsorted")))
 
     for (desc, scores), frag in zip(out, groups[0]):
         check(desc.shape == (len(frag), cfg.output_dim) and scores.shape == (len(frag),),
@@ -1168,11 +1237,7 @@ def train_phase(cfg, report, card, batch, device="cuda"):
     import math
 
     import torch
-    from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
-    from d3feat_tpu_torch.ops.band_lists import band_lists, transpose_lists
-    from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
     from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
-    from d3feat_tpu_torch.ops.select import band_select
     from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
     from d3feat_tpu_torch.train.step import TrainState, make_train_step
 
@@ -1184,16 +1249,10 @@ def train_phase(cfg, report, card, batch, device="cuda"):
     step = make_train_step(cfg, spec)
     twin_step = make_train_step(cfg, spec, impl="plain")
 
-    wrappers = {"K1 select": band_select, "K2/K4 band_lists": band_lists,
-                "K2 band_conv": band_conv, "K3 band_head": band_head,
-                "K4 band_lists transpose": transpose_lists, "K4 band_conv_bwd": band_conv_bwd,
-                "K5 band_head_bwd": band_head_bwd}
-    torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
-    state, m = step(state, batch, 0)  # the counted training-path run
-    torch.cuda.synchronize()
-    counts = {n: w.launches for n, w in wrappers.items()}
+    (state, m), c = counted_run(lambda: step(state, batch, 0))  # the counted training-path run
+    counts = {n: c[n] for n in ("K1 select", "K2/K4 band_lists", "K2 band_conv",
+                                "K3 band_head", "K4 band_lists transpose", "K4 band_conv_bwd",
+                                "K5 band_head_bwd")}
     for n, c in counts.items():
         check(c > 0, f"{n}: no launch on the training path")
     searches = {(sp.layer, sp.strided) for sp, blk in zip(model.specs.encoder, model.encoder)
@@ -1347,36 +1406,50 @@ def train_bf16(cfg, report, batch, device="cuda"):
     return sps
 
 
+def launch_table():
+    """(name in the kernels line, wrapper, count attribute) of ``KERNELS``."""
+    import importlib
+
+    return [(name, getattr(importlib.import_module(f"d3feat_tpu_torch.{mod}"), fn), attr)
+            for name, mod, fn, attr, _, _ in KERNELS]
+
+
 def reset_launches():
     """Every kernel wrapper's launch counts to 0."""
-    from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
-    from d3feat_tpu_torch.ops.band_lists import band_lists, band_lists_given, transpose_lists
-    from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
-    from d3feat_tpu_torch.ops.neighbors import radius_neighbors_pallas
-    from d3feat_tpu_torch.ops.select import band_select
+    for _, w, attr in launch_table():
+        setattr(w, attr, 0)
 
-    for w in (band_select, band_lists, band_lists_given, transpose_lists, band_head,
-              band_head_bwd, radius_neighbors_pallas):
-        w.launches = 0
-    for w in (band_conv, band_conv_bwd):
-        w.launches = w.launches_bf16 = w.launches_list = w.launches_list_bf16 = 0
+
+def launches_by_kernel():
+    """``{name in the kernels line: launches since reset_launches}``."""
+    return {name: getattr(w, attr) for name, w, attr in launch_table()}
+
+
+def counted_run(fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after (the card synchronised around it); returns (its result, the
+    counts by kernel name)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launches_by_kernel()
 
 
 def list_counts():
     """The launch counts that tell the two routes apart."""
-    from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd
-    from d3feat_tpu_torch.ops.band_lists import band_lists, band_lists_given, transpose_lists
-    from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
-
-    return {"K2 list": band_conv.launches_list, "K2 list bf16": band_conv.launches_list_bf16,
-            "K4 list": band_conv_bwd.launches_list,
-            "K4 list bf16": band_conv_bwd.launches_list_bf16,
-            "list stage (list mode)": band_lists_given.launches,
-            "transpose": transpose_lists.launches,
-            "K2": band_conv.launches + band_conv.launches_bf16,
-            "K4": band_conv_bwd.launches + band_conv_bwd.launches_bf16,
-            "list stage (threshold mode)": band_lists.launches, "K3": band_head.launches,
-            "K5": band_head_bwd.launches}
+    c = launches_by_kernel()
+    return {"K2 list": c["K2 band_conv list"], "K2 list bf16": c["K2 band_conv list bf16"],
+            "K4 list": c["K4 band_conv_bwd list"],
+            "K4 list bf16": c["K4 band_conv_bwd list bf16"],
+            "list stage (list mode)": c["K2/K4 band_lists list"],
+            "transpose": c["K4 band_lists transpose"],
+            "K2": c["K2 band_conv"] + c["K2 band_conv bf16"],
+            "K4": c["K4 band_conv_bwd"] + c["K4 band_conv_bwd bf16"],
+            "list stage (threshold mode)": c["K2/K4 band_lists"], "K3": c["K3 band_head"],
+            "K5": c["K5 band_head_bwd"]}
 
 
 def list_path(cfg, model, frags, batch, report, device="cuda"):
@@ -2077,10 +2150,7 @@ CALIBRATION_PAIRS = 4
 
 def kernel_launches():
     """Every K1-K5 kernel launch counted since ``reset_launches``."""
-    from d3feat_tpu_torch.ops.neighbors import radius_neighbors_pallas
-    from d3feat_tpu_torch.ops.select import band_select
-
-    return sum(list_counts().values()) + band_select.launches + radius_neighbors_pallas.launches
+    return sum(launches_by_kernel().values())
 
 
 def packed_batch(frags, cap, device):
@@ -2554,6 +2624,522 @@ def gather_phase(cfg, model, frags, batch, report, card, device="cuda"):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 12: batch norm, deformable KPConv, randomised kernel points, KPCNN
+# ---------------------------------------------------------------------------
+
+DEFORM_LAYERS = (3, 4)    # the levels whose blocks are deformable in (b)
+VARIANT_STEPS = 5         # timed train steps after a counted one in (b)
+KPCNN_LABELS = (3, 17)    # the fixed synthetic labels of the two clouds in (d)
+KPCNN_SGD_STEPS = 3
+
+
+def counted(label, fn, acc):
+    """``counted_run(fn)``, its counts added into ``acc``, no twin called;
+    returns (its result, the counts)."""
+    with count_twins() as twins:
+        out, c = counted_run(fn)
+    check(not any(twins.values()), f"{label}: plain twins called on the card: {twins}")
+    for k, v in c.items():
+        acc[k] = acc.get(k, 0) + v
+    phase(f"{label}, launches: " + ", ".join(f"{k} {v}" for k, v in c.items() if v))
+    return out, c
+
+
+def need(c, label, names):
+    for n in names:
+        check(c[n] > 0, f"{label}: {n} was not launched")
+
+
+def rigid_band_convs(model, pyr, cfg):
+    """The number of the model's convs that ``band_conv_eligible`` gives to
+    K2 (and K4) on the band pyramid ``pyr``."""
+    from d3feat_tpu_torch.models.blocks import band_conv_eligible
+
+    return sum(1 for spec, blk in zip(model.specs.encoder, model.encoder)
+               if hasattr(blk, "conv") and band_conv_eligible(spec, pyr, cfg))
+
+
+def warm_from_r5(model, rename=lambda name: name):
+    """Copy the r5 weights into ``model`` wherever it has a tensor of the
+    same name (after ``rename``; a bias norm's ``bias`` lands on a batch
+    norm's ``offset``) and shape; the rest keeps its seeded draw. At a
+    random draw a train step of these models is near-tie noise (a twin
+    step from weights one ulp away lies as far from the twins' as the
+    kernels' step, PERF.md), so the train gates start from trained weights.
+    Returns the count of tensors copied."""
+    import torch
+    from d3feat_tpu_torch.compat.portable import read_npz
+
+    params = read_npz(os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                                   "model_best_acc_r5.npz"))[0]
+    sd = model.state_dict()
+    n = 0
+    with torch.no_grad():
+        for k, v in params.items():
+            k = rename(k)
+            if k not in sd and k.endswith((".norm.bias", ".norm_conv.bias")):
+                k = k[:-len("bias")] + "offset"
+            if k in sd and tuple(sd[k].shape) == v.shape:
+                sd[k].copy_(torch.from_numpy(v))
+                n += 1
+    return n
+
+
+def hold_step(label, m, tm, model, twin, witness, noisy=False):
+    """A kernel train step (metrics ``m``, ``model`` after it) against the
+    twins' (``tm``, ``twin``) from the same state: loss rtol 1e-3, the flat
+    gradient atol/rtol 5e-3, the batch norms' running statistics within
+    1e-5. ``witness``: the model after a twin step from weights one ulp
+    away, whose distance to the twins' is the step's own noise, printed
+    beside. ``noisy`` (a step that sits on near-ties, as a random draw's
+    does): the gradient held to that noise instead, as ``hold_bf16_step``
+    holds the bf16 step: within twice the witness's distance, or atol/rtol
+    5e-3 where the step is not that sensitive. Returns (max gradient diff,
+    the witness's, max statistics diff, the three leaves farthest from the
+    twins' with the witness's distance beside)."""
+    import math
+
+    import torch
+    from d3feat_tpu_torch.train.optim import train_tensors
+
+    check(math.isfinite(m.loss) and m.skipped == 0.0 and m.overflow == 0.0,
+          f"{label}: loss {m.loss}, skipped {m.skipped}, overflow {m.overflow}")
+    check(abs(m.loss - tm.loss) <= 1e-3 * abs(tm.loss), f"{label}: loss {m.loss} vs the "
+          f"twins' {tm.loss}")
+    g, gt = flat_grads(model), flat_grads(twin)
+    gerr = float((g - gt).abs().max())
+    werr = float((flat_grads(witness) - gt).abs().max())
+    ok = torch.allclose(g, gt, atol=5e-3, rtol=5e-3) or (noisy and gerr <= 2.0 * werr)
+    check(ok, f"{label}: gradients differ from the twins' by {gerr} (a twin step one ulp away "
+              f"by {werr})")
+    check(float(gt.abs().max()) > 1e-4, f"{label}: vacuous gradient comparison")
+    tb = dict(twin.named_buffers())
+    serr = max((float((b - tb[n]).abs().max()) for n, b in model.named_buffers()
+                if n.endswith((".mean", ".var"))), default=0.0)
+    check(serr <= 1e-5, f"{label}: running statistics differ from the twins' by {serr}")
+    leaf = [dict(train_tensors(mm)) for mm in (model, twin, witness)]
+    worst = sorted(((float((leaf[0][n].grad - t.grad).abs().max()),
+                     float((leaf[2][n].grad - t.grad).abs().max()), n)
+                    for n, t in leaf[1].items() if t.grad is not None), reverse=True)[:3]
+    return gerr, werr, serr, ", ".join(f"{n} {e:.3g} (one ulp away {u:.3g})"
+                                       for e, u, n in worst)
+
+
+def twin_steps(cfg, spec, model, batch):
+    """(twin model, its metrics, witness model) after one twin step from
+    ``model``'s state and one from its weights moved by one f32 ulp."""
+    import copy
+    import math
+
+    import torch
+    from d3feat_tpu_torch.train.optim import make_optimizer
+    from d3feat_tpu_torch.train.step import TrainState, make_train_step
+
+    twin, witness = copy.deepcopy(model), copy.deepcopy(model)
+    with torch.no_grad():
+        for t in witness.parameters():
+            t.copy_(torch.nextafter(t, torch.full_like(t, math.inf)))
+    step = make_train_step(cfg, spec, impl="plain")
+    _, tm = step(TrainState(twin, make_optimizer(cfg, twin)), batch, 0)
+    step(TrainState(witness, make_optimizer(cfg, witness)), batch, 0)
+    return twin, tm, witness
+
+
+def hold_extraction(label, out, tout, lengths):
+    """Descriptors within 1e-4 of the twins' and, per fragment, the same
+    top-250 sets; finite, unit norm on the valid rows."""
+    import numpy as np
+
+    f, s, o = (t.cpu().numpy() for t in out)
+    tf, ts, _ = (t.cpu().numpy() for t in tout)
+    check(not bool(o), f"{label}: overflow")
+    n = int(sum(lengths))
+    check(np.isfinite(f).all() and np.isfinite(s).all(), f"{label}: non-finite outputs")
+    check(np.abs(np.linalg.norm(f[:n], axis=1) - 1.0).max() < 1e-5, f"{label}: not unit norm")
+    err = float(np.abs(f - tf).max())
+    check(err <= 1e-4, f"{label}: descriptors differ from the twins' by {err}")
+    start = 0
+    for ln in lengths:
+        check(topk_agree(s[start:start + ln, 0], ts[start:start + ln, 0], TOPK, 1e-4),
+              f"{label}: top-{TOPK} sets differ from the twins'")
+        start += ln
+    return err
+
+
+def timed_steps(step, state, batch, n):
+    import math
+
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(n):
+        state, m = step(state, batch, 0)
+        check(math.isfinite(m.loss) and m.skipped == 0.0 and m.overflow == 0.0,
+              f"timed step {i + 1}: loss {m.loss}, skipped {m.skipped}, overflow {m.overflow}")
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t)
+
+
+def variants_bn(cfg, frags, batch, line, acc, device="cuda"):
+    """(a) A ``use_batch_norm`` KPFCNN drawn from a seed: one counted train
+    step against the twins, ``TRAIN_STEPS`` more and steps/s, then one
+    eval-mode extraction of the serving batch with the running statistics
+    against the twins."""
+
+    import torch
+    from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
+    from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
+    from d3feat_tpu_torch.train.optim import make_optimizer
+    from d3feat_tpu_torch.train.step import TrainState, make_extract_step, make_train_step
+
+    t = time.perf_counter()
+    bcfg = route_config(cfg, use_batch_norm=True)
+    spec = make_pyramid_spec(bcfg)
+    model = init_kpfcnn(bcfg, seed=0, device=device)
+    n_r5 = warm_from_r5(model)  # batch norms: scale 1, offset r5's bias, statistics 0 and 1
+    twin, tm, witness = twin_steps(bcfg, spec, model, batch)
+    state = TrainState(model, make_optimizer(bcfg, model))
+    step = make_train_step(bcfg, spec)
+    (state, m), c = counted("variants (a) batch norm, train step",
+                            lambda: step(state, batch, 0), acc)
+    need(c, "variants (a) train step", ("K1 select", "K2/K4 band_lists", "K2 band_conv",
+                                         "K3 band_head", "K4 band_lists transpose",
+                                         "K4 band_conv_bwd", "K5 band_head_bwd"))
+    gerr, werr, serr, worst = hold_step("variants (a) train step", m, tm, model, twin, witness)
+    sps = timed_steps(step, state, batch, TRAIN_STEPS)
+    phase(f"variants (a): BN model, {n_r5} tensors from r5; train step vs twins: loss "
+          f"{m.loss:.6f} vs {tm.loss:.6f}, max gradient diff {gerr:.3g} (a twin step one ulp "
+          f"away {werr:.3g}; worst leaves {worst}), running statistics within {serr:.3g}; "
+          f"{sps:.3f} train steps/s ({TRAIN_STEPS} steps)")
+    # the seeded draw itself: its step sits on near-ties, held to its own noise
+    drawn = init_kpfcnn(bcfg, seed=0, device=device)
+    dtwin, dtm, dwitness = twin_steps(bcfg, spec, drawn, batch)
+    _, dm = step(TrainState(drawn, make_optimizer(bcfg, drawn)), batch, 0)
+    dgerr, dwerr, dserr, dworst = hold_step("variants (a) train step, seeded draw", dm, dtm,
+                                            drawn, dtwin, dwitness, noisy=True)
+    phase(f"variants (a): BN model as drawn from seed 0, train step vs twins: loss "
+          f"{dm.loss:.6f} vs {dtm.loss:.6f}, max gradient diff {dgerr:.3g} (a twin step one "
+          f"ulp away {dwerr:.3g}, gate twice that or 5e-3; worst leaves {dworst}), running "
+          f"statistics within {dserr:.3g}")
+
+    serving = packed_batch(frags[:2], bcfg.caps.points[0], device)
+    lengths = serving["lengths"].tolist()
+    before = {n: b.clone() for n, b in model.named_buffers()}
+    out, c = counted("variants (a) batch norm, extraction",
+                     lambda: make_extract_step(bcfg, num_clouds=2)(model, serving), acc)
+    need(c, "variants (a) extraction", ("K1 select", "K2 band_conv", "K3 band_head"))
+    check(all(torch.equal(b, before[n]) for n, b in model.named_buffers()),
+          "variants (a): extraction moved the running statistics")
+    tout = make_extract_step(bcfg, num_clouds=2, impl="plain")(model, serving)
+    err = hold_extraction("variants (a) extraction", out, tout, lengths)
+    phase(f"variants (a): BN extraction with the running statistics vs twins: max descriptor "
+          f"diff {err:.3g}, top-{TOPK} sets agree")
+    line["batch_norm"] = dict(loss=m.loss, twin_loss=tm.loss, grad_diff=gerr,
+                              witness_grad_diff=werr, stats_diff=serr,
+                              seeded_draw=dict(loss=dm.loss, twin_loss=dtm.loss,
+                                               grad_diff=dgerr, witness_grad_diff=dwerr,
+                                               stats_diff=dserr),
+                              train_steps_per_s=sps, descriptor_diff=err,
+                              seconds=time.perf_counter() - t)
+
+
+def deform_config(cfg, **fields):
+    """``cfg`` with the blocks of levels ``DEFORM_LAYERS`` deformable
+    (``resnetb_deformable_strided``, ``resnetb_deformable``,
+    ``resnetb_deformable``), the placement of KPConv's deformable
+    architectures."""
+    from d3feat_tpu_torch.config import D3FeatConfig
+
+    class DeformConfig(D3FeatConfig):
+        def architecture(self):
+            arch = D3FeatConfig.architecture(self)
+            for l in DEFORM_LAYERS:  # level l's blocks sit at 2 + 3 (l - 1) ...
+                i = 2 + 3 * (l - 1)
+                arch[i:i + 3] = ["resnetb_deformable_strided", "resnetb_deformable",
+                                 "resnetb_deformable"]
+            return arch
+
+    c = DeformConfig.from_dict(cfg.to_dict())
+    for k, v in fields.items():
+        setattr(c, k, v)
+    return c
+
+
+def deform_caps(cfg, samples, device="cuda"):
+    """Neighbour caps for the deformable config from ``calibrate_caps`` on
+    ``samples`` at keep ratio 1 (the largest count, so the samples do not
+    overflow), times 1.15 for the pool searches' barycentre queries: at the
+    conv radius on the levels that ``make_pyramid_spec`` leaves unscaled,
+    at ``deform_radius`` (the same voxels, the wider radius) on the levels
+    whose conv or pool search it widens."""
+    import math
+
+    from d3feat_tpu_torch.config import PyramidCaps
+    from d3feat_tpu_torch.data.calibrate import calibrate_caps
+    from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
+    from d3feat_tpu_torch.ops.select import KMAX
+
+    spec = make_pyramid_spec(cfg)
+    rigid = calibrate_caps(samples, cfg, keep_ratio=1.0, device=device)
+    wide = calibrate_caps(samples, route_config(cfg, conv_radius=cfg.deform_radius),
+                          keep_ratio=1.0, device=device)
+    caps = [math.ceil(1.15 * (w if (spec.conv_r_scale[l] != 1.0 or spec.pool_r_scale[l] != 1.0)
+                              else r))
+            for l, (r, w) in enumerate(zip(rigid.neighbors, wide.neighbors))]
+    check(max(caps) <= KMAX, f"variants (b): calibrated caps {caps} exceed K1's {KMAX}")
+    return PyramidCaps(points=cfg.caps.points, neighbors=tuple(caps), corr=cfg.caps.corr)
+
+
+def variants_deform(cfg, frags, batch, line, acc, device="cuda"):
+    """(b) Levels ``DEFORM_LAYERS`` deformable, unmodulated and modulated,
+    with calibrated caps: one counted extraction and one counted train step
+    each against the twins; steps/s and peak memory."""
+    import math
+
+    import torch
+    from d3feat_tpu_torch.losses.regularizers import p2p_fitting_regularizer
+    from d3feat_tpu_torch.models.kpfcnn import apply_kpfcnn, init_kpfcnn
+    from d3feat_tpu_torch.ops.band_lists import LCAP
+    from d3feat_tpu_torch.ops.neighbors import permute_rows
+    from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+    from d3feat_tpu_torch.train.optim import make_optimizer
+    from d3feat_tpu_torch.train.step import TrainState, make_extract_step, make_train_step
+
+    t = time.perf_counter()
+    serving = packed_batch(frags[:2], cfg.caps.points[0], device)
+    lengths = serving["lengths"].tolist()
+    samples = [{k: b[k].cpu().numpy() for k in ("points", "lengths")} for b in (serving, batch)]
+    caps = deform_caps(deform_config(cfg), samples, device)
+    phase(f"variants (b): architecture {deform_config(cfg).architecture()[2:14]}; calibrated "
+          f"neighbour caps {caps.neighbors} (bench {cfg.caps.neighbors})")
+    line["deformable"] = {"neighbor_caps": list(caps.neighbors)}
+    for modulated in (False, True):
+        tag = "modulated" if modulated else "unmodulated"
+        dcfg = deform_config(cfg, caps=caps, modulated=modulated)
+        spec = make_pyramid_spec(dcfg)
+        model = init_kpfcnn(dcfg, seed=1, device=device)
+        warm_from_r5(model)  # the offset convs keep their seeded draw
+        n_def = sum(1 for blk in model.encoder if getattr(getattr(blk, "conv", None),
+                                                          "deformable", False))
+        pyr = build_pyramid(batch["points"], batch["lengths"], spec=spec)
+        check(not bool(pyr["overflow"]), f"variants (b) {tag}: the training pair overflows "
+              f"{[k for k, v in pyr['overflow_by'].items() if bool(v)]}")
+        if not modulated:  # K1 at the wide caps (4 and 8 slots a lane) against its twin
+            twin_pyr = build_pyramid(batch["points"], batch["lengths"], spec=spec,
+                                     impl="plain")
+            for key in ("neighbors", "pools", "upsamples"):
+                check(all(torch.equal(a, b) for a, b in zip(pyr[key], twin_pyr[key])),
+                      f"variants (b): K1's {key} lists differ from the twin's")
+            check(all(torch.equal(a, b) for k in pyr["sel_thr"]
+                      for a, b in zip(pyr["sel_thr"][k], twin_pyr["sel_thr"][k])),
+                  "variants (b): K1's thresholds differ from the twin's")
+            phase(f"variants (b): the pyramid's 13 K1 searches at caps {caps.neighbors} equal "
+                  f"the twin's bit for bit (lists and thresholds)")
+            # each kernel at the searches wider than 64, on the card against its twin
+            wide = {}
+            check_k1(pyr, spec, wide)
+            check_lists(pyr, dcfg, model, wide, min_width=LCAP)
+            check_list_stage(pyr, dcfg, model, wide, min_width=LCAP)
+            for panel in PANELS:
+                for mode in ("threshold", "list"):
+                    check_k2(pyr, dcfg, model, wide, panel=panel, mode=mode, min_width=LCAP)
+                    check_k4(pyr, dcfg, model, wide, panel=panel, mode=mode, min_width=LCAP)
+            line["deformable"]["kernels"] = wide
+        n_band = rigid_band_convs(model, pyr, dcfg)
+        n_rigid = sum(1 for blk in model.encoder if hasattr(blk, "conv")) - n_def
+        check(n_band == n_rigid > 0 and n_def == 3 * len(DEFORM_LAYERS),
+              f"variants (b) {tag}: {n_band} band convs of {n_rigid} rigid, {n_def} deformable")
+
+        out, c = counted(f"variants (b) {tag}, extraction",
+                         lambda: make_extract_step(dcfg, num_clouds=2)(model, serving), acc)
+        need(c, f"variants (b) {tag} extraction", ("K1 select", "K3 band_head"))
+        check(c["K2 band_conv"] == n_band, f"variants (b) {tag} extraction: K2 launched "
+              f"{c['K2 band_conv']} times for {n_band} rigid band convs")
+        tout = make_extract_step(dcfg, num_clouds=2, impl="plain")(model, serving)
+        err = hold_extraction(f"variants (b) {tag} extraction", out, tout, lengths)
+
+        with torch.no_grad():
+            order0 = pyr["band"][0]["order"]
+            fwd = apply_kpfcnn(model, dict(pyr, features=permute_rows(batch["features"],
+                                                                      order0)), train=True)
+            reg = float(p2p_fitting_regularizer(fwd.auxes, KP_extent=dcfg.KP_extent))
+        check(len(fwd.auxes) == n_def and math.isfinite(reg) and reg > 0.0,
+              f"variants (b) {tag}: regularizer {reg} over {len(fwd.auxes)} convs")
+
+        twin, tm, witness = twin_steps(dcfg, spec, model, batch)
+        state = TrainState(model, make_optimizer(dcfg, model))
+        step = make_train_step(dcfg, spec)
+        torch.cuda.reset_peak_memory_stats()
+        (state, m), c = counted(f"variants (b) {tag}, train step",
+                                lambda: step(state, batch, 0), acc)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        need(c, f"variants (b) {tag} train step", ("K1 select", "K5 band_head_bwd"))
+        check(c["K2 band_conv"] == c["K4 band_conv_bwd"] == n_band,
+              f"variants (b) {tag} train step: K2 {c['K2 band_conv']}, K4 "
+              f"{c['K4 band_conv_bwd']} launches for {n_band} rigid band convs")
+        gerr, werr, _, worst = hold_step(f"variants (b) {tag} train step", m, tm, model, twin,
+                                         witness)
+        sps = timed_steps(step, state, batch, VARIANT_STEPS)
+        phase(f"variants (b) {tag}: extraction vs twins max descriptor diff {err:.3g}; "
+              f"regularizer {reg:.6g}; train step loss {m.loss:.6f} vs twins {tm.loss:.6f}, "
+              f"max gradient diff {gerr:.3g} (a twin step one ulp away {werr:.3g}; worst "
+              f"leaves {worst}); "
+              f"{sps:.3f} train steps/s ({VARIANT_STEPS} steps), peak memory {peak:.2f} GiB "
+              f"in the step")
+        line["deformable"][tag] = dict(band_convs=n_band, deformable_convs=n_def,
+                                       descriptor_diff=err, regularizer=reg, loss=m.loss,
+                                       twin_loss=tm.loss, grad_diff=gerr,
+                                       witness_grad_diff=werr, train_steps_per_s=sps,
+                                       peak_gib=peak)
+    line["deformable"]["seconds"] = time.perf_counter() - t
+
+
+def variants_kernel_points(cfg, frags, line, acc, device="cuda"):
+    """(c) ``init_kpfcnn`` with randomised kernel points on the card: every
+    conv's kernel points equal those of the same call on the CPU bit for
+    bit; one counted extraction through K2 and K3 on them."""
+    import numpy as np
+
+    import torch
+    from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
+    from d3feat_tpu_torch.train.step import make_extract_step
+
+    t = time.perf_counter()
+    rcfg = route_config(cfg, deterministic_kernel_points=False, seed=11)
+    model = init_kpfcnn(rcfg, device=device)
+    cpu = init_kpfcnn(rcfg, device="cpu")
+    det = init_kpfcnn(cfg, device="cpu")
+    convs = [(b.conv, c.conv, d.conv) for b, c, d in zip(model.encoder, cpu.encoder, det.encoder)
+             if hasattr(b, "conv")]
+    check(all(torch.equal(a.kernel_points.cpu(), b.kernel_points) for a, b, _ in convs),
+          "variants (c): kernel points on the card differ from the CPU's")
+    check(not any(torch.equal(b.kernel_points, d.kernel_points) for _, b, d in convs),
+          "variants (c): kernel points not randomised")
+    serving = packed_batch(frags[:2], rcfg.caps.points[0], device)
+    (f, s, o), c = counted("variants (c) randomised kernel points, extraction",
+                           lambda: make_extract_step(rcfg, num_clouds=2)(model, serving), acc)
+    need(c, "variants (c) extraction", ("K1 select", "K2 band_conv", "K3 band_head"))
+    n = int(serving["lengths"].sum())
+    fn = f[:n].cpu().numpy()
+    check(not bool(o) and np.isfinite(fn).all() and
+          np.abs(np.linalg.norm(fn, axis=1) - 1.0).max() < 1e-5,
+          "variants (c): extraction outputs not finite unit descriptors")
+    phase(f"variants (c): kernel points of {len(convs)} convs equal the CPU's bit for bit; "
+          f"extraction through K2 ({c['K2 band_conv']}) and K3 ({c['K3 band_head']})")
+    line["kernel_points"] = dict(convs=len(convs), seconds=time.perf_counter() - t)
+
+
+def variants_kpcnn(cfg, frags, line, acc, device="cuda"):
+    """(d) KPCNN at full width on the serving batch's two fragments as
+    clouds with fixed labels: a counted forward on the band route against
+    the twins, a counted loss and backward against the twins', a few SGD
+    steps, the logits on ``'banded'`` against the band route's, clouds/s."""
+    import copy
+    import math
+
+    import torch
+    from d3feat_tpu_torch.models.kpcnn import apply_kpcnn, init_kpcnn, kpcnn_accuracy, kpcnn_loss
+    from d3feat_tpu_torch.ops.neighbors import permute_rows
+    from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+
+    t = time.perf_counter()
+    kcfg = route_config(cfg, num_classes=40)
+    serving = packed_batch(frags[:2], kcfg.caps.points[0], device)
+    labels = torch.tensor(KPCNN_LABELS, device=device)
+    model = init_kpcnn(kcfg, seed=2, device=device)
+    warm_from_r5(model, lambda name: name.replace("encoder.", "blocks.", 1))  # head: seeded
+    width = kcfg.first_features_dim * 2 ** (kcfg.num_layers - 1)  # 2048 at the default
+    check(model.specs.head_in_dim == width and model.head_softmax.linear.w.shape == (1024, 40),
+          "variants (d): not the full-width KPCNN")
+    twin = copy.deepcopy(model)
+    spec = make_pyramid_spec(kcfg, num_clouds=2)
+
+    def forward(m, impl="auto", train=False, sp=spec):
+        pyr = build_pyramid(serving["points"], serving["lengths"], spec=sp, impl=impl)
+        order0 = pyr["band"][0]["order"] if pyr["band"] else None
+        feats = serving["features"] if order0 is None else permute_rows(serving["features"],
+                                                                         order0)
+        return apply_kpcnn(m, dict(pyr, features=feats), train=train, impl=impl)
+
+    out, c = counted("variants (d) KPCNN, forward", lambda: forward(model), acc)
+    need(c, "variants (d) forward", ("K1 select", "K2 band_conv"))
+    tlogits = forward(twin, "plain").logits
+    err = float((out.logits - tlogits).abs().max())
+    check(out.logits.shape == (2, 40) and bool(torch.isfinite(out.logits).all()),
+          "variants (d): logits shape or values")
+    check(err <= 1e-4, f"variants (d): logits differ from the twins' by {err}")
+
+    def loss_backward(m, impl="auto"):
+        o = forward(m, impl, train=True)
+        loss, ce = kpcnn_loss(o.logits, labels, o.auxes, kcfg)
+        loss.backward()
+        return float(loss.detach()), float(kpcnn_accuracy(o.logits.detach(), labels))
+
+    (loss, acc_), c = counted("variants (d) KPCNN, loss and backward",
+                              lambda: loss_backward(model), acc)
+    need(c, "variants (d) loss and backward", ("K1 select", "K2 band_conv", "K4 band_conv_bwd"))
+    tloss, _ = loss_backward(twin, "plain")
+    g, gt = (torch.cat([p.grad.reshape(-1) for p in m.parameters()]) for m in (model, twin))
+    gerr = float((g - gt).abs().max())
+    check(math.isfinite(loss) and abs(loss - tloss) <= 1e-3 * abs(tloss),
+          f"variants (d): loss {loss} vs the twins' {tloss}")
+    check(torch.allclose(g, gt, atol=5e-3, rtol=5e-3) and float(gt.abs().max()) > 1e-4,
+          f"variants (d): gradients differ from the twins' by {gerr}")
+
+    opt = torch.optim.SGD(model.parameters(), lr=0.01)
+    losses = []
+    for _ in range(KPCNN_SGD_STEPS):
+        opt.zero_grad(set_to_none=True)
+        losses.append(loss_backward(model)[0])
+        opt.step()
+    check(all(math.isfinite(v) for v in losses), f"variants (d): SGD losses {losses}")
+
+    gcfg = route_config(kcfg, neighbor_search="banded")
+    with torch.no_grad():
+        band = forward(model).logits
+        banded = forward(model, sp=make_pyramid_spec(gcfg, num_clouds=2)).logits
+    berr = float((band - banded).abs().max())
+    check(berr <= 1e-4, f"variants (d): 'banded' logits differ from the band route's by {berr}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(ITERS):
+            forward(model)
+    torch.cuda.synchronize()
+    cps = 2 * ITERS / (time.perf_counter() - t0)
+    phase(f"variants (d): KPCNN logits vs twins {err:.3g}; loss {loss:.6f} vs twins "
+          f"{tloss:.6f}, max gradient diff {gerr:.3g}; SGD losses "
+          + ", ".join(f"{v:.5f}" for v in losses)
+          + f"; 'banded' vs band route {berr:.3g}; {cps:.3f} clouds/s ({ITERS} calls of 2)")
+    line["kpcnn"] = dict(logits_diff=err, loss=loss, twin_loss=tloss, grad_diff=gerr,
+                         accuracy=acc_, sgd_losses=losses, banded_diff=berr,
+                         clouds_per_s=cps, seconds=time.perf_counter() - t)
+
+
+def variants_phase(cfg, frags, batch, report, card, device="cuda"):
+    """Phase 12: batch norm, deformable KPConv, randomised kernel points
+    and KPCNN on the card, subphases (a)-(d) of the module docstring; each
+    kernel's launches in the phase's counted runs go into ``report`` as
+    ``variants_phase_launches``. Returns the JSON line's dict."""
+    t = time.perf_counter()
+    line = {"card": card}
+    acc = {}
+    variants_bn(cfg, frags, batch, line, acc, device)
+    variants_deform(cfg, frags, batch, line, acc, device)
+    variants_kernel_points(cfg, frags, line, acc, device)
+    variants_kpcnn(cfg, frags, line, acc, device)
+    for name, *_ in KERNELS:
+        if name in report:
+            report[name]["variants_phase_launches"] = acc.get(name, 0)
+    line["launches"] = {k: v for k, v in acc.items() if v}
+    line["seconds"] = time.perf_counter() - t
+    phase(f"variants: {line['seconds']:.1f} s")
+    return line
+
+
 def main():
     import torch
 
@@ -2642,35 +3228,11 @@ def main():
     recall_line = recall_phase(smi)
     phase("gather route")
     gather_line = gather_phase(cfg, model, frags, batch, report, smi)
+    phase("variants: batch norm, deformable KPConv, randomised kernel points, KPCNN")
+    variants_line = variants_phase(cfg, frags, batch, report, smi)
 
-    sources = {"K1 select": ("select.cu", "d3feat_tpu/ops/pallas/select.py:252"),
-               # the selection that K2's and K4's TPU kernels redo in every conv
-               "K2/K4 band_lists": ("band_lists.cu", "d3feat_tpu/ops/pallas/band_conv.py:351"),
-               "K2 band_conv": ("band_conv.cu", "d3feat_tpu/ops/pallas/band_conv.py:351"),
-               "K3 band_head": ("head.cu", "d3feat_tpu/ops/pallas/head.py:173"),
-               # the dx order of K4's TPU kernel, which walks each window's rows
-               "K4 band_lists transpose": ("band_lists.cu",
-                                           "d3feat_tpu/ops/pallas/band_conv.py:586"),
-               "K4 band_conv_bwd": ("band_conv_bwd.cu",
-                                    "d3feat_tpu/ops/pallas/band_conv.py:586"),
-               "K5 band_head_bwd": ("head_bwd.cu", "d3feat_tpu/ops/pallas/head.py:304"),
-               "K2 band_conv bf16": ("band_conv.cu", "d3feat_tpu/ops/pallas/band_conv.py:351"),
-               "K4 band_conv_bwd bf16": ("band_conv_bwd.cu",
-                                         "d3feat_tpu/ops/pallas/band_conv.py:586"),
-               # list mode (use_thr=False): the selection of :111 and :379 from the lists
-               "K2/K4 band_lists list": ("band_lists.cu",
-                                         "d3feat_tpu/ops/pallas/band_conv.py:351"),
-               "K2 band_conv list": ("band_conv.cu", "d3feat_tpu/ops/pallas/band_conv.py:351"),
-               "K2 band_conv list bf16": ("band_conv.cu",
-                                          "d3feat_tpu/ops/pallas/band_conv.py:351"),
-               "K4 band_conv_bwd list": ("band_conv_bwd.cu",
-                                         "d3feat_tpu/ops/pallas/band_conv.py:586"),
-               "K4 band_conv_bwd list bf16": ("band_conv_bwd.cu",
-                                              "d3feat_tpu/ops/pallas/band_conv.py:586"),
-               # radius_neighbors_pallas: K1 on clouds that are not pre-sorted
-               "K1 select unsorted": ("select.cu", "d3feat_tpu/ops/pallas/select.py:252")}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, _, _, _, src, replaces in KERNELS:
         r = report[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"d3feat_tpu_torch/ops/cuda/{src}", "replaces": replaces,
@@ -2679,6 +3241,7 @@ def main():
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "gather_phase_launches" in r:  # off the main path: its launches in phase 11
             kernels[-1]["gather_phase_launches"] = r["gather_phase_launches"]
+        kernels[-1]["variants_phase_launches"] = r["variants_phase_launches"]  # phase 12
     phase("library_ms: K3's sums and K5 by one cuSPARSE SpMM of their lists as a CSR of "
           "ones; null for the others, which no single PyTorch call computes (each includes "
           "the threshold selection of its rows)")
@@ -2688,6 +3251,7 @@ def main():
     print(json.dumps({"trainer": trainer_line}), flush=True)
     print(json.dumps({"data_parallel": dp_line}), flush=True)
     print(json.dumps({"gather_route": gather_line}), flush=True)
+    print(json.dumps({"variants": variants_line}), flush=True)
     print(json.dumps({"fragments_per_s": fps, "fragments_per_s_bf16": fps_bf16,
                       "train_steps_per_s": sps, "train_steps_per_s_bf16": sps_bf16,
                       "card": smi}), flush=True)

@@ -1,4 +1,4 @@
-"""K2's and K4's device time by stage on one GPU.
+"""The kernels' device time by stage on one GPU.
 
 Run from the root of a checkout::
 
@@ -10,8 +10,12 @@ the bench configuration (``bench.bench_config``: capacities
 seeded features and seeded cotangents, it runs the 14 band convs through
 K2 and their backward through K4 (the first conv without dx, as the train
 step runs it), f32 and bf16 panels, each from the lists and the weighted
-rows as the train step hands them over. For each of the four it prints
-the sums over the convs of: CUDA-event milliseconds per call (the host's
+rows as the train step hands them over. Beside them: the pyramid's build
+on the kernel route (K1's 13 searches, ``select_kernel``, among the
+build's own PyTorch ops), the list stage and its transpose on the 9
+searches the convs use, K3 on conv0's lists and K5 on their transpose,
+with seeded features and cotangents. For each it prints the sums over
+the convs or searches of: CUDA-event milliseconds per call (the host's
 launch work included), device milliseconds per call (``torch.profiler``)
 and, by CUDA kernel name, device milliseconds and launches per call; then
 one JSON line with the same and the card (``nvidia-smi`` name and power
@@ -81,8 +85,10 @@ def main():
     from d3feat_tpu_torch.compat.weights import load_npz
     from d3feat_tpu_torch.data.pack import load_eval_fragments, pack_fragments
     from d3feat_tpu_torch.models.blocks import band_conv_inputs
-    from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
+    from d3feat_tpu_torch.models.kpfcnn import band_head_inputs, init_kpfcnn
     from d3feat_tpu_torch.ops.band_conv import band_conv, band_conv_bwd, band_conv_kernel
+    from d3feat_tpu_torch.ops.band_lists import band_lists, transpose_lists
+    from d3feat_tpu_torch.ops.head import band_head, band_head_bwd
     from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
 
     if not torch.cuda.is_available():
@@ -94,13 +100,45 @@ def main():
     load_npz(model, os.path.join("artifacts", "model_best_acc_r5.npz"))
     frags = load_eval_fragments(12000, 16000)[:2]
     b = pack_fragments(frags, point_capacity=cfg.caps.points[0], num_clouds=2)
-    pyr = build_pyramid(torch.from_numpy(b["points"]).cuda(),
-                        torch.from_numpy(b["lengths"]).cuda(),
-                        spec=make_pyramid_spec(cfg, num_clouds=2), impl="plain")
+    pts, lens = torch.from_numpy(b["points"]).cuda(), torch.from_numpy(b["lengths"]).cuda()
+    spec = make_pyramid_spec(cfg, num_clouds=2)
+    pyr = build_pyramid(pts, lens, spec=spec, impl="plain")
     convs = [(model.specs.encoder[i], blk.conv) for i, blk in enumerate(model.encoder)
              if hasattr(blk, "conv")]
     card = card_name("cuda")
     out = {}
+
+    def row(name, calls):
+        """Events and device ms (and stages) of ``calls``, summed."""
+        r = dict(ms=0.0, device_ms=0.0, stages={})
+        for fn in calls:
+            r["ms"] += _events_ms(fn)
+            r["device_ms"] += _device(fn, r["stages"])
+        out[name] = r
+        print(f"{name}: {r['ms']:.4f} ms by events, {r['device_ms']:.4f} ms on the device; "
+              + ", ".join(f"{s} {ms:.4f} ms ({n:g}x)" for s, (ms, n) in
+                          sorted(r["stages"].items(), key=lambda i: -i[1][0])), flush=True)
+
+    row("pyramid", [lambda: build_pyramid(pts, lens, spec=spec)])
+    searches = {}
+    for spec_b, _ in convs:
+        args = band_conv_inputs(spec_b, pyr, cfg)
+        searches.setdefault((spec_b.layer, spec_b.strided), args)
+    lists = [(band_lists(impl="kernel", **{k: a[k] for k in (
+        "q_rows", "thr", "ptie", "s_rows", "starts", "wends", "query_tile")}), a)
+        for a in searches.values()]
+    row("lists", [lambda a=a: band_lists(impl="kernel", **{k: a[k] for k in (
+        "q_rows", "thr", "ptie", "s_rows", "starts", "wends", "query_tile")})
+        for a in searches.values()])
+    row("transpose", [lambda lt=lt, a=a: transpose_lists(lt, a["s_rows"].shape[0],
+                                                         impl="kernel") for lt, a in lists])
+    head = band_head_inputs(pyr, cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    xh = torch.rand((head["s_rows"].shape[0], cfg.output_dim), generator=gen, device="cuda")
+    gh = torch.randn((head["q_rows"].shape[0], cfg.output_dim), generator=gen, device="cuda")
+    row("K3", [lambda: band_head(x=xh, impl="kernel", **head)])
+    row("K5", [lambda: band_head_bwd(g=gh, impl="kernel", **head)])
     for panel in ("float32", "bfloat16"):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)

@@ -1,20 +1,27 @@
 """Network blocks (port of ``d3feat_tpu.models.blocks``): unary and
-last_unary, simple and resnet-bottleneck KPConv blocks (plain and strided),
-nearest-upsample, and the two rigid KPConvs: the band KPConv (K2 forward, K4
-backward) where ``band_conv_eligible`` holds, the gather KPConv
-(``models.kpconv.kpconv``) everywhere else.
+last_unary, simple and resnet-bottleneck KPConv blocks (plain and strided,
+rigid and deformable), nearest-upsample, max-pool and global-average; the
+two rigid KPConvs, the band KPConv (K2 forward, K4 backward) where
+``band_conv_eligible`` holds and the gather KPConv
+(``models.kpconv.kpconv``) everywhere else; and the deformable KPConv
+(``models.kpconv.deformable_kpconv``), always a gather.
 
 Modules carry the JAX package's parameter names, so a parameter's
 ``state_dict`` name is its JAX key path written with dots
 (``encoder.1.unary1.linear.w``). Linear weights are stored ``[in, out]``.
 Pooling appends a zero feature row, so all-shadow neighborhoods pool to
-zero.
+zero. With ``use_batch_norm`` each norm is a masked batch norm
+(``BatchNorm``) whose running ``mean`` and ``var`` are buffers (the JAX
+package's model state), else a learned bias (``Norm``).
 
 Every block's forward takes ``compute_dtype`` (``torch.float32`` or
 ``torch.bfloat16``, the model config's ``compute_dtype``): in bf16 the
 linear layers multiply bf16 operands and the band KPConvs run bf16
 panels (the gather KPConvs bf16 operands), as the JAX package's blocks
-do; everything else stays f32.
+do; everything else stays f32. It takes ``train`` (batch norm from the
+batch's statistics, updating the running ones, as JAX's ``train=True``)
+and returns ``(features, aux)``, ``aux`` the ``KPConvAux`` of a
+deformable conv, else None.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from d3feat_tpu_torch.models.kpconv import KPConv, gather_rows, kpconv, torch_kaiming_uniform
+from d3feat_tpu_torch.models.kpconv import (KPConv, deformable_kpconv, gather_rows, kpconv,
+                                            torch_kaiming_uniform)
 
 LEAKY_SLOPE = 0.1
 
@@ -41,7 +49,8 @@ class BlockSpec:
     """Static description of one network block."""
 
     name: str         # architecture entry, e.g. 'resnetb_strided'
-    kind: str         # 'unary' | 'last_unary' | 'simple' | 'resnetb' | 'nearest_upsample' ...
+    kind: str         # 'unary' | 'last_unary' | 'simple' | 'resnetb' | 'nearest_upsample'
+    #                 | 'max_pool' | 'global_average'
     layer: int        # pyramid level index
     in_dim: int
     out_dim: int
@@ -78,6 +87,18 @@ def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     return gather_rows(x, inds).amax(1)
 
 
+def global_average(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """[B, D] masked per-cloud mean of the stacked rows ``x`` (clouds
+    contiguous, padding rows after them), B = ``len(lengths)``."""
+    from d3feat_tpu_torch.ops.subsample import lengths_to_cloud_ids
+
+    b = lengths.shape[0]
+    cid = lengths_to_cloud_ids(lengths, x.shape[0]).long()
+    rows = torch.where((cid < b)[:, None], x, 0.0)
+    sums = x.new_zeros((b, x.shape[1])).index_add(0, torch.clamp(cid, max=b - 1), rows)
+    return sums / torch.clamp(lengths[:, None].to(x.dtype), min=1.0)
+
+
 class Linear(nn.Module):
     """``x @ w + b`` with torch ``nn.Linear``'s default init, ``w`` [in, out].
     In bf16 the product of the bf16 operands is itself bf16 (f32
@@ -104,20 +125,64 @@ class Norm(nn.Module):
         super().__init__()
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
-    def forward(self, x):
+    def forward(self, x, mask=None, train: bool = False):
         return x + self.bias
 
 
-class Unary(nn.Module):
-    """Linear + bias + optional LeakyReLU(0.1)."""
+class BatchNorm(nn.Module):
+    """Masked batch norm (``use_batch_norm=True``; JAX's ``apply_norm``):
+    parameters ``scale`` and ``offset``, running ``mean`` and ``var`` as
+    buffers. With ``train`` the statistics come from the rows ``mask``
+    marks valid (n of them, at least 1; the variance divided by n) and the
+    running ones move by ``momentum`` (torch's convention, ``running <- (1 -
+    m) running + m batch``), the variance's with the ``n / max(n - 1, 1)``
+    correction; otherwise the running statistics normalise. Then
+    ``(x - mean) rsqrt(var + 1e-5) scale + offset``."""
 
-    def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator):
+    def __init__(self, dim: int, momentum: float, device):
+        super().__init__()
+        self.momentum = momentum
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.offset = nn.Parameter(torch.zeros(dim, device=device))
+        self.register_buffer("mean", torch.zeros(dim, device=device))
+        self.register_buffer("var", torch.ones(dim, device=device))
+
+    def forward(self, x, mask=None, train: bool = False):
+        if train:
+            w = mask.to(x.dtype)[:, None]
+            n = torch.clamp(w.sum(), min=1.0)
+            mean = (x * w).sum(0) / n
+            var = (w * (x - mean) ** 2).sum(0) / n
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var
+                               + m * var * (n / torch.clamp(n - 1.0, min=1.0)))
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + 1e-5)
+        return y * self.scale + self.offset
+
+
+def make_norm(dim: int, config, device) -> nn.Module:
+    """``BatchNorm`` under ``config.use_batch_norm``, else ``Norm``."""
+    if config.use_batch_norm:
+        return BatchNorm(dim, config.batch_norm_momentum, device)
+    return Norm(dim, device)
+
+
+class Unary(nn.Module):
+    """Linear + norm + optional LeakyReLU(0.1); the norm runs on the f32
+    output of the linear layer in either compute dtype."""
+
+    def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator, config):
         super().__init__()
         self.linear = Linear(in_dim, out_dim, generator)
-        self.norm = Norm(out_dim, generator.device)
+        self.norm = make_norm(out_dim, config, generator.device)
 
-    def forward(self, x, relu: bool = True, compute_dtype=torch.float32):
-        y = self.norm(self.linear(x, compute_dtype))
+    def forward(self, x, mask=None, relu: bool = True, compute_dtype=torch.float32,
+                train: bool = False):
+        y = self.norm(self.linear(x, compute_dtype), mask, train)
         return leaky_relu(y) if relu else y
 
 
@@ -129,7 +194,11 @@ class Unary(nn.Module):
 def band_conv_eligible(spec: BlockSpec, batch, config) -> bool:
     """Whether the band kernel covers this block: rigid, linear influence,
     sum aggregation, weight panel within ``bandconv_max_panel_mb`` (sized
-    as the reference sizes it), unscaled search radius, band state present."""
+    as the reference sizes it), unscaled search radius and band state
+    present, as ``d3feat_tpu/models/blocks.py::band_conv_eligible`` decides.
+    A level whose neighbour cap a deformable conv widened keeps its rigid
+    convs here: the lists take up to 256 rows a query
+    (``ops.band_lists.list_width``)."""
     from d3feat_tpu_torch.ops.pyramid import make_pyramid_spec
 
     if spec.deformable:
@@ -235,8 +304,9 @@ def search_inputs(batch, config, layer: int, strided: bool, radius: float,
     if "lists" not in args and uses_kernel(impl, args["q_rows"]):
         kw = {k: args[k] for k in ("starts", "wends", "query_tile")}
         if mode == "threshold":
+            cap = batch["pools" if strided else "neighbors"][layer].shape[1]
             args["lists"] = band_lists(args["q_rows"], args["thr"], args["ptie"],
-                                       args["s_rows"], impl=impl, **kw)
+                                       args["s_rows"], width=cap, impl=impl, **kw)
         else:
             args["lists"] = band_lists_given(args["neighb"], n_rows=batch["points"][layer].shape[0],
                                              impl=impl, **kw)
@@ -284,6 +354,21 @@ def apply_gather_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, c
                   compute_dtype=compute_dtype)
 
 
+def apply_deformable_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, config,
+                            compute_dtype=torch.float32):
+    """Deformable KPConv of one block (``models.kpconv.deformable_kpconv``)
+    on either pyramid, with the block's points and lists as
+    ``apply_gather_kpconv`` reads them. Returns (features, KPConvAux)."""
+    l = spec.layer
+    q_level = l + 1 if spec.strided else l
+    inds = batch["pools"][l] if spec.strided else batch["neighbors"][l]
+    return deformable_kpconv(batch["points"][q_level], batch["points"][l], inds, x, conv,
+                             KP_extent=spec.radius * config.KP_extent / config.conv_radius,
+                             KP_influence=config.KP_influence,
+                             aggregation_mode=config.aggregation_mode,
+                             compute_dtype=compute_dtype)
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -296,20 +381,29 @@ class _ConvBlock(nn.Module):
         self.config = config
 
     def _conv(self, x, batch, impl, compute_dtype):
+        if self.spec.deformable:
+            return apply_deformable_kpconv(self.conv, self.spec, x, batch, self.config,
+                                           compute_dtype)
         if band_conv_eligible(self.spec, batch, self.config):
             return apply_band_kpconv(self.conv, self.spec, x, batch, self.config, impl,
-                                     compute_dtype)
-        return apply_gather_kpconv(self.conv, self.spec, x, batch, self.config, compute_dtype)
+                                     compute_dtype), None
+        return apply_gather_kpconv(self.conv, self.spec, x, batch, self.config,
+                                   compute_dtype), None
+
+    def _out_mask(self, batch):
+        return batch["masks"][self.spec.layer + 1 if self.spec.strided else self.spec.layer]
 
 
 class SimpleBlock(_ConvBlock):
     def __init__(self, spec, config, kernel_points, generator):
         super().__init__(spec, config)
-        self.conv = KPConv(kernel_points, spec.in_dim, spec.out_dim // 2, generator)
-        self.norm = Norm(spec.out_dim // 2, generator.device)
+        self.conv = KPConv(kernel_points, spec.in_dim, spec.out_dim // 2, generator,
+                           deformable=spec.deformable, modulated=config.modulated)
+        self.norm = make_norm(spec.out_dim // 2, config, generator.device)
 
-    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32):
-        return leaky_relu(self.norm(self._conv(x, batch, impl, compute_dtype)))
+    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32, train=False):
+        y, aux = self._conv(x, batch, impl, compute_dtype)
+        return leaky_relu(self.norm(y, self._out_mask(batch), train)), aux
 
 
 class ResnetBBlock(_ConvBlock):
@@ -317,31 +411,38 @@ class ResnetBBlock(_ConvBlock):
         super().__init__(spec, config)
         mid = spec.out_dim // 4
         if spec.in_dim != mid:
-            self.unary1 = Unary(spec.in_dim, mid, generator)
-        self.conv = KPConv(kernel_points, mid, mid, generator)
-        self.norm_conv = Norm(mid, generator.device)
-        self.unary2 = Unary(mid, spec.out_dim, generator)
+            self.unary1 = Unary(spec.in_dim, mid, generator, config)
+        self.conv = KPConv(kernel_points, mid, mid, generator, deformable=spec.deformable,
+                           modulated=config.modulated)
+        self.norm_conv = make_norm(mid, config, generator.device)
+        self.unary2 = Unary(mid, spec.out_dim, generator, config)
         if spec.in_dim != spec.out_dim:
-            self.shortcut = Unary(spec.in_dim, spec.out_dim, generator)
+            self.shortcut = Unary(spec.in_dim, spec.out_dim, generator, config)
 
-    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32):
+    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32, train=False):
         spec, cd = self.spec, compute_dtype
-        h = self.unary1(x, compute_dtype=cd) if hasattr(self, "unary1") else x
-        h = leaky_relu(self.norm_conv(self._conv(h, batch, impl, cd)))
-        h = self.unary2(h, relu=False, compute_dtype=cd)
+        out_mask = self._out_mask(batch)
+        h = x
+        if hasattr(self, "unary1"):
+            h = self.unary1(x, batch["masks"][spec.layer], compute_dtype=cd, train=train)
+        h, aux = self._conv(h, batch, impl, cd)
+        h = leaky_relu(self.norm_conv(h, out_mask, train))
+        h = self.unary2(h, out_mask, relu=False, compute_dtype=cd, train=train)
         shortcut = max_pool(x, batch["pools"][spec.layer]) if spec.strided else x
         if hasattr(self, "shortcut"):
-            shortcut = self.shortcut(shortcut, relu=False, compute_dtype=cd)
-        return leaky_relu(h + shortcut)
+            shortcut = self.shortcut(shortcut, out_mask, relu=False, compute_dtype=cd,
+                                     train=train)
+        return leaky_relu(h + shortcut), aux
 
 
 class UnaryBlock(Unary):
-    def __init__(self, spec, generator):
-        super().__init__(spec.in_dim, spec.out_dim, generator)
+    def __init__(self, spec, config, generator):
+        super().__init__(spec.in_dim, spec.out_dim, generator, config)
         self.spec = spec
 
-    def forward(self, x, batch=None, impl="auto", compute_dtype=torch.float32):
-        return super().forward(x, relu=True, compute_dtype=compute_dtype)
+    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32, train=False):
+        return super().forward(x, batch["masks"][self.spec.layer], relu=True,
+                               compute_dtype=compute_dtype, train=train), None
 
 
 class LastUnaryBlock(nn.Module):
@@ -350,8 +451,8 @@ class LastUnaryBlock(nn.Module):
         self.spec = spec
         self.linear = Linear(spec.in_dim, config.output_dim, generator)
 
-    def forward(self, x, batch=None, impl="auto", compute_dtype=torch.float32):
-        return self.linear(x, compute_dtype)
+    def forward(self, x, batch=None, impl="auto", compute_dtype=torch.float32, train=False):
+        return self.linear(x, compute_dtype), None
 
 
 class NearestUpsampleBlock(nn.Module):
@@ -359,27 +460,45 @@ class NearestUpsampleBlock(nn.Module):
         super().__init__()
         self.spec = spec
 
-    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32):
+    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32, train=False):
         # decoder block at level l pools from level l + 1 via upsamples[l - 1]
-        return closest_pool(x, batch["upsamples"][self.spec.layer - 1])
+        return closest_pool(x, batch["upsamples"][self.spec.layer - 1]), None
+
+
+class MaxPoolBlock(nn.Module):
+    def __init__(self, spec):
+        super().__init__()
+        self.spec = spec
+
+    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32, train=False):
+        # the lists of pools[layer + 1], as d3feat_tpu/models/blocks.py:258-259 reads them
+        return max_pool(x, batch["pools"][self.spec.layer + 1]), None
+
+
+class GlobalAverageBlock(nn.Module):
+    def __init__(self, spec):
+        super().__init__()
+        self.spec = spec
+
+    def forward(self, x, batch, impl="auto", compute_dtype=torch.float32, train=False):
+        return global_average(x, batch["lengths"][-1]), None
 
 
 def make_block(spec: BlockSpec, config, kernel_points, generator: torch.Generator) -> nn.Module:
     """The module of one block with freshly initialised parameters."""
-    if config.use_batch_norm:
-        raise NotImplementedError("batch norm is not ported yet (use_batch_norm=True; "
-                                  "ROADMAP Queue 1 item 7)")
-    if spec.deformable:
-        raise NotImplementedError("deformable KPConv is not ported yet (ROADMAP Queue 1 item 7)")
     kind = spec.kind
     if kind == "unary":
-        return UnaryBlock(spec, generator)
+        return UnaryBlock(spec, config, generator)
     if kind == "last_unary":
         return LastUnaryBlock(spec, config, generator)
     if kind == "nearest_upsample":
         return NearestUpsampleBlock(spec)
+    if kind == "max_pool":
+        return MaxPoolBlock(spec)
+    if kind == "global_average":
+        return GlobalAverageBlock(spec)
     if kind == "simple":
         return SimpleBlock(spec, config, kernel_points, generator)
     if kind == "resnetb":
         return ResnetBBlock(spec, config, kernel_points, generator)
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP Queue 1 item 7)")
+    raise ValueError(f"unknown block kind {kind!r}")

@@ -1,5 +1,5 @@
-"""Rigid KPConv (port of ``d3feat_tpu.models.kpconv``): its parameters and
-the gather KPConv.
+"""KPConv (port of ``d3feat_tpu.models.kpconv``): its parameters, the
+gather KPConv and the deformable KPConv.
 
 A rigid KPConv holds ``weights`` [KP, Cin, Cout] and the fixed
 ``kernel_points`` [KP, 3] (a buffer without gradient; the optimizer still
@@ -10,13 +10,24 @@ rigid KPConv runs ``kpconv`` here, the reference's gather formulation in
 PyTorch ops: any influence (``constant``, ``linear``, ``gaussian``) and
 aggregation (``sum``, ``closest``), on any pyramid (original indices or
 sorted positions: it only reads the points and lists it is given),
-differentiable by autograd in the features and the weights. The deformable
-KPConv is not ported yet (ROADMAP Queue 1 item 7).
+differentiable by autograd in the features and the weights.
+
+A deformable KPConv also holds ``offset_weights`` [KP, Cin, offset_dim],
+``offset_bias`` [offset_dim] and the fixed ``offset_kernel_points``
+(offset_dim 3 KP, or 4 KP when modulated). ``deformable_kpconv`` predicts
+per-query kernel-point offsets (and, modulated, per-kernel-point weights)
+with a rigid gather KPConv on the same neighbours, then convolves with the
+deformed kernel points. The JAX package keeps it in XLA, so it has no band
+kernel. Neighbours out of range of every deformed kernel point are masked
+to the shadow row (the reference prunes them with a top-k; same result,
+static shape), and the forward returns ``KPConvAux`` for the fitting
+regularizer (``losses.regularizers``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,15 +47,33 @@ def torch_kaiming_uniform(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 class KPConv(nn.Module):
-    """Rigid kernel-point convolution parameters."""
+    """Kernel-point convolution parameters, rigid or (``deformable``)
+    with the offset KPConv's, whose output has 3 KP columns of offsets, or
+    4 KP with the modulations (``modulated``). Draws ``weights``, then
+    ``offset_weights``, from ``generator``."""
 
     def __init__(self, kernel_points: np.ndarray, in_dim: int, out_dim: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, deformable: bool = False,
+                 modulated: bool = False):
         super().__init__()
-        kp = torch.as_tensor(kernel_points, dtype=torch.float32)
-        self.weights = nn.Parameter(
-            torch_kaiming_uniform((kp.shape[0], in_dim, out_dim), generator))
-        self.register_buffer("kernel_points", kp.to(generator.device))
+        kp = torch.as_tensor(kernel_points, dtype=torch.float32).to(generator.device)
+        k, p_dim = kp.shape
+        self.deformable, self.modulated = deformable, modulated
+        self.weights = nn.Parameter(torch_kaiming_uniform((k, in_dim, out_dim), generator))
+        self.register_buffer("kernel_points", kp)
+        if deformable:
+            offset_dim = (p_dim + 1) * k if modulated else p_dim * k
+            self.offset_weights = nn.Parameter(
+                torch_kaiming_uniform((k, in_dim, offset_dim), generator))
+            self.offset_bias = nn.Parameter(torch.zeros(offset_dim, device=kp.device))
+            self.register_buffer("offset_kernel_points", kp.clone())
+
+
+class KPConvAux(NamedTuple):
+    """A deformable KPConv's inputs to the fitting regularizer."""
+
+    min_d2: torch.Tensor       # [Q, KP] least squared distance of each deformed point
+    deformed_kp: torch.Tensor  # [Q, KP, 3] deformed kernel points, centred on the query
 
 
 def influence(sq_d: torch.Tensor, extent: float, mode: str) -> torch.Tensor:
@@ -110,6 +139,15 @@ def kpconv(q_pts: torch.Tensor, s_pts: torch.Tensor, neighb_inds: torch.Tensor,
 
     neighb_x = gather_rows(x.to(compute_dtype), neighb_inds)                   # [Q, nn, Cin]
     weighted = torch.bmm(w.to(compute_dtype).float(), neighb_x.float())   # [Q, KP, Cin]
+    return contract(weighted, weights, neighb_x, compute_dtype)
+
+
+def contract(weighted: torch.Tensor, weights: torch.Tensor, neighb_x: torch.Tensor,
+             compute_dtype) -> torch.Tensor:
+    """A gather KPConv's second product and density: ``weighted`` [Q, KP,
+    Cin] against ``weights`` [KP, Cin, Cout] (the bf16 product rounded to
+    bf16), divided by the count of neighbours whose gathered features
+    ``neighb_x`` [Q, nn, Cin] sum to > 0, at least 1."""
     kf, cin, cout = weights.shape
     w2 = weights.reshape(kf * cin, cout)
     if compute_dtype == torch.float32:
@@ -119,3 +157,59 @@ def kpconv(q_pts: torch.Tensor, s_pts: torch.Tensor, neighb_inds: torch.Tensor,
     active = neighb_x.float().sum(-1) > 0.0
     denom = torch.clamp(active.sum(-1), min=1).to(out.dtype)
     return out / denom[:, None]
+
+
+def deformable_kpconv(q_pts: torch.Tensor, s_pts: torch.Tensor, neighb_inds: torch.Tensor,
+                      x: torch.Tensor, conv: KPConv, *, KP_extent: float,
+                      KP_influence: str = "linear", aggregation_mode: str = "sum",
+                      compute_dtype=torch.float32):
+    """Deformable KPConv (the deformable branch of
+    ``d3feat_tpu/models/kpconv.py::kpconv``): ``([Q, Cout] float32,
+    KPConvAux)``, arguments as ``kpconv``'s.
+
+    The offsets are the rigid gather KPConv of ``conv.offset_weights`` on
+    ``conv.offset_kernel_points`` plus ``conv.offset_bias``; modulated, the
+    last KP columns give ``2 sigmoid`` weights per kernel point. The
+    deformed points are ``offsets * KP_extent + kernel_points``; squared
+    distances are taken directly (differences, then the sum of squares),
+    ``min_d2`` over every neighbour, the shadow row included. A neighbour
+    within ``KP_extent`` of no deformed point is replaced by the shadow
+    before the features are gathered, so it neither adds to the sums nor
+    counts in the density. Gradients reach the features, ``weights``,
+    ``offset_weights`` and ``offset_bias``, never the kernel points."""
+    off = kpconv(q_pts, s_pts, neighb_inds, x, conv.offset_weights, conv.offset_kernel_points,
+                 KP_extent=KP_extent, KP_influence=KP_influence,
+                 aggregation_mode=aggregation_mode, compute_dtype=compute_dtype)
+    off = off + conv.offset_bias
+    kp = conv.kernel_points.detach().float()
+    k, p_dim = kp.shape
+    if conv.modulated:
+        unscaled = off[:, :p_dim * k].reshape(-1, k, p_dim)
+        modulations = 2.0 * torch.sigmoid(off[:, p_dim * k:])                  # [Q, KP]
+    else:
+        unscaled = off.reshape(-1, k, p_dim)
+        modulations = None
+    deformed_kp = unscaled * KP_extent + kp                                     # [Q, KP, 3]
+
+    inds = neighb_inds.long()
+    s_ext = torch.cat([s_pts.detach().float(), s_pts.new_full((1, p_dim), SHADOW_COORD)])
+    nb = s_ext[inds] - q_pts.detach().float()[:, None, :]                      # [Q, nn, 3]
+    diff = nb[:, :, None, :] - deformed_kp[:, None, :, :]                       # [Q, nn, KP, 3]
+    sq_d = (diff * diff).sum(-1)                                                # [Q, nn, KP]
+    min_d2 = sq_d.amin(1)  # ties share the gradient, as jnp.min's
+
+    in_range = (sq_d < KP_extent**2).any(-1)                                    # [Q, nn]
+    eff_inds = torch.where(in_range, inds, s_pts.shape[0])
+    w = torch.where(in_range[:, :, None], influence(sq_d, KP_extent, KP_influence), 0.0)
+    if aggregation_mode == "closest":
+        w = w * F.one_hot(sq_d.argmin(-1), k).to(w.dtype)
+    elif aggregation_mode != "sum":
+        raise ValueError(f"unknown aggregation {aggregation_mode!r}")
+    w = w.transpose(1, 2)                                                       # [Q, KP, nn]
+
+    neighb_x = gather_rows(x, eff_inds)                                         # [Q, nn, Cin]
+    weighted = torch.bmm(w.to(compute_dtype).float(), neighb_x.to(compute_dtype).float())
+    if modulations is not None:
+        weighted = weighted * modulations[:, :, None]
+    out = contract(weighted, conv.weights, neighb_x, compute_dtype)  # density on f32 features
+    return out, KPConvAux(min_d2=min_d2, deformed_kp=deformed_kp)

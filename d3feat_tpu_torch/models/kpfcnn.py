@@ -100,7 +100,8 @@ class KPFCNN(nn.Module):
         self.config = config
         self.specs = specs
         unit_kp = load_kernels(1.0, config.num_kernel_points, dimension=config.in_points_dim,
-                               fixed=config.fixed_kernel_points)
+                               fixed=config.fixed_kernel_points,
+                               deterministic=config.deterministic_kernel_points, seed=config.seed)
         self.encoder = nn.ModuleList(
             make_block(s, config, unit_kp * s.radius, generator) for s in specs.encoder)
         self.decoder = nn.ModuleList(
@@ -109,10 +110,9 @@ class KPFCNN(nn.Module):
 
 def init_kpfcnn(config, seed: int = 0, device="cuda", specs: KPFCNNSpecs = None) -> KPFCNN:
     """A ``KPFCNN`` with random weights drawn from ``torch.Generator`` seeded
-    with ``seed``, on ``device``."""
-    if not config.deterministic_kernel_points:
-        raise NotImplementedError("randomised kernel-point loading is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
+    with ``seed``, on ``device``. Every KPConv shares one unit disposition
+    scaled to its radius: with ``config.deterministic_kernel_points`` off,
+    randomised by ``config.seed`` (``models.kernel_points.load_kernels``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -123,6 +123,7 @@ class KPFCNNOutput(NamedTuple):
     features: torch.Tensor      # [C0, output_dim] L2-normalised descriptors
     scores: torch.Tensor        # [C0, 1] detection scores
     raw_features: torch.Tensor  # pre-normalisation descriptors
+    auxes: tuple = ()           # the deformable convs' KPConvAux, in block order
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -233,7 +234,10 @@ def apply_kpfcnn(model: KPFCNN, batch, *, train: bool = False, per_cloud_norm: b
     detector head (no local-max gate); without, the eval forward, which
     records no gradients. ``compute_dtype`` ``torch.bfloat16`` runs the
     blocks' products on bf16 operands (``models.blocks``); the head and
-    the normalisation stay f32."""
+    the normalisation stay f32. With batch norm, ``train`` normalises by
+    the batch's statistics and updates the running ones in place (the
+    JAX package's ``new_state``); the eval forward reads them. The
+    deformable convs' ``KPConvAux`` come back in ``auxes``."""
     with torch.set_grad_enabled(train and torch.is_grad_enabled()):
         return _forward(model, batch, train, per_cloud_norm, impl, compute_dtype)
 
@@ -243,15 +247,19 @@ def _forward(model: KPFCNN, batch, train: bool, per_cloud_norm: bool, impl: str,
     specs = model.specs
     mask0 = batch["masks"][0]
     x = batch["features"].float() * mask0[:, None]
-    skips = []
+    skips, auxes = [], []
     for i, block in enumerate(model.encoder):
         if i in specs.encoder_skips:
             skips.append(x)
-        x = block(x, batch, impl=impl, compute_dtype=compute_dtype)
+        x, aux = block(x, batch, impl=impl, compute_dtype=compute_dtype, train=train)
+        if aux is not None:
+            auxes.append(aux)
     for i, block in enumerate(model.decoder):
         if i in specs.decoder_concats:
             x = torch.cat([x, skips.pop()], 1)
-        x = block(x, batch, impl=impl, compute_dtype=compute_dtype)
+        x, aux = block(x, batch, impl=impl, compute_dtype=compute_dtype, train=train)
+        if aux is not None:
+            auxes.append(aux)
     x = x * mask0[:, None]
     scores = detection_scores(batch, x, config=model.config, train=train,
                               per_cloud_norm=per_cloud_norm, impl=impl)
@@ -260,4 +268,4 @@ def _forward(model: KPFCNN, batch, train: bool, per_cloud_norm: bool, impl: str,
     norm2 = (x * x).sum(-1, keepdim=True)
     norm2_safe = torch.where(norm2 > 0.0, norm2, 1.0)
     features = torch.where(norm2 > 0.0, x * torch.rsqrt(norm2_safe), 0.0)
-    return KPFCNNOutput(features=features, scores=scores, raw_features=x)
+    return KPFCNNOutput(features=features, scores=scores, raw_features=x, auxes=tuple(auxes))

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from d3feat_tpu_torch.ops import build
-from d3feat_tpu_torch.ops.band_lists import LCAP, uses_kernel
+from d3feat_tpu_torch.ops.band_lists import uses_kernel
 from d3feat_tpu_torch.ops.select import add_windows, exact_d2, tile_windows
 
 _BIG = 1.0e10  # masked-out squared distance: w == 0 exactly
@@ -283,7 +283,7 @@ def _influence(extent: float, lists):
     return inv_extent_f32(extent), float(np.float32(extent)), int(lists.mode == "list")
 
 
-_CONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
+_CONV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
     ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
 # + starts, tile, chunk and the bf16 panels of x and W
 _CONV_BF16_ARGS = _CONV_ARGS[:-1] + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
@@ -320,7 +320,7 @@ def band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, start
     out = torch.empty((nq, cout), dtype=f32, device=dev)
     den = torch.empty((nq,), dtype=f32, device=dev)
     args = [build.ptr(q_rows), build.ptr(s_rows), build.ptr(x), build.ptr(weights),
-            build.ptr(kernel_points), *list_ptrs, nq, ns, c, cout, kpn,
+            build.ptr(kernel_points), *list_ptrs, nq, ns, c, cout, kpn, lists.width,
             *_influence(extent, lists), ldw, splits, kc, build.ptr(act), build.ptr(wtd),
             None if part is None else build.ptr(part), build.ptr(out), build.ptr(den)]
     wb = None
@@ -409,9 +409,9 @@ def band_conv_bwd_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points, st
     return dx, dw
 
 
-_CONV_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
+_CONV_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
     ctypes.c_int] * 6 + [ctypes.c_void_p] * 6
-_CONV_BWD_BF16_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
+_CONV_BWD_BF16_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
     ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
 
 
@@ -459,11 +459,11 @@ def band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points, s
     row_ptr, pairs = lists.transpose(ns, impl="kernel") if need_dx else (None, None)
     opt = lambda t: None if t is None else build.ptr(t)  # noqa: E731
     geo = (build.ptr(q_rows), build.ptr(s_rows))
-    shape = (nq, ns, c, cout, kpn, *_influence(extent, lists), ldw, splits, kc)
+    shape = (nq, ns, c, cout, kpn, lists.width, *_influence(extent, lists), ldw, splits, kc)
     if bf16:
-        # V = bf16(gs W^T) [Nq, KP * Cin] and U [Nq * LCAP, Cin] for dx, gs's bf16 panel
+        # V = bf16(gs W^T) [Nq, KP * Cin] and U [Nq * L, Cin] for dx, gs's bf16 panel
         v = torch.empty((nq, kpn * c), dtype=bf, device=dev) if need_dx else None
-        u = torch.empty((nq * LCAP, c), dtype=f32, device=dev) if need_dx else None
+        u = torch.empty((nq * lists.width, c), dtype=f32, device=dev) if need_dx else None
         gsb = torch.empty((nq, cout), dtype=bf, device=dev)
         fn = build.launcher("band_conv_bwd", "band_conv_bwd_bf16_launch", _CONV_BWD_BF16_ARGS)
         build.check(fn(*geo, opt(weights_panel if need_dx else None), build.ptr(kernel_points),

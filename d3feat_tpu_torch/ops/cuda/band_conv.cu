@@ -63,8 +63,8 @@
 // bf16 panels, weighted written in bf16
 template <typename T>
 static int conv_launch(const void* q, const void* s, const T* x, const T* W, const void* kp,
-                       const void* lpos, const void* ld2, const void* lcnt, int nq, int ns, int C,
-                       int Cout, int KP, Influence inf, int ldw, int splits, int kc, void* act,
+                       const void* lpos, const void* ld2, const void* lcnt, int lw, int nq,
+                       int ns, int C, int Cout, int KP, Influence inf, int ldw, int splits, int kc, void* act,
                        T* wtd, void* part, void* out, void* den, const int* starts, int tile,
                        int chunk, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);  // 16-byte row chunks of the products
@@ -78,8 +78,8 @@ static int conv_launch(const void* q, const void* s, const T* x, const T* W, con
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
   }
-  if ((e = weighted_rows<T>(q, s, x, kp, KP, lpos, ld2, lcnt, (const int*)act, nq, C, ldw, inf,
-                            starts, tile, chunk, wtd, (float*)den, st)) != cudaSuccess)
+  if ((e = weighted_rows<T>(q, s, x, kp, KP, lpos, ld2, lcnt, lw, (const int*)act, nq, C, ldw,
+                            inf, starts, tile, chunk, wtd, (float*)den, st)) != cudaSuccess)
     return (int)e;
   if constexpr (is_bf16<T>) {
     // out [nq, Cout] = ([hi | lo] [nq, 2 KP * C]) ([W; W]), rows / den
@@ -96,11 +96,11 @@ static int conv_launch(const void* q, const void* s, const T* x, const T* W, con
 extern "C" int band_conv_launch(const void* q, const void* s, const void* x, const void* W,
                                 const void* kp, const void* lpos, const void* ld2,
                                 const void* lcnt, int nq, int ns, int C, int Cout, int KP,
-                                float inv_extent, float extent, int list_mode, int ldw,
+                                int lw, float inv_extent, float extent, int list_mode, int ldw,
                                 int splits, int kc, void* act, void* wtd, void* part, void* out,
                                 void* den, void* stream) {
-  return conv_launch<float>(q, s, (const float*)x, (const float*)W, kp, lpos, ld2, lcnt, nq, ns,
-                            C, Cout, KP, Influence{inv_extent, extent, list_mode}, ldw, splits,
+  return conv_launch<float>(q, s, (const float*)x, (const float*)W, kp, lpos, ld2, lcnt, lw, nq,
+                            ns, C, Cout, KP, Influence{inv_extent, extent, list_mode}, ldw, splits,
                             kc, act, (float*)wtd, part, out, den, nullptr, 0, 0,
                             (cudaStream_t)stream);
 }
@@ -113,7 +113,7 @@ extern "C" int band_conv_launch(const void* q, const void* s, const void* x, con
 extern "C" int band_conv_bf16_launch(const void* q, const void* s, const void* x,
                                      const void* W, const void* kp, const void* lpos,
                                      const void* ld2, const void* lcnt, int nq, int ns, int C,
-                                     int Cout, int KP, float inv_extent, float extent,
+                                     int Cout, int KP, int lw, float inv_extent, float extent,
                                      int list_mode, int ldw, int splits, int kc, void* act,
                                      void* wtd, void* part, void* out, void* den,
                                      const void* starts, int tile, int chunk, void* xb, void* Wb,
@@ -126,7 +126,7 @@ extern "C" int band_conv_bf16_launch(const void* q, const void* s, const void* x
       (const float*)x, ns, C, (bf16*)xb, (int*)act, (const float*)W, nw, (bf16*)Wb, row_blocks);
   cudaError_t e;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return conv_launch<bf16>(q, s, (const bf16*)xb, (const bf16*)Wb, kp, lpos, ld2, lcnt, nq, ns,
-                           C, Cout, KP, Influence{inv_extent, extent, list_mode}, ldw, splits, kc,
+  return conv_launch<bf16>(q, s, (const bf16*)xb, (const bf16*)Wb, kp, lpos, ld2, lcnt, lw, nq,
+                           ns, C, Cout, KP, Influence{inv_extent, extent, list_mode}, ldw, splits, kc,
                            act, (bf16*)wtd, part, out, den, (const int*)starts, tile, chunk, st);
 }

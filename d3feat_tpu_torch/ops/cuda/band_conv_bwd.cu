@@ -44,7 +44,7 @@
 //      product's epilogue (the TPU kernel rounds gs W[kp]^T before
 //      multiplying by the influence weights);
 //   4. U: query-major, one warp per query: V[q] is read once (cp.async into
-//      shared memory) and for the entries of q's list U[q * LCAP + j] =
+//      shared memory) and for the entries of q's list U[q * lw + j] =
 //      sum_kp bf16(w_kp(q, r_j)) V[q, kp] is one m16n8k16 BF16 product
 //      (rows the entries, the reduction the 15 kernel points padded to 16,
 //      columns Cin), written in f32 (no rounding the TPU kernel does not
@@ -67,8 +67,8 @@ __global__ void __launch_bounds__(RPB * 32)
 bwd_gather_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
                   const float* __restrict__ gs, const float* __restrict__ kp,
                   const float* __restrict__ ld2, const int* __restrict__ row_ptr,
-                  const int* __restrict__ pairs, int ns, int Cout, int KP, Influence inf,
-                  float* __restrict__ G) {
+                  const int* __restrict__ pairs, int lw, int ns, int Cout, int KP,
+                  Influence inf, float* __restrict__ G) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * RPB + (threadIdx.x >> 5);
   if (r >= ns) return;
@@ -86,10 +86,11 @@ bwd_gather_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   for (int k = 0; k < KPM; ++k)
 #pragma unroll
     for (int i = 0; i < NS; ++i) acc[k][i] = 0.f;
+  const int lsh = list_shift(lw);
   const int pend = row_ptr[r + 1];
   for (int p = row_ptr[r]; p < pend; ++p) {
     const int f = pairs[p];
-    const int qi = f / LCAP;
+    const int qi = f >> lsh;
     const float w =
         lane < KP ? influence<LIST>(inf, entry_d2<LIST>(ld2, f), sr, q[qi], kx, ky, kz, kk) : 0.f;
     const float* g = gs + (size_t)qi * Cout;
@@ -121,23 +122,26 @@ bwd_gather_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   }
 }
 
-// bf16 U, one warp per query, UQ warps a CTA: the influence weights of the
-// query's entries (rounded to bf16; kernel points past KP and entries past
-// the count zero) into shared memory [16 kernel points x 64 entries], the
-// A fragments (entries by kernel points) by ldmatrix.trans; then per pass
-// of 64 channels V[q] [16 x 64] (kernel points past KP zero) by cp.async,
-// the B fragments by ldmatrix.trans, and one MMA per 16 entries and 8
-// channels. U [nq * LCAP, C] f32, rows q * LCAP + j for j < lcnt[q].
+// bf16 U, one warp per query, UQ warps a CTA, the list in segments of LSEG
+// entries (each entry's row of U is its own: the segments are independent):
+// the influence weights of the segment's entries (rounded to bf16; kernel
+// points past KP and entries past the count zero) into shared memory [16
+// kernel points x LSEG entries], the A fragments (entries by kernel
+// points) by ldmatrix.trans; then per pass of 64 channels V[q] [16 x 64]
+// (kernel points past KP zero) by cp.async, the B fragments by
+// ldmatrix.trans, and one MMA per 16 entries and 8 channels. U [nq * lw,
+// C] f32, rows q * lw + j for j < lcnt[q]. WIDE: lists wider than LSEG
+// (without it, one segment, unrolled as a straight-line body).
 #define UQ 8
 #define UW 64            // channels of one pass
 #define ULD (UW + 8)     // padded shared rows: 16-byte aligned, conflict-free
-#define WLDU (LCAP + 8)
-template <bool LIST>
+#define WLDU (LSEG + 8)
+template <bool LIST, bool WIDE>
 __global__ void __launch_bounds__(UQ * 32)
 bwd_u_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
              const bf16* __restrict__ V, const float* __restrict__ kp, int KP,
              const int* __restrict__ lpos, const float* __restrict__ ld2,
-             const int* __restrict__ lcnt, int nq, int C, Influence inf,
+             const int* __restrict__ lcnt, int lw, int nq, int C, Influence inf,
              float* __restrict__ U) {
   __shared__ __align__(16) bf16 w_all[UQ][16 * WLDU];
   __shared__ __align__(16) bf16 v_all[UQ][16 * ULD];
@@ -152,63 +156,67 @@ bwd_u_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   bf16* wsm = w_all[warp];
   bf16* vs = v_all[warp];
   const float4 qq = q[qi];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = lane + 32 * h;
-    const bool v = j < n;
-    const float4 sr = s[v ? lpos[(size_t)qi * LCAP + j] : 0];
-    const float d2 = v ? entry_d2<LIST>(ld2, (size_t)qi * LCAP + j) : 0.f;
-    for (int k = 0; k < 16; ++k) {
-      float w = 0.f;
-      if (v && k < KP) {
-        const float kx = kps[3 * k], ky = kps[3 * k + 1], kz = kps[3 * k + 2];
-        w = influence<LIST>(inf, d2, sr, qq, kx, ky, kz, dot3(kx, ky, kz, kx, ky, kz));
-      }
-      wsm[k * WLDU + j] = __float2bfloat16_rn(w);
-    }
-  }
-  __syncwarp();
-  const int i8 = lane & 7, h1 = (lane >> 3) & 1, h2 = lane >> 4;
-  const int nmt = (n + 15) / 16;
-  unsigned af[LCAP / 16][4];  // A: entries (rows) by kernel points (reduction)
-#pragma unroll
-  for (int mt = 0; mt < LCAP / 16; ++mt)
-    if (mt < nmt) ldsm_x4_t(af[mt], wsm + (i8 + 8 * h2) * WLDU + 16 * mt + 8 * h1);
   const bf16* vq = V + (size_t)qi * KP * C;
-  float* uq = U + (size_t)qi * LCAP * C;
-  for (int c0 = 0; c0 < C; c0 += UW) {
-    for (int i = lane; i < 16 * (UW / 8); i += 32) {  // V[q, kp, c0 .. c0 + UW)
-      const int k = i / (UW / 8), c = c0 + 8 * (i % (UW / 8));
-      const bool v = k < KP && c < C;
-      cp_async16z(vs + k * ULD + 8 * (i % (UW / 8)), v ? vq + (size_t)k * C + c : V, v);
+  const int i8 = lane & 7, h1 = (lane >> 3) & 1, h2 = lane >> 4;
+  for (int s0 = 0; s0 < (WIDE ? n : 1); s0 += LSEG) {
+    const int sn = min(LSEG, n - s0);  // the segment's entries s0 + [0, sn)
+    const size_t e0 = (size_t)qi * lw + s0;
+#pragma unroll
+    for (int h = 0; h < LSEG / 32; ++h) {
+      const int j = lane + 32 * h;
+      const bool v = j < sn;
+      const float4 sr = s[v ? lpos[e0 + j] : 0];
+      const float d2 = v ? entry_d2<LIST>(ld2, e0 + j) : 0.f;
+      for (int k = 0; k < 16; ++k) {
+        float w = 0.f;
+        if (v && k < KP) {
+          const float kx = kps[3 * k], ky = kps[3 * k + 1], kz = kps[3 * k + 2];
+          w = influence<LIST>(inf, d2, sr, qq, kx, ky, kz, dot3(kx, ky, kz, kx, ky, kz));
+        }
+        wsm[k * WLDU + j] = __float2bfloat16_rn(w);
+      }
     }
-    cp_async_wait_all();
     __syncwarp();
+    const int nmt = (sn + 15) / 16;
+    unsigned af[LSEG / 16][4];  // A: entries (rows) by kernel points (reduction)
 #pragma unroll
-    for (int nt = 0; nt < UW / 8; nt += 2) {
-      if (c0 + nt * 8 >= C) break;
-      unsigned b[4];  // kernel points by channels c0 + nt * 8 .. + 16
-      ldsm_x4_t(b, vs + (i8 + 8 * h1) * ULD + nt * 8 + 8 * h2);
+    for (int mt = 0; mt < LSEG / 16; ++mt)
+      if (mt < nmt) ldsm_x4_t(af[mt], wsm + (i8 + 8 * h2) * WLDU + 16 * mt + 8 * h1);
+    float* uq = U + e0 * C;
+    for (int c0 = 0; c0 < C; c0 += UW) {
+      for (int i = lane; i < 16 * (UW / 8); i += 32) {  // V[q, kp, c0 .. c0 + UW)
+        const int k = i / (UW / 8), c = c0 + 8 * (i % (UW / 8));
+        const bool v = k < KP && c < C;
+        cp_async16z(vs + k * ULD + 8 * (i % (UW / 8)), v ? vq + (size_t)k * C + c : V, v);
+      }
+      cp_async_wait_all();
+      __syncwarp();
 #pragma unroll
-      for (int mt = 0; mt < LCAP / 16; ++mt) {
-        if (mt >= nmt) break;
+      for (int nt = 0; nt < UW / 8; nt += 2) {
+        if (c0 + nt * 8 >= C) break;
+        unsigned b[4];  // kernel points by channels c0 + nt * 8 .. + 16
+        ldsm_x4_t(b, vs + (i8 + 8 * h1) * ULD + nt * 8 + 8 * h2);
 #pragma unroll
-        for (int hn = 0; hn < 2; ++hn) {
-          const int c = c0 + (nt + hn) * 8 + 2 * t;
-          if (c >= C) continue;
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(d, af[mt], b + 2 * hn);
+        for (int mt = 0; mt < LSEG / 16; ++mt) {
+          if (mt >= nmt) break;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int j = 16 * mt + g + 8 * h;
-            if (j < n)
-              *reinterpret_cast<float2*>(uq + (size_t)j * C + c) =
-                  make_float2(d[2 * h], d[2 * h + 1]);
+          for (int hn = 0; hn < 2; ++hn) {
+            const int c = c0 + (nt + hn) * 8 + 2 * t;
+            if (c >= C) continue;
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(d, af[mt], b + 2 * hn);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int j = 16 * mt + g + 8 * h;
+              if (j < sn)
+                *reinterpret_cast<float2*>(uq + (size_t)j * C + c) =
+                    make_float2(d[2 * h], d[2 * h + 1]);
+            }
           }
         }
       }
+      __syncwarp();  // the next pass overwrites V's stage (the next segment, the weights)
     }
-    __syncwarp();  // the next pass overwrites V's stage
   }
 }
 
@@ -238,13 +246,13 @@ bwd_dx_sum_kernel(const float* __restrict__ U, const int* __restrict__ row_ptr,
 // the f32 panels (3xTF32): G [ns, KP * Cout] f32 scratch
 static int bwd_launch(const void* q, const void* s, const float* W, const void* kp,
                       const float* gs, const void* ld2, const void* row_ptr, const void* pairs,
-                      int nq, int ns, int C, int Cout, int KP, Influence inf, int ldw,
+                      int lw, int nq, int ns, int C, int Cout, int KP, Influence inf, int ldw,
                       int splits, int kc, int dx_splits, int dx_kc, const float* wtd, void* part,
                       void* dW, float* G, void* dx, cudaStream_t st) {
   constexpr int V = 4;  // 16-byte row chunks of the products
   if (C < 1 || Cout < 1 || Cout % V || KP < 1 || KP > KPM || ldw < KP * C || ldw % V ||
       splits < 1 || kc < 1 || kc % GBK || dx_splits < 1 || dx_kc < 1 || dx_kc % GBK ||
-      (dx && (!G || !row_ptr || !pairs)))
+      !list_width_ok(lw) || (dx && (!G || !row_ptr || !pairs)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
   // dW [KP * C, Cout] = weighted^T gs, reduced over the nq queries
@@ -255,7 +263,7 @@ static int bwd_launch(const void* q, const void* s, const float* W, const void* 
   // G [ns, KP * Cout]
 #define G_ARGS                                                                              \
   (const float4*)q, (const float4*)s, gs, (const float*)kp, (const float*)ld2,               \
-      (const int*)row_ptr, (const int*)pairs, ns, Cout, KP, inf, G
+      (const int*)row_ptr, (const int*)pairs, lw, ns, Cout, KP, inf, G
   const unsigned rows = (unsigned)((ns + RPB - 1) / RPB);
   const dim3 wide(rows, (Cout + 127) / 128);
   if (inf.list) {
@@ -279,11 +287,12 @@ static int bwd_launch(const void* q, const void* s, const float* W, const void* 
 extern "C" int band_conv_bwd_launch(const void* q, const void* s, const void* W, const void* kp,
                                     const void* gs, const void* ld2, const void* row_ptr,
                                     const void* pairs, int nq, int ns, int C, int Cout, int KP,
-                                    float inv_extent, float extent, int list_mode, int ldw,
-                                    int splits, int kc, int dx_splits, int dx_kc, const void* wtd,
-                                    void* part, void* dW, void* G, void* dx, void* stream) {
-  return bwd_launch(q, s, (const float*)W, kp, (const float*)gs, ld2, row_ptr, pairs, nq, ns, C,
-                    Cout, KP, Influence{inv_extent, extent, list_mode}, ldw, splits, kc,
+                                    int lw, float inv_extent, float extent, int list_mode,
+                                    int ldw, int splits, int kc, int dx_splits, int dx_kc,
+                                    const void* wtd, void* part, void* dW, void* G, void* dx,
+                                    void* stream) {
+  return bwd_launch(q, s, (const float*)W, kp, (const float*)gs, ld2, row_ptr, pairs, lw, nq, ns,
+                    C, Cout, KP, Influence{inv_extent, extent, list_mode}, ldw, splits, kc,
                     dx_splits, dx_kc, (const float*)wtd, part, dW, (float*)G, dx,
                     (cudaStream_t)stream);
 }
@@ -292,18 +301,19 @@ extern "C" int band_conv_bwd_launch(const void* q, const void* s, const void* W,
 // wtd is K2's [2 nq, ldw] bf16 rows (hi then lo), part [splits, 2, KP * C,
 // Cout] when splits > 1. For dx (C % 8 == 0): Wb, K2's bf16 panel of W
 // [KP * C, Cout]; the lists lpos / lcnt and their transpose row_ptr /
-// pairs; V [nq, KP * C] bf16 and U [nq * LCAP, C] f32 scratch.
+// pairs; V [nq, KP * C] bf16 and U [nq * lw, C] f32 scratch.
 extern "C" int band_conv_bwd_bf16_launch(const void* q, const void* s, const void* Wb,
                                          const void* kp, const void* gs, const void* lpos,
                                          const void* ld2, const void* lcnt, const void* row_ptr,
                                          const void* pairs, int nq, int ns, int C, int Cout,
-                                         int KP, float inv_extent, float extent, int list_mode,
+                                         int KP, int lw, float inv_extent, float extent,
+                                         int list_mode,
                                          int ldw, int splits, int kc, const void* wtd,
                                          void* part, void* dW, void* V, void* U, void* dx,
                                          void* gsb, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (C < 1 || Cout < 1 || Cout % 8 || KP < 1 || KP > KPM || ldw < KP * C || ldw % 8 ||
-      splits < 1 || kc < 1 || kc % GBK ||
+      splits < 1 || kc < 1 || kc % GBK || !list_width_ok(lw) ||
       (dx && (C % 8 || !Wb || !lpos || !lcnt || !row_ptr || !pairs || !V || !U)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
@@ -325,10 +335,13 @@ extern "C" int band_conv_bwd_bf16_launch(const void* q, const void* s, const voi
     const unsigned ctas = (unsigned)((nq + UQ - 1) / UQ);
 #define U_ARGS                                                                          \
   (const float4*)q, (const float4*)s, (const bf16*)V, (const float*)kp, KP,              \
-      (const int*)lpos, (const float*)ld2, (const int*)lcnt, nq, C,                      \
+      (const int*)lpos, (const float*)ld2, (const int*)lcnt, lw, nq, C,                  \
       Influence{inv_extent, extent, list_mode}, (float*)U
-    if (list_mode) bwd_u_kernel<true><<<ctas, UQ * 32, 0, st>>>(U_ARGS);
-    else bwd_u_kernel<false><<<ctas, UQ * 32, 0, st>>>(U_ARGS);
+    const bool wide = lw > LSEG;
+    if (list_mode && wide) bwd_u_kernel<true, true><<<ctas, UQ * 32, 0, st>>>(U_ARGS);
+    else if (list_mode) bwd_u_kernel<true, false><<<ctas, UQ * 32, 0, st>>>(U_ARGS);
+    else if (wide) bwd_u_kernel<false, true><<<ctas, UQ * 32, 0, st>>>(U_ARGS);
+    else bwd_u_kernel<false, false><<<ctas, UQ * 32, 0, st>>>(U_ARGS);
 #undef U_ARGS
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }

@@ -10,7 +10,8 @@
 //     d2 < thr[q]  or  (d2 == thr[q] and position <= ptie[q])
 // (d2 exactly as K1 computes it, d2.cuh), which reproduces q's K1 list,
 // go to lpos[q] / ld2[q] in ascending position; lcnt[q] is their count
-// (at most LCAP); unused entries hold position -1 and d2 0.
+// (at most lw, the lists' width, band_lists.cuh); unused entries hold
+// position -1 and d2 0.
 //
 // Design: a CTA owns QB consecutive queries of one tile and streams the
 // tile's window through shared memory in CHUNK-row stages (cp.async,
@@ -26,7 +27,7 @@
 // without thresholds (use_thr=False); see band_lists_given_kernel.
 //
 // The transpose (band_lists_transpose_launch) turns a search's lists into
-// K4's dx gather order: for each support row r, the entries e = q * LCAP
+// K4's dx gather order: for each support row r, the entries e = q * lw
 // + j with lpos[e] == r, ascending (ascending query order). A counting
 // sort: per-row counts (atomic), their exclusive scan (one CTA), a fill
 // in arrival order, then each row's short segment sorted (by rank), so
@@ -45,7 +46,8 @@ __global__ void __launch_bounds__(NTHREADS)
 band_lists_kernel(const float4* __restrict__ q, const float* __restrict__ thr,
                   const float* __restrict__ ptie, const float4* __restrict__ s,
                   const int* __restrict__ starts, const int* __restrict__ wends, int tile,
-                  int* __restrict__ lpos, float* __restrict__ ld2, int* __restrict__ lcnt) {
+                  int lw, int* __restrict__ lpos, float* __restrict__ ld2,
+                  int* __restrict__ lcnt) {
   __shared__ __align__(16) float4 rows[2][CHUNK];
   __shared__ float4 qs[QB];
   __shared__ float ths[QB], pts[QB];
@@ -68,9 +70,9 @@ band_lists_kernel(const float4* __restrict__ q, const float* __restrict__ thr,
     wait_chunk(more);
     const int base = ws + c * CHUNK, n = min(CHUNK, we - base);
     for (int qi = warp; qi < QB; qi += NTHREADS / 32) {
-      const size_t o = (size_t)(q0 + qi) * LCAP;
+      const size_t o = (size_t)(q0 + qi) * lw;
       const int cnt = select_rows(rows[c & 1], base, n, qs[qi], ths[qi], pts[qi], lpos + o,
-                                  ld2 + o, cnts[qi]);
+                                  ld2 + o, cnts[qi], lw);
       __syncwarp();
       if (lane == 0) cnts[qi] = cnt;
     }
@@ -78,9 +80,9 @@ band_lists_kernel(const float4* __restrict__ q, const float* __restrict__ thr,
   }
   __syncthreads();
   for (int qi = warp; qi < QB; qi += NTHREADS / 32) {
-    const int n = min(cnts[qi], LCAP);
-    const size_t o = (size_t)(q0 + qi) * LCAP;
-    for (int j = n + lane; j < LCAP; j += 32) {
+    const int n = min(cnts[qi], lw);
+    const size_t o = (size_t)(q0 + qi) * lw;
+    for (int j = n + lane; j < lw; j += 32) {
       lpos[o + j] = -1;
       ld2[o + j] = 0.f;
     }
@@ -89,9 +91,9 @@ band_lists_kernel(const float4* __restrict__ q, const float* __restrict__ thr,
 }
 
 __global__ void count_rows_kernel(const int* __restrict__ lpos, const int* __restrict__ lcnt,
-                                  int nq, int* __restrict__ cnt) {
+                                  int nq, int lw, int* __restrict__ cnt) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= nq * LCAP || e % LCAP >= lcnt[e / LCAP]) return;
+  if (e >= nq * lw || (e & (lw - 1)) >= lcnt[e >> list_shift(lw)]) return;
   atomicAdd(cnt + lpos[e], 1);
 }
 
@@ -124,10 +126,10 @@ scan_rows_kernel(const int* __restrict__ cnt, int ns, int* __restrict__ row_ptr)
 }
 
 __global__ void fill_rows_kernel(const int* __restrict__ lpos, const int* __restrict__ lcnt,
-                                 int nq, const int* __restrict__ row_ptr, int* __restrict__ fill,
-                                 int* __restrict__ pairs) {
+                                 int nq, int lw, const int* __restrict__ row_ptr,
+                                 int* __restrict__ fill, int* __restrict__ pairs) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= nq * LCAP || e % LCAP >= lcnt[e / LCAP]) return;
+  if (e >= nq * lw || (e & (lw - 1)) >= lcnt[e >> list_shift(lw)]) return;
   const int r = lpos[e];
   pairs[row_ptr[r] + atomicAdd(fill + r, 1)] = e;
 }
@@ -152,23 +154,26 @@ sort_rows_kernel(const int* __restrict__ row_ptr, int ns, const int* __restrict_
   }
 }
 
+
 // cnt and fill: [ns] zeroed scratch; row_ptr [ns + 1]; filled (scratch) and
-// pairs [nq * LCAP]
+// pairs [nq * lw]
 extern "C" int band_lists_transpose_launch(const void* lpos, const void* lcnt, int nq, int ns,
-                                           void* cnt, void* fill, void* row_ptr, void* filled,
-                                           void* pairs, void* stream) {
-  if (nq < 0 || ns < 1) return (int)cudaErrorInvalidValue;
+                                           int lw, void* cnt, void* fill, void* row_ptr,
+                                           void* filled, void* pairs, void* stream) {
+  if (nq < 0 || ns < 1 || !list_width_ok(lw) || (long long)nq * lw >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned blocks = (unsigned)(((size_t)nq * LCAP + 255) / 256);
+  const unsigned blocks = (unsigned)(((size_t)nq * lw + 255) / 256);
   cudaError_t e;
   if (nq > 0) {
-    count_rows_kernel<<<blocks, 256, 0, st>>>((const int*)lpos, (const int*)lcnt, nq, (int*)cnt);
+    count_rows_kernel<<<blocks, 256, 0, st>>>((const int*)lpos, (const int*)lcnt, nq, lw,
+                                              (int*)cnt);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   scan_rows_kernel<<<1, SCAN_THREADS, 0, st>>>((const int*)cnt, ns, (int*)row_ptr);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (nq == 0) return 0;
-  fill_rows_kernel<<<blocks, 256, 0, st>>>((const int*)lpos, (const int*)lcnt, nq,
+  fill_rows_kernel<<<blocks, 256, 0, st>>>((const int*)lpos, (const int*)lcnt, nq, lw,
                                            (const int*)row_ptr, (int*)fill, (int*)filled);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   sort_rows_kernel<<<(unsigned)((ns + 7) / 8), 256, 0, st>>>((const int*)row_ptr, ns,
@@ -177,70 +182,84 @@ extern "C" int band_lists_transpose_launch(const void* lpos, const void* lcnt, i
 }
 
 // List mode (no thresholds): the lists from a search's own position lists
-// neighb [K, nq] (K <= LCAP, transposed as the TPU kernel takes them). One
-// warp per query: entry k = lane, lane + 32 is kept when its position p
+// neighb [K, nq] (K <= lw = 32 H, transposed as the TPU kernel takes
+// them). One warp per query: entry k = lane + 32 h (h < H) is kept when
+// its position p
 // lies in the tile's window [start, wend), as the TPU kernel's chunk loop
 // sees only those rows, and p < n_rows: positions from n_rows on (the
 // shadow) are zero rows of x, which add exactly 0 to out, den and dW, and
 // whose dx the caller drops. Repeated positions stay separate entries (the
 // TPU kernel's selection counts them). The kept entries are written in
 // ascending (position, k): an entry's place is the number of kept entries
-// below its key p * LCAP + k (keys are distinct).
+// below its key p * lw + k (keys are distinct).
+template <int H>
 __global__ void __launch_bounds__(NTHREADS)
 band_lists_given_kernel(const int* __restrict__ neighb, int K, int nq,
                         const int* __restrict__ starts, const int* __restrict__ wends, int tile,
                         int n_rows, int* __restrict__ lpos, int* __restrict__ lcnt) {
+  constexpr int lw = 32 * H;
   const int lane = threadIdx.x & 31;
   const int qi = blockIdx.x * (NTHREADS / 32) + (threadIdx.x >> 5);
   if (qi >= nq) return;
   const int ws = starts[qi / tile], we = min(wends[qi / tile], n_rows);
-  int p[2], key[2];
+  int p[H], key[H];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < H; ++h) {
     const int k = lane + 32 * h;
     p[h] = k < K ? neighb[(size_t)k * nq + qi] : -1;
-    key[h] = (p[h] >= ws && p[h] < we) ? p[h] * LCAP + k : INT_MAX;
+    key[h] = (p[h] >= ws && p[h] < we) ? p[h] * lw + k : INT_MAX;
   }
-  int rank[2] = {0, 0};
+  int rank[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) rank[h] = 0;
   for (int src = 0; src < 32; ++src) {
 #pragma unroll
-    for (int hs = 0; hs < 2; ++hs) {
+    for (int hs = 0; hs < H; ++hs) {
       const int other = __shfl_sync(0xffffffffu, key[hs], src);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) rank[h] += other < key[h];
+      for (int h = 0; h < H; ++h) rank[h] += other < key[h];
     }
   }
-  const int cnt = __popc(__ballot_sync(0xffffffffu, key[0] != INT_MAX)) +
-                  __popc(__ballot_sync(0xffffffffu, key[1] != INT_MAX));
-  int* out = lpos + (size_t)qi * LCAP;
+  int cnt = 0;
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < H; ++h) cnt += __popc(__ballot_sync(0xffffffffu, key[h] != INT_MAX));
+  int* out = lpos + (size_t)qi * lw;
+#pragma unroll
+  for (int h = 0; h < H; ++h)
     if (key[h] != INT_MAX) out[rank[h]] = p[h];
-  for (int j = cnt + lane; j < LCAP; j += 32) out[j] = -1;
+  for (int j = cnt + lane; j < lw; j += 32) out[j] = -1;
   if (lane == 0) lcnt[qi] = cnt;
 }
 
 extern "C" int band_lists_given_launch(const void* neighb, int K, int nq, const void* starts,
-                                       const void* wends, int tile, int n_rows, void* lpos,
-                                       void* lcnt, void* stream) {
-  if (K < 0 || K > LCAP || tile < 1 || nq % tile || (long long)n_rows * LCAP >= INT_MAX)
+                                       const void* wends, int tile, int n_rows, int lw,
+                                       void* lpos, void* lcnt, void* stream) {
+  if (K < 0 || !list_width_ok(lw) || K > lw || tile < 1 || nq % tile ||
+      (long long)n_rows * lw >= INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (nq == 0) return 0;
-  const unsigned warps = NTHREADS / 32;
-  band_lists_given_kernel<<<(unsigned)((nq + warps - 1) / warps), NTHREADS, 0,
-                            (cudaStream_t)stream>>>((const int*)neighb, K, nq,
-                                                    (const int*)starts, (const int*)wends, tile,
-                                                    n_rows, (int*)lpos, (int*)lcnt);
+  const unsigned blocks = (unsigned)((nq + NTHREADS / 32 - 1) / (NTHREADS / 32));
+  const cudaStream_t st = (cudaStream_t)stream;
+#define GIVEN_ARGS                                                                          \
+  (const int*)neighb, K, nq, (const int*)starts, (const int*)wends, tile, n_rows, (int*)lpos, \
+      (int*)lcnt
+  switch (lw / 32) {
+    case 2: band_lists_given_kernel<2><<<blocks, NTHREADS, 0, st>>>(GIVEN_ARGS); break;
+    case 4: band_lists_given_kernel<4><<<blocks, NTHREADS, 0, st>>>(GIVEN_ARGS); break;
+    default: band_lists_given_kernel<8><<<blocks, NTHREADS, 0, st>>>(GIVEN_ARGS); break;
+  }
+#undef GIVEN_ARGS
   return (int)cudaGetLastError();
 }
 
 extern "C" int band_lists_launch(const void* q, const void* thr, const void* ptie,
                                  const void* s, const void* starts, const void* wends, int nq,
-                                 int tile, void* lpos, void* ld2, void* lcnt, void* stream) {
-  if (nq % QB || tile % QB || tile < QB) return (int)cudaErrorInvalidValue;
+                                 int tile, int lw, void* lpos, void* ld2, void* lcnt,
+                                 void* stream) {
+  if (nq % QB || tile % QB || tile < QB || !list_width_ok(lw)) return (int)cudaErrorInvalidValue;
   if (nq == 0) return 0;
   band_lists_kernel<<<nq / QB, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const float4*)q, (const float*)thr, (const float*)ptie, (const float4*)s,
-      (const int*)starts, (const int*)wends, tile, (int*)lpos, (float*)ld2, (int*)lcnt);
+      (const int*)starts, (const int*)wends, tile, lw, (int*)lpos, (float*)ld2, (int*)lcnt);
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,18 @@
 
 #include "d2.cuh"
 
-#define LCAP 64  // selected rows per query: threshold selection reproduces
-                 // a K-list of at most K <= 64 rows (K1's cap)
+// Lists of one search are lw entries a query (lw, the lists' width: K1's
+// cap K rounded up to LSEG, 2 LSEG or LMAX, as K1 keeps at most LMAX
+// rows): entry j of query q is e = q * lw + j, so q = e >> list_shift(lw).
+#define LSEG 64   // entries of a list segment; lw is a multiple of it
+#define LMAX 256  // widest lists (K1's largest cap)
+
+// whether lw is a lists' width (a power of two from LSEG to LMAX)
+__host__ __device__ __forceinline__ bool list_width_ok(int lw) {
+  return lw >= LSEG && lw <= LMAX && !(lw & (lw - 1));
+}
+
+__device__ __forceinline__ int list_shift(int lw) { return __ffs(lw) - 1; }
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az,
                                       float bx, float by, float bz) {
@@ -70,11 +80,11 @@ __device__ __forceinline__ float influence(const Influence& f, float d2, float4 
 // One warp appends query qq's selected rows among n staged window rows
 // (rows[0, n) stand for positions base + [0, n)): the rows with q's cloud
 // id and (d2 < thr or d2 == thr and position <= ptie), in ascending
-// position, into lpos/ld2 from entry cnt on (at most LCAP entries are
+// position, into lpos/ld2 from entry cnt on (at most lw entries are
 // kept). Returns the new count, uncapped (all lanes).
 __device__ __forceinline__ int select_rows(const float4* rows, int base, int n, float4 qq,
                                            float th, float pt, int* lpos, float* ld2,
-                                           int cnt) {
+                                           int cnt, int lw) {
   const int lane = threadIdx.x & 31;
   for (int j0 = 0; j0 < n; j0 += 32) {
     const int j = j0 + lane;
@@ -88,7 +98,7 @@ __device__ __forceinline__ int select_rows(const float4* rows, int base, int n, 
     const unsigned m = __ballot_sync(0xffffffffu, sel);
     if (sel) {
       const int idx = cnt + __popc(m & ((1u << lane) - 1u));
-      if (idx < LCAP) {
+      if (idx < lw) {
         lpos[idx] = base + j;
         ld2[idx] = d2;
       }

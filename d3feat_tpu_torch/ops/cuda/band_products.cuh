@@ -194,8 +194,8 @@ __global__ void __launch_bounds__(256)
 weighted_mma_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
                     const T* __restrict__ x, const float* __restrict__ kp, int KP,
                     const int* __restrict__ lpos, const float* __restrict__ ld2,
-                    const int* __restrict__ lcnt, const int* __restrict__ act, int nq, int C,
-                    int ldw, Influence inf, const int* __restrict__ starts, int tile,
+                    const int* __restrict__ lcnt, int lw, const int* __restrict__ act, int nq,
+                    int C, int ldw, Influence inf, const int* __restrict__ starts, int tile,
                     int chunk, T* __restrict__ wtd, float* __restrict__ den) {
   static_assert(!is_bf16<T>, "bf16 panels: weighted_bf16_kernel");
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -203,7 +203,7 @@ weighted_mma_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   if (qi >= nq) return;
   const int n = lcnt[qi];
   const float4 qq = q[qi];
-  const int* lp = lpos + (size_t)qi * LCAP;
+  const int* lp = lpos + (size_t)qi * lw;
   T* out = wtd + (size_t)qi * ldw;
   const bool has0 = g < KP, has1 = g + 8 < KP;
   float k0x = 0.f, k0y = 0.f, k0z = 0.f, k1x = 0.f, k1y = 0.f, k1z = 0.f;
@@ -231,7 +231,7 @@ weighted_mma_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
         w[0][i] = w[1][i] = 0.f;
         if (v[i]) {
           const float4 sr = s[p[i]];
-          const float d2 = entry_d2<LIST>(ld2, (size_t)qi * LCAP + j);
+          const float d2 = entry_d2<LIST>(ld2, (size_t)qi * lw + j);
           if (has0) w[0][i] = influence<LIST>(inf, d2, sr, qq, k0x, k0y, k0z, kk0);
           if (has1) w[1][i] = influence<LIST>(inf, d2, sr, qq, k1x, k1y, k1z, kk1);
         }
@@ -265,15 +265,17 @@ weighted_mma_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   list_density(lp, n, act, den + qi);
 }
 
-// bf16: one warp per query, WQ warps a CTA. Once per query: each entry's
+// bf16: one warp per query, WQ warps a CTA, lists of at most R entries
+// (R = LSEG, or LMAX for wider lists; the shared rows are dynamic,
+// bf16_smem). Once per query: each entry's
 // influence weights for the 16 kernel points (rounded to bf16, kernel
 // points past KP and entries past the count zero) into shared memory,
-// entry-major (row 64 zero), and the pieces of the list, the entries of
+// entry-major (row R zero), and the pieces of the list, the entries of
 // one chunk of the window each: every lane computes the chunk ids of its
-// two entries, and a ballot of "chunk id differs from the previous
+// R / 32 entries, and a ballot of "chunk id differs from the previous
 // entry's" gives each piece's first entry. Then, per pass of 8 * NTL
 // channels, the listed rows of x gathered into shared memory by 16-byte
-// cp.async (row 64 zero), and for each piece its k-steps of 16 entries
+// cp.async (row R zero), and for each piece its k-steps of 16 entries
 // from the piece's first entry (band_conv.cu says why the grouping is
 // fixed): A (kernel points by entries) and B (entries by channels) fragments by
 // ldmatrix.trans from any entry row (rows past the list read the zero
@@ -281,43 +283,65 @@ weighted_mma_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
 // rounded to bf16 and added into the query's f32 total.
 #define WQ 3
 #define WLD 24  // padded shared rows of the weights (16 kernel points): 16-byte aligned, conflict-free
-template <int NTL, bool LIST>
+
+// the dynamic shared bytes of weighted_bf16_kernel<NTL, ., R>: per warp,
+// R + 1 rows of weights and of gathered x, and R positions
+template <int NTL, int R>
+constexpr size_t bf16_smem() {
+  return (size_t)WQ * ((R + 1) * (WLD + 8 * NTL + 8) * sizeof(bf16) + R * sizeof(int));
+}
+
+// the first piece start after entry j0 (n if none), from the piece starts'
+// ballots fw (bit j % 32 of word j / 32 for entry j)
+template <int H>
+__device__ __forceinline__ int next_start(const unsigned (&fw)[H], int j0, int n) {
+#pragma unroll
+  for (int w = 0; w < H; ++w) {
+    const int lo = j0 + 1 - 32 * w;  // the word's bits from lo on
+    if (lo >= 32) continue;
+    const unsigned m = lo > 0 ? fw[w] & (~0u << lo) : fw[w];
+    if (m) return min(32 * w + __ffs(m) - 1, n);
+  }
+  return n;
+}
+
+template <int NTL, bool LIST, int R>
 __global__ void __launch_bounds__(WQ * 32)
 weighted_bf16_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
                      const bf16* __restrict__ x, const float* __restrict__ kp, int KP,
                      const int* __restrict__ lpos, const float* __restrict__ ld2,
-                     const int* __restrict__ lcnt, const int* __restrict__ act, int nq, int C,
-                     int ldw, Influence inf, const int* __restrict__ starts, int tile,
+                     const int* __restrict__ lcnt, int lw, const int* __restrict__ act, int nq,
+                     int C, int ldw, Influence inf, const int* __restrict__ starts, int tile,
                      int chunk, bf16* __restrict__ wtd, float* __restrict__ den) {
   static_assert(NTL % 2 == 0, "B fragments come two n-tiles a load");
   constexpr int XLD = 8 * NTL + 8;  // padded shared rows of the gathered x
-  __shared__ __align__(16) bf16 w_all[WQ][(LCAP + 1) * WLD];
-  __shared__ __align__(16) bf16 x_all[WQ][(LCAP + 1) * XLD];
-  __shared__ int p_all[WQ][LCAP];
+  constexpr int H = R / 32;         // entries a lane
+  extern __shared__ __align__(16) unsigned char smem[];  // bf16_smem<NTL, R>() bytes
   __shared__ float kps[48];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   if (threadIdx.x < 3 * KP) kps[threadIdx.x] = kp[threadIdx.x];
   __syncthreads();
   const int qi = blockIdx.x * WQ + warp;
   if (qi >= nq) return;
-  bf16* wsm = w_all[warp];
-  bf16* xs = x_all[warp];
-  int* ps = p_all[warp];
+  bf16* wsm = reinterpret_cast<bf16*>(smem) + warp * (R + 1) * WLD;
+  bf16* xs = reinterpret_cast<bf16*>(smem) + WQ * (R + 1) * WLD + warp * (R + 1) * XLD;
+  int* ps = reinterpret_cast<int*>(reinterpret_cast<bf16*>(smem) + WQ * (R + 1) * (WLD + XLD)) +
+            warp * R;
   const int n = lcnt[qi];
   const float4 qq = q[qi];
-  const int* lp = lpos + (size_t)qi * LCAP;
+  const int* lp = lpos + (size_t)qi * lw;
   const int ws = starts[qi / tile];  // the window's first row
   const bf16 zero = __float2bfloat16_rn(0.f);
-  int cid[2];
+  int cid[H];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < H; ++h) {
     const int j = lane + 32 * h;
     const bool v = j < n;
     const int p = v ? lp[j] : 0;
     cid[h] = v ? (p - ws) / chunk : -1;
     ps[j] = p;
     const float4 sr = s[p];
-    const float d2 = v ? entry_d2<LIST>(ld2, (size_t)qi * LCAP + j) : 0.f;
+    const float d2 = v ? entry_d2<LIST>(ld2, (size_t)qi * lw + j) : 0.f;
     float w[16];
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
@@ -333,17 +357,20 @@ weighted_bf16_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
     row[1] = make_uint4(pack_bf16(w[8], w[9]), pack_bf16(w[10], w[11]),
                         pack_bf16(w[12], w[13]), pack_bf16(w[14], w[15]));
   }
-  if (lane < 16) wsm[LCAP * WLD + lane] = zero;  // the zero row
-  for (int c = lane; c < 8 * NTL; c += 32) xs[LCAP * XLD + c] = zero;
+  if (lane < 16) wsm[R * WLD + lane] = zero;  // the zero row
+  for (int c = lane; c < 8 * NTL; c += 32) xs[R * XLD + c] = zero;
   // the pieces' first entries: entry 0, and every entry whose chunk differs
   // from the previous entry's
-  const int prev0 = __shfl_up_sync(0xffffffffu, cid[0], 1);
-  const int last0 = __shfl_sync(0xffffffffu, cid[0], 31);
-  int prev1 = __shfl_up_sync(0xffffffffu, cid[1], 1);
-  if (lane == 0) prev1 = last0;
-  const unsigned long long first =
-      (unsigned long long)__ballot_sync(0xffffffffu, lane < n && (lane == 0 || cid[0] != prev0)) |
-      ((unsigned long long)__ballot_sync(0xffffffffu, lane + 32 < n && cid[1] != prev1) << 32);
+  unsigned first[H];
+  int last = 0;  // the chunk id of the entry before the word's first
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    int prev = __shfl_up_sync(0xffffffffu, cid[h], 1);
+    if (lane == 0) prev = last;
+    const int j = lane + 32 * h;
+    first[h] = __ballot_sync(0xffffffffu, j < n && (j == 0 || cid[h] != prev));
+    last = __shfl_sync(0xffffffffu, cid[h], 31);
+  }
   __syncwarp();
   // the lane's ldmatrix rows: A (.trans of the entry-major weights) and B
   // (.trans of the entry-major rows of x) at entries k0 + ra, k0 + rb
@@ -366,8 +393,7 @@ weighted_bf16_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
 #pragma unroll
       for (int e = 0; e < 4; ++e) tot[i][e] = 0.f;
     for (int j0 = 0; j0 < n;) {
-      const unsigned long long later = j0 + 1 < 64 ? first >> (j0 + 1) : 0ull;
-      const int j1 = later ? min(j0 + 1 + __ffsll((long long)later) - 1, n) : n;
+      const int j1 = next_start<H>(first, j0, n);
       float acc[NTL][4];
 #pragma unroll
       for (int i = 0; i < NTL; ++i)
@@ -375,7 +401,7 @@ weighted_bf16_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
         for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
       for (int k0 = j0; k0 < j1; k0 += 16) {
         unsigned a[4];
-        ldsm_x4_t(a, wsm + min(k0 + ra, LCAP) * WLD + ca);
+        ldsm_x4_t(a, wsm + min(k0 + ra, R) * WLD + ca);
         // the A fragment's entries k0 + 2t (+1, +8, +9) kept below j1
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -383,7 +409,7 @@ weighted_bf16_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
           a[i] &= (j < j1 ? 0xffffu : 0u) | (j + 1 < j1 ? 0xffff0000u : 0u);
         }
         const int r = k0 + rb;
-        const bf16* xr = xs + (r < n ? r : LCAP) * XLD + cb;
+        const bf16* xr = xs + (r < n ? r : R) * XLD + cb;
 #pragma unroll
         for (int nt = 0; nt < NTL; nt += 2) {
           unsigned b[4];
@@ -433,8 +459,8 @@ __global__ void __launch_bounds__(256)
 weighted_simt_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
                      const T* __restrict__ x, const float* __restrict__ kp, int KP,
                      const int* __restrict__ lpos, const float* __restrict__ ld2,
-                     const int* __restrict__ lcnt, const int* __restrict__ act, int nq, int C,
-                     int ldw, Influence inf, const int* __restrict__ starts, int tile,
+                     const int* __restrict__ lcnt, int lw, const int* __restrict__ act, int nq,
+                     int C, int ldw, Influence inf, const int* __restrict__ starts, int tile,
                      int chunk, T* __restrict__ wtd, float* __restrict__ den) {
   constexpr bool BF = is_bf16<T>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -442,7 +468,7 @@ weighted_simt_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
   if (qi >= nq) return;
   const int n = lcnt[qi];
   const float4 qq = q[qi];
-  const int* lp = lpos + (size_t)qi * LCAP;
+  const int* lp = lpos + (size_t)qi * lw;
   T* out = wtd + (size_t)qi * ldw;
   T* out_lo = wtd + (size_t)(nq + qi) * ldw;  // bf16: the lo rows
   if (k < KP) {
@@ -463,7 +489,7 @@ weighted_simt_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
           acc[c] = 0.f;
         }
       }
-      const float d2 = entry_d2<LIST>(ld2, (size_t)qi * LCAP + j);
+      const float d2 = entry_d2<LIST>(ld2, (size_t)qi * lw + j);
       const float w = panel_round<T>(influence<LIST>(inf, d2, s[p], qq, kx, ky, kz, kk));
 #pragma unroll
       for (int c = 0; c < SIMT_CMAX; ++c)
@@ -497,24 +523,41 @@ weighted_simt_kernel(const float4* __restrict__ q, const float4* __restrict__ s,
 // ldw], the hi rows then the lo rows, the pieces cut at the chunks of
 // `chunk` rows from each tile's window start starts[q / tile]) and the
 // densities (act: row_active_kernel's flags)
+// weighted_bf16_kernel<NTL, LIST, R> on ctas CTAs, its dynamic shared
+// memory allowed above the default 48 KB where it needs more
+template <int NTL, bool LIST, int R, typename... A>
+static inline void launch_bf16(unsigned ctas, cudaStream_t st, A... args) {
+  constexpr size_t bytes = bf16_smem<NTL, R>();
+  if constexpr (bytes > 48 * 1024)
+    cudaFuncSetAttribute(weighted_bf16_kernel<NTL, LIST, R>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  weighted_bf16_kernel<NTL, LIST, R><<<ctas, WQ * 32, bytes, st>>>(args...);
+}
+
 template <typename T, bool LIST>
 static inline void weighted_rows_in(const void* q, const void* s, const T* x, const void* kp,
                                     int KP, const void* lpos, const void* ld2, const void* lcnt,
-                                    const int* act, int nq, int C, int ldw, Influence inf,
+                                    int lw, const int* act, int nq, int C, int ldw, Influence inf,
                                     const int* starts, int tile, int chunk, T* wtd, float* den,
                                     cudaStream_t st) {
 #define W_ARGS                                                                             \
   (const float4*)q, (const float4*)s, x, (const float*)kp, KP, (const int*)lpos,            \
-      (const float*)ld2, (const int*)lcnt, act, nq, C, ldw, inf, starts, tile,             \
+      (const float*)ld2, (const int*)lcnt, lw, act, nq, C, ldw, inf, starts, tile,         \
       chunk, wtd, den
   const unsigned warps = (unsigned)((nq + 7) / 8);
   if (C < SIMT_CMAX) {
     weighted_simt_kernel<T, LIST><<<(unsigned)((nq * 16 + 255) / 256), 256, 0, st>>>(W_ARGS);
   } else if constexpr (is_bf16<T>) {
     const unsigned ctas = (unsigned)((nq + WQ - 1) / WQ);
-    if (C <= 16) weighted_bf16_kernel<2, LIST><<<ctas, WQ * 32, 0, st>>>(W_ARGS);
-    else if (C <= 32) weighted_bf16_kernel<4, LIST><<<ctas, WQ * 32, 0, st>>>(W_ARGS);
-    else weighted_bf16_kernel<8, LIST><<<ctas, WQ * 32, 0, st>>>(W_ARGS);
+    if (lw <= LSEG) {
+      if (C <= 16) launch_bf16<2, LIST, LSEG>(ctas, st, W_ARGS);
+      else if (C <= 32) launch_bf16<4, LIST, LSEG>(ctas, st, W_ARGS);
+      else launch_bf16<8, LIST, LSEG>(ctas, st, W_ARGS);
+    } else {
+      if (C <= 16) launch_bf16<2, LIST, LMAX>(ctas, st, W_ARGS);
+      else if (C <= 32) launch_bf16<4, LIST, LMAX>(ctas, st, W_ARGS);
+      else launch_bf16<8, LIST, LMAX>(ctas, st, W_ARGS);
+    }
   } else {
     if (C <= 8) weighted_mma_kernel<T, 1, LIST><<<warps, 256, 0, st>>>(W_ARGS);
     else if (C <= 16) weighted_mma_kernel<T, 2, LIST><<<warps, 256, 0, st>>>(W_ARGS);
@@ -532,20 +575,21 @@ static inline void weighted_rows_in(const void* q, const void* s, const T* x, co
 template <typename T>
 static inline cudaError_t weighted_rows(const void* q, const void* s, const T* x,
                                         const void* kp, int KP, const void* lpos,
-                                        const void* ld2, const void* lcnt, const int* act,
-                                        int nq, int C, int ldw, Influence inf,
+                                        const void* ld2, const void* lcnt, int lw,
+                                        const int* act, int nq, int C, int ldw, Influence inf,
                                         const int* starts, int tile, int chunk, T* wtd,
                                         float* den, cudaStream_t st) {
   if (nq == 0) return cudaSuccess;
+  if (!list_width_ok(lw)) return cudaErrorInvalidValue;
   // bf16: the window starts and chunks, and rows of whole 16-byte chunks
   if (is_bf16<T> && (!starts || tile < 1 || chunk < 1 || (C >= SIMT_CMAX && C % 8)))
     return cudaErrorInvalidValue;
   if (inf.list)
-    weighted_rows_in<T, true>(q, s, x, kp, KP, lpos, ld2, lcnt, act, nq, C, ldw, inf, starts,
-                              tile, chunk, wtd, den, st);
+    weighted_rows_in<T, true>(q, s, x, kp, KP, lpos, ld2, lcnt, lw, act, nq, C, ldw, inf,
+                              starts, tile, chunk, wtd, den, st);
   else
-    weighted_rows_in<T, false>(q, s, x, kp, KP, lpos, ld2, lcnt, act, nq, C, ldw, inf, starts,
-                               tile, chunk, wtd, den, st);
+    weighted_rows_in<T, false>(q, s, x, kp, KP, lpos, ld2, lcnt, lw, act, nq, C, ldw, inf,
+                               starts, tile, chunk, wtd, den, st);
   return cudaGetLastError();
 }
 

@@ -6,6 +6,7 @@
 // its tile's window by the K1 threshold; here the selection is conv0's
 // list stage (band_lists.cu), which the level-0 convs already built for the
 // same search: for each sorted query q with listed rows lpos[q][0, lcnt[q])
+// (lw entries a query, band_lists.cuh)
 // (ascending position),
 //     fsum[q] = sum of the listed feature rows   (f32, in list order)
 //     cnt[q]  = number of listed rows whose row-sum is != 0.
@@ -53,12 +54,12 @@ row_flags_kernel(const float* __restrict__ x, int ns, int C, unsigned char* __re
 
 template <int NI>
 __global__ void __launch_bounds__(QPB * 32)
-band_head_kernel(const int* __restrict__ lpos, const int* __restrict__ lcnt,
+band_head_kernel(const int* __restrict__ lpos, const int* __restrict__ lcnt, int lw,
                  const float* __restrict__ x, const unsigned char* __restrict__ flag, int C,
                  float* __restrict__ fsum, float* __restrict__ cnt) {
   const int lane = threadIdx.x & 31;
   const int qg = blockIdx.x * QPB + (threadIdx.x >> 5);
-  const int* lp = lpos + (size_t)qg * LCAP;
+  const int* lp = lpos + (size_t)qg * lw;
   const int n = lcnt[qg];
   float acc[NI];
 #pragma unroll
@@ -98,29 +99,30 @@ band_head_kernel(const int* __restrict__ lpos, const int* __restrict__ lcnt,
 }
 
 template <int NI>
-static int launch(int nq, int ns, const void* lpos, const void* lcnt, const void* x, int C,
-                  void* flag, void* fsum, void* cnt, cudaStream_t st) {
+static int launch(int nq, int ns, const void* lpos, const void* lcnt, int lw, const void* x,
+                  int C, void* flag, void* fsum, void* cnt, cudaStream_t st) {
   row_flags_kernel<NI><<<(ns + QPB - 1) / QPB, QPB * 32, 0, st>>>((const float*)x, ns, C,
                                                                   (unsigned char*)flag);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   band_head_kernel<NI><<<nq / QPB, QPB * 32, 0, st>>>(
-      (const int*)lpos, (const int*)lcnt, (const float*)x, (const unsigned char*)flag, C,
+      (const int*)lpos, (const int*)lcnt, lw, (const float*)x, (const unsigned char*)flag, C,
       (float*)fsum, (float*)cnt);
   return (int)cudaGetLastError();
 }
 
 // flag: [ns] bytes of scratch
-extern "C" int band_head_launch(const void* lpos, const void* lcnt, const void* x, int nq,
-                                int ns, int C, void* flag, void* fsum, void* cnt,
+extern "C" int band_head_launch(const void* lpos, const void* lcnt, int lw, const void* x,
+                                int nq, int ns, int C, void* flag, void* fsum, void* cnt,
                                 void* stream) {
-  if (nq % QPB || ns < 1 || C < 1 || C > CMAX) return (int)cudaErrorInvalidValue;
+  if (nq % QPB || ns < 1 || C < 1 || C > CMAX || !list_width_ok(lw))
+    return (int)cudaErrorInvalidValue;
   if (nq == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   switch ((C + 31) / 32) {
-    case 1: return launch<1>(nq, ns, lpos, lcnt, x, C, flag, fsum, cnt, st);
-    case 2: return launch<2>(nq, ns, lpos, lcnt, x, C, flag, fsum, cnt, st);
-    case 3: return launch<3>(nq, ns, lpos, lcnt, x, C, flag, fsum, cnt, st);
-    default: return launch<4>(nq, ns, lpos, lcnt, x, C, flag, fsum, cnt, st);
+    case 1: return launch<1>(nq, ns, lpos, lcnt, lw, x, C, flag, fsum, cnt, st);
+    case 2: return launch<2>(nq, ns, lpos, lcnt, lw, x, C, flag, fsum, cnt, st);
+    case 3: return launch<3>(nq, ns, lpos, lcnt, lw, x, C, flag, fsum, cnt, st);
+    default: return launch<4>(nq, ns, lpos, lcnt, lw, x, C, flag, fsum, cnt, st);
   }
 }

@@ -7,7 +7,7 @@
 //     dx[r] = sum of g[q] over the queries q whose list holds r.
 // The queries that list r are read from the transpose of conv0's lists
 // (band_lists.cu), which K4's conv0 backward shares: the entries of row r
-// are pairs[row_ptr[r], row_ptr[r + 1]), each e = q * LCAP + j, ascending
+// are pairs[row_ptr[r], row_ptr[r + 1]), each e = q * lw + j, ascending
 // in q. No d2, threshold or window is read.
 //
 // Order: the twin (and the TPU kernel, whose grid walks the tiles in
@@ -78,7 +78,7 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 template <int NI, bool V>
 __global__ void __launch_bounds__(WPB * 32, NI == 1 ? 4 : 1)
 band_head_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ pairs,
-                     const float* __restrict__ g, int ns, int tile, int C,
+                     const float* __restrict__ g, int ns, int tile, int C, int lsh,
                      float* __restrict__ dx) {
   const int sub = threadIdx.x & 7;
   const int r = (blockIdx.x * WPB + (threadIdx.x >> 5)) * RPW + ((threadIdx.x >> 3) & 3);
@@ -105,7 +105,7 @@ band_head_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ pa
 #pragma unroll
       for (int u = 0; u < AHEAD; ++u) {
         const int e = __shfl_sync(FULL, ent[k], u, 8);  // entry j0 + 8 k + u
-        q[u] = e >= 0 ? e / LCAP : -1;  // -1 past the row's end
+        q[u] = e >= 0 ? e >> lsh : -1;  // -1 past the row's end (lsh: list_shift)
         const float* gr = g + (size_t)max(q[u], 0) * C;
 #pragma unroll
         for (int i = 0; i < NI; ++i)
@@ -136,28 +136,29 @@ band_head_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ pa
 
 template <int NI>
 static int launch(const void* row_ptr, const void* pairs, const void* g, int ns, int tile, int C,
-                  void* dx, cudaStream_t st) {
+                  int lsh, void* dx, cudaStream_t st) {
   const unsigned blocks = (unsigned)((ns + WPB * RPW - 1) / (WPB * RPW));
   if (C % 4 == 0)
     band_head_bwd_kernel<NI, true><<<blocks, WPB * 32, 0, st>>>(
-        (const int*)row_ptr, (const int*)pairs, (const float*)g, ns, tile, C, (float*)dx);
+        (const int*)row_ptr, (const int*)pairs, (const float*)g, ns, tile, C, lsh, (float*)dx);
   else
     band_head_bwd_kernel<NI, false><<<blocks, WPB * 32, 0, st>>>(
-        (const int*)row_ptr, (const int*)pairs, (const float*)g, ns, tile, C, (float*)dx);
+        (const int*)row_ptr, (const int*)pairs, (const float*)g, ns, tile, C, lsh, (float*)dx);
   return (int)cudaGetLastError();
 }
 
-// row_ptr [ns + 1] and pairs: the transpose of the lists of the queries
-// whose cotangents g [nq, C] are; dx [ns, C]
+// row_ptr [ns + 1] and pairs: the transpose of the lists (lw entries a
+// query) of the queries whose cotangents g [nq, C] are; dx [ns, C]
 extern "C" int band_head_bwd_launch(const void* row_ptr, const void* pairs, const void* g,
-                                    int ns, int tile, int C, void* dx, void* stream) {
-  if (tile < 1 || C < 1 || C > CMAX) return (int)cudaErrorInvalidValue;
+                                    int ns, int tile, int C, int lw, void* dx, void* stream) {
+  if (tile < 1 || C < 1 || C > CMAX || !list_width_ok(lw)) return (int)cudaErrorInvalidValue;
   if (ns == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
+  const int lsh = 31 - __builtin_clz((unsigned)lw);
   switch ((C + 31) / 32) {
-    case 1: return launch<1>(row_ptr, pairs, g, ns, tile, C, dx, st);
-    case 2: return launch<2>(row_ptr, pairs, g, ns, tile, C, dx, st);
-    case 3: return launch<3>(row_ptr, pairs, g, ns, tile, C, dx, st);
-    default: return launch<4>(row_ptr, pairs, g, ns, tile, C, dx, st);
+    case 1: return launch<1>(row_ptr, pairs, g, ns, tile, C, lsh, dx, st);
+    case 2: return launch<2>(row_ptr, pairs, g, ns, tile, C, lsh, dx, st);
+    case 3: return launch<3>(row_ptr, pairs, g, ns, tile, C, lsh, dx, st);
+    default: return launch<4>(row_ptr, pairs, g, ns, tile, C, lsh, dx, st);
   }
 }

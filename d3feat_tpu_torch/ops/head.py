@@ -22,7 +22,7 @@ import torch
 
 from d3feat_tpu_torch.ops import build
 from d3feat_tpu_torch.ops.band_conv import threshold_select
-from d3feat_tpu_torch.ops.band_lists import LCAP, uses_kernel
+from d3feat_tpu_torch.ops.band_lists import list_width, uses_kernel
 from d3feat_tpu_torch.ops.select import add_windows, tile_windows
 
 C_MAX = 128  # channels per lane-strided warp in the kernel
@@ -46,7 +46,8 @@ def band_head_plain(q_rows, thr, ptie, s_rows, x, starts, wends, *, query_tile: 
     return fsum.reshape(nq, -1), cnt.reshape(nq)
 
 
-_HEAD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+_HEAD_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+    ctypes.c_void_p] * 4
 
 
 def band_head_kernel(x, lists):
@@ -58,14 +59,14 @@ def band_head_kernel(x, lists):
     build.require(lists.lcnt, torch.int32, "lcnt")
     nq = lists.lcnt.shape[0]
     c = x.shape[1]
-    if nq % 8 or lists.lpos.shape != (nq, LCAP) or c > C_MAX:
+    if nq % 8 or lists.lpos.shape != (nq, list_width(lists.width)) or c > C_MAX:
         raise ValueError("band_head: bad list/shape arguments")
     ns = x.shape[0]
     flag = torch.empty((ns,), dtype=torch.uint8, device=x.device)  # rows with a non-zero sum
     fsum = torch.empty((nq, c), dtype=torch.float32, device=x.device)
     cnt = torch.empty((nq,), dtype=torch.float32, device=x.device)
     fn = build.launcher("head", "band_head_launch", _HEAD_ARGS)
-    rc = fn(build.ptr(lists.lpos), build.ptr(lists.lcnt), build.ptr(x), nq, ns, c,
+    rc = fn(build.ptr(lists.lpos), build.ptr(lists.lcnt), lists.width, build.ptr(x), nq, ns, c,
             build.ptr(flag), build.ptr(fsum), build.ptr(cnt), build.stream_of(x))
     build.check(rc, "band_head_kernel")
     band_head.launches += 1
@@ -108,23 +109,24 @@ def band_head_bwd_plain(q_rows, thr, ptie, s_rows, g, starts, wends, *, query_ti
     return add_windows(part, pos, inside, s_rows.shape[0])
 
 
-_HEAD_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+_HEAD_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
 
 
-def band_head_bwd_kernel(g, row_ptr, pairs, query_tile: int):
+def band_head_bwd_kernel(g, row_ptr, pairs, query_tile: int, width: int):
     """Launch the K5 CUDA kernel: the contract of ``band_head_bwd_plain``,
     computed from the transpose (``row_ptr``, ``pairs``) of the search's
-    lists (``ops.band_lists.transpose_lists``)."""
+    lists (``ops.band_lists.transpose_lists``), ``width`` entries a query."""
     build.require(g, torch.float32, "g")
     build.require(row_ptr, torch.int32, "row_ptr")
     build.require(pairs, torch.int32, "pairs")
     nq, c = g.shape
     ns = row_ptr.shape[0] - 1
-    if nq % query_tile or pairs.shape != (nq * LCAP,) or c > C_MAX:
+    if (nq % query_tile or width != list_width(width) or pairs.shape != (nq * width,)
+            or c > C_MAX):
         raise ValueError("band_head_bwd: bad tile/shape arguments")
     dx = torch.empty((ns, c), dtype=torch.float32, device=g.device)
     fn = build.launcher("head_bwd", "band_head_bwd_launch", _HEAD_BWD_ARGS)
-    rc = fn(build.ptr(row_ptr), build.ptr(pairs), build.ptr(g), ns, query_tile, c,
+    rc = fn(build.ptr(row_ptr), build.ptr(pairs), build.ptr(g), ns, query_tile, c, width,
             build.ptr(dx), build.stream_of(g))
     build.check(rc, "band_head_bwd_kernel")
     band_head_bwd.launches += 1
@@ -145,7 +147,7 @@ def band_head_bwd(q_rows, thr, ptie, s_rows, g, starts, wends, *, query_tile: in
     if lists.lcnt.shape[0] != q_rows.shape[0] or g.shape[0] != q_rows.shape[0]:
         raise ValueError("band_head_bwd: lists or cotangent of another search")
     row_ptr, pairs = lists.transpose(s_rows.shape[0], impl="kernel")
-    return band_head_bwd_kernel(g, row_ptr, pairs, query_tile)
+    return band_head_bwd_kernel(g, row_ptr, pairs, query_tile, lists.width)
 
 
 band_head_bwd.launches = 0

@@ -18,7 +18,7 @@ import torch
 from d3feat_tpu_torch.ops import build
 
 EMPTY_D2 = 3.0e38
-KMAX = 64  # top-K capacity of the kernel: two slots per lane of a warp
+KMAX = 256  # top-K capacity of the kernel: eight slots per lane of a warp
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -107,13 +107,22 @@ def select_plain(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: i
     return out_pos, out_d2
 
 
-def select_block(nq: int, query_tile: int) -> int:
+def select_slots(max_k: int) -> int:
+    """Slots per lane of the kernel's distributed top-K list: 2 up to K =
+    64, 4 up to 128, 8 up to ``KMAX``."""
+    return 2 if max_k <= 64 else 4 if max_k <= 128 else 8
+
+
+def select_block(nq: int, query_tile: int, max_k: int = 1) -> int:
     """Queries per CTA of the K1 kernel for a search of ``nq`` padded
     queries: 32 (8 warps of 4) from 8192 queries on, 8 (8 warps of 1) from
     2048, else 2 (2 warps of 1), so every search of the bench pyramid runs
-    on at least 256 CTAs; halved until it divides the tile (a CTA's queries
-    share one window)."""
+    on at least 256 CTAs; at most 8 (one query a warp) above K = 64, where
+    a list takes 4 or 8 slots a lane; halved until it divides the tile (a
+    CTA's queries share one window)."""
     qb = 32 if nq >= 8192 else 8 if nq >= 2048 else 2
+    if select_slots(max_k) > 2:
+        qb = min(qb, 8)
     while query_tile % qb:
         qb //= 2
     return qb
@@ -135,7 +144,8 @@ def select_kernel(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: 
     out_d2 = torch.empty((nq, max_k), dtype=torch.float32, device=q_rows.device)
     fn = build.launcher("select", "select_launch", _SELECT_ARGS)
     rc = fn(build.ptr(q_rows), build.ptr(s_rows), build.ptr(starts), build.ptr(wends), nq,
-            query_tile, select_block(nq, query_tile), max_k, float(r2), s_rows.shape[0] - 1,
+            query_tile, select_block(nq, query_tile, max_k), max_k, float(r2),
+            s_rows.shape[0] - 1,
             build.ptr(out_pos), build.ptr(out_d2), build.stream_of(q_rows))
     build.check(rc, "select_kernel")
     band_select.launches += 1

@@ -13,8 +13,14 @@ correspondences are remapped through ``inv0``, anchors indexing cloud 0
 and positives cloud 1 (offset by ``lengths[0]``). On the original-order
 route (``'banded'``, ``'brute'``, ``'grid'``) it runs in the caller's row
 order, with the gather KPConv and the gather head.
+A model with deformable convs adds their fitting regularizer
+(``losses.regularizers``) to the loss. With batch norm the train step
+normalises by the batch's statistics and updates the running ones once per
+step; the eval and extraction steps read them.
 When any gradient is not finite no update is made: parameters, optimizer
-state and the step count stay as they were (``skipped`` = 1).
+state and the step count stay as they were (``skipped`` = 1); the batch
+norm's running statistics keep that step's update, as the JAX step's
+``model_state`` does.
 
 With a process ``group`` (data parallelism, ``d3feat_tpu_torch.parallel``;
 the counterpart of the JAX step's ``axis_name``) every rank runs the step
@@ -40,6 +46,7 @@ import torch.distributed as dist
 
 from d3feat_tpu_torch.losses.descriptor import circle_loss, contrastive_loss
 from d3feat_tpu_torch.losses.detector import det_loss
+from d3feat_tpu_torch.losses.regularizers import p2p_fitting_regularizer
 from d3feat_tpu_torch.models.kpfcnn import KPFCNN, apply_kpfcnn
 from d3feat_tpu_torch.ops.neighbors import permute_rows
 from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
@@ -72,13 +79,9 @@ _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _compute_dtype(config) -> torch.dtype:
-    """The config's ``compute_dtype`` as a torch dtype; raises on the
-    settings that are not ported."""
+    """The config's ``compute_dtype`` as a torch dtype."""
     if config.compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype: {config.compute_dtype!r}")
-    if config.use_batch_norm:
-        raise NotImplementedError("batch norm is not ported yet (use_batch_norm=True; "
-                                  "ROADMAP Queue 1 item 7)")
     return _COMPUTE_DTYPES[config.compute_dtype]
 
 
@@ -121,6 +124,8 @@ def _forward_losses(model, batch, config, pyramid_spec, *, train: bool, impl: st
                                 neg_margin=config.neg_margin, safe_radius=config.safe_radius)
     dl = det_loss(desc.dists, anc_s, pos_s, valid)
     loss = config.desc_loss_weight * desc.loss + config.det_loss_weight * dl
+    if out.auxes:
+        loss = loss + p2p_fitting_regularizer(out.auxes, KP_extent=config.KP_extent)
     overflow = pyr["overflow"].float()
     return loss, [desc.loss, dl, desc.accuracy, desc.d_pos, desc.d_neg, overflow]
 

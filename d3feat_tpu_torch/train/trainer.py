@@ -256,12 +256,12 @@ class Trainer:
         if not path or self.rank != 0:
             return
         try:
-            from d3feat_tpu_torch.compat.portable import export_npz
+            from d3feat_tpu_torch.compat.weights import export_model_npz
 
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             tmp = path + ".tmp.npz"
-            export_npz(
-                tmp, self.state.model.state_dict(), None,
+            export_model_npz(
+                tmp, self.state.model,
                 meta={"epoch": epoch + 1, "best_loss": self.best_loss,
                       "best_acc": self.best_acc,
                       "config": self.config.to_dict()},

@@ -39,7 +39,7 @@ from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec, origi
 from d3feat_tpu_torch.train.optim import make_optimizer, train_tensors
 from d3feat_tpu_torch.train.step import TrainState, make_extract_step, make_train_step
 from tests.torch_port_helpers import jax_band_spec, jax_config, packed_pair, pair_batch, \
-    torch_batch_from_jax, torch_config
+    torch_batch_from_jax, torch_batch_from_jax_original, torch_config
 from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 LAYERS = 3
@@ -62,13 +62,6 @@ def _jax_original_pyramid(jcfg, pts, lens):
     spec = j_spec(jcfg)
     assert spec.search != "pallas" and not spec.force_band_export
     return jax.tree.map(np.asarray, j_build(jnp.asarray(pts), jnp.asarray(lens), spec=spec))
-
-
-def torch_batch_from_jax_original(pyr):
-    """The port's batch dict of a numpy JAX original-order pyramid."""
-    out = {k: [_t(a) for a in pyr[k]]
-           for k in ("points", "neighbors", "pools", "upsamples", "lengths", "masks")}
-    return dict(out, band={}, sel_thr={}, overflow=_t(pyr["overflow"]))
 
 
 @pytest.mark.parametrize("search", ["banded", "brute", "grid"])

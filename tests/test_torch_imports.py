@@ -54,7 +54,8 @@ for m in ("d3feat_tpu_torch.bench", "d3feat_tpu_torch.data.synthetic",
           "d3feat_tpu_torch.data.calibrate",
           "d3feat_tpu_torch.train.checkpoint", "d3feat_tpu_torch.train.logging_utils",
           "d3feat_tpu_torch.train.trainer", "d3feat_tpu_torch.train_3dmatch",
-          "d3feat_tpu_torch.gen_corpus"):
+          "d3feat_tpu_torch.gen_corpus", "d3feat_tpu_torch.models.kpcnn",
+          "d3feat_tpu_torch.models.kernel_points", "d3feat_tpu_torch.losses.regularizers"):
     assert m in mods, m
 print(len(mods))
 '''
@@ -98,15 +99,18 @@ def test_chip_smoke_alone_fails(tmp_path):
 def test_entry_points_need_cuda_or_explicit_cpu():
     from d3feat_tpu_torch import resolve_device
     from d3feat_tpu_torch.config import D3FeatConfig
+    from d3feat_tpu_torch.models.kpcnn import init_kpcnn
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
 
     assert resolve_device("cpu") == torch.device("cpu")
     cfg = D3FeatConfig(experiment_id="x", num_layers=2, first_features_dim=16)
     if torch.cuda.is_available():
         assert init_kpfcnn(cfg).encoder[0].conv.weights.is_cuda
+        assert init_kpcnn(cfg).blocks[0].conv.weights.is_cuda
     else:
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            init_kpfcnn(cfg)
+        for init in (init_kpfcnn, init_kpcnn):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                init(cfg)
 
 
 def test_training_entry_point_needs_cuda_or_explicit_cpu(tmp_path):

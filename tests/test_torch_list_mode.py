@@ -39,7 +39,8 @@ from d3feat_tpu.ops.neighbors import SortedLevel, make_level_frame, radius_neigh
 from d3feat_tpu.ops.pallas.band_conv import band_conv as j_band_conv, band_conv_ad
 from d3feat_tpu_torch.models.blocks import band_query_tiles, search_inputs
 from d3feat_tpu_torch.ops.band_conv import BandConvFn, band_conv
-from d3feat_tpu_torch.ops.band_lists import LCAP, band_lists_given, band_lists_given_plain
+from d3feat_tpu_torch.ops.band_lists import (LCAP, LMAX, band_lists_given,
+                                              band_lists_given_plain)
 from d3feat_tpu_torch.ops.neighbors import band_windows
 from d3feat_tpu_torch.ops.pyramid import level_band_cap
 from tests.torch_port_helpers import band_conv_bwd_from_lists, band_conv_from_lists, \
@@ -206,8 +207,11 @@ def test_list_stage_twin_keeps_listed_positions_in_the_window():
     assert lists.lpos[5].tolist().count(int(neighb[1, 5])) >= 2
     assert 95 not in lists.lpos[40].tolist() and 10 not in lists.lpos[41].tolist()
     assert 70 not in lists.lpos[7].tolist()
-    with pytest.raises(ValueError, match="LCAP"):
-        band_lists_given_plain(torch.zeros((LCAP + 1, tile), dtype=torch.int32), starts[:1],
+    wide = band_lists_given_plain(torch.zeros((LCAP + 1, tile), dtype=torch.int32), starts[:1],
+                                  wends[:1], query_tile=tile, n_rows=n_rows)
+    assert wide.width == 2 * LCAP and (wide.lcnt == LCAP + 1).all()
+    with pytest.raises(ValueError, match="LMAX"):
+        band_lists_given_plain(torch.zeros((LMAX + 1, tile), dtype=torch.int32), starts[:1],
                                wends[:1], query_tile=tile, n_rows=n_rows)
     with pytest.raises(ValueError, match="CUDA"):
         band_lists_given(torch.from_numpy(neighb), starts, wends, query_tile=tile,

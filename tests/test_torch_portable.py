@@ -7,7 +7,12 @@
 (c) ``read_npz`` then ``export_npz`` of the committed r5 npz rewrites it:
     the same members, ``__paths_params__`` string for string, every array
     bit for bit and the meta;
-(d) an architecture mismatch raises in both directions."""
+(d) an architecture mismatch raises in both directions;
+(e) a model with batch norm and modulated deformable convs: the port's
+    ``export_model_npz`` loads through JAX's ``import_npz`` (the offset
+    leaves and the running statistics in JAX's flatten order) to its
+    parameters and buffers, and JAX's export of them loads back bit for
+    bit; model state the model has no batch norm for raises."""
 
 import os
 
@@ -106,3 +111,48 @@ def test_architecture_mismatch_raises_both_ways(tmp_path):
         j_import_npz(port_wide, ts2.params, ts2.model_state)
     with pytest.raises(RuntimeError, match="size mismatch"):
         load_npz(_port_model(2), port_wide)
+
+
+def test_batch_norm_and_deformable_round_trip(tmp_path):
+    from d3feat_tpu.config import D3FeatConfig as JConfig
+    from d3feat_tpu_torch.compat.weights import export_model_npz, model_trees, state_from_numpy
+    from d3feat_tpu_torch.config import D3FeatConfig as TConfig
+
+    arch = ["simple", "resnetb", "resnetb_deformable_strided", "resnetb_deformable",
+            "nearest_upsample", "last_unary"]
+
+    class JD(JConfig):
+        def architecture(self):
+            return list(arch)
+
+    class TD(TConfig):
+        def architecture(self):
+            return list(arch)
+
+    d = jax_config(2, use_batch_norm=True, modulated=True).to_dict()
+    jcfg, tcfg = JD.from_dict(d), TD.from_dict(d)
+    ts = init_train_state(jax.random.key(0), jcfg)[0]
+    model = init_kpfcnn(tcfg, seed=3, device="cpu")
+    with torch.no_grad():  # running statistics other than their initial 0 and 1
+        for n, b in model.named_buffers():
+            if n.endswith((".mean", ".var")):
+                b.uniform_(0.5, 1.5)
+    path = str(tmp_path / "port.npz")
+    export_model_npz(path, model, meta={"epoch": 1})
+    jp, js, _ = j_import_npz(path, ts.params, ts.model_state)
+    params, state = model_trees(model)
+    assert sum(k.endswith("offset_weights") for k in params) == 2
+    got = params_from_numpy(jax.tree.map(np.asarray, jp))
+    assert sorted(got) == sorted(params) and all(torch.equal(got[k], params[k]) for k in got)
+    bufs = dict(model.named_buffers())
+    got = state_from_numpy(jax.tree.map(np.asarray, js), model)
+    assert len(got) == len(state) > 0 and all(torch.equal(got[k], bufs[k]) for k in got)
+
+    back = str(tmp_path / "jax.npz")
+    j_export_npz(back, jp, js)
+    model2 = init_kpfcnn(tcfg, seed=4, device="cpu")
+    load_npz(model2, back)
+    sd = model.state_dict()
+    assert all(torch.equal(v, sd[k]) for k, v in model2.state_dict().items())
+    with pytest.raises(ValueError, match="no batch norm"):
+        load_npz(init_kpfcnn(torch_config(jax_config(2)), device="cpu"), back)

@@ -6,11 +6,12 @@ The CUDA kernel's algorithm (``ops/cuda/select.cu``) emulated step by step
 on the CPU (``emulate_select``): the CTA split of ``select_block``, 64-bit
 keys ``(bits(d2) << 32) | position``, 32-row steps skipped by a ballot
 against the current K-th key, and each new key inserted into a sorted list
-spread over the 32 lanes, two slots a lane. The emulation is held bit for
-bit against the twin and the JAX kernel on the pyramid's searches, on
-duplicated support points (equal d2, ordered by position) and on windows
-that a radius covers whole (candidates far beyond K, as at the deep
-levels)."""
+spread over the 32 lanes, two slots a lane (four above K = 64, eight above
+128: the wide lists of deformable convs' doubled radii). The emulation is
+held bit for bit against the twin and the JAX kernel on the pyramid's
+searches, on duplicated support points (equal d2, ordered by position) and
+on windows that a radius covers whole (candidates far beyond K, as at the
+deep levels)."""
 
 import functools
 
@@ -24,7 +25,7 @@ from d3feat_tpu_torch.ops.neighbors import (
     SortedLevel, band_windows, pad_query_rows, tile_key_bounds)
 from d3feat_tpu_torch.ops.pyramid import level_band_cap
 from d3feat_tpu_torch.ops.select import (
-    EMPTY_D2, KMAX, band_select, exact_d2, fma_f32, select_block, select_plain)
+    EMPTY_D2, KMAX, band_select, exact_d2, fma_f32, select_block, select_plain, select_slots)
 from tests.torch_port_helpers import jax_pyramid, torch_batch_from_jax
 from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
@@ -50,15 +51,18 @@ def pack_keys(d2, pos, cand):
     return np.where(cand, keys, NONE)
 
 
-def insert_key(lo, hi, x):
-    """One insertion into the sorted list of 64 slots spread over 32 lanes
-    (lane l holds slots 2 l in ``lo`` and 2 l + 1 in ``hi``): every slot
-    takes its predecessor, the new key or itself; the last slot drops out."""
-    prev = np.roll(hi, 1)
+def insert_key(v, x):
+    """One insertion into the sorted list of 32 S slots spread over 32 lanes
+    (lane l holds slots S l + h in ``v[l, h]``): every slot takes its
+    predecessor, the new key or itself, the lane's first slot from the
+    previous lane's last (one shuffle); the last slot drops out."""
+    prev = np.roll(v[:, -1], 1)
     prev[0] = 0  # slot 0 has no predecessor
-    new_hi = np.where(x < lo, lo, np.where(x < hi, x, hi))
-    new_lo = np.where(x < prev, prev, np.where(x < lo, x, lo))
-    return new_lo, new_hi
+    new = v.copy()
+    for h in range(v.shape[1] - 1, 0, -1):
+        new[:, h] = np.where(x < v[:, h - 1], v[:, h - 1], np.where(x < v[:, h], x, v[:, h]))
+    new[:, 0] = np.where(x < prev, prev, np.where(x < v[:, 0], x, v[:, 0]))
+    return new
 
 
 def emulate_select(q_rows, s_rows, starts, wends, *, query_tile, r2, max_k, qb=None):
@@ -68,8 +72,9 @@ def emulate_select(q_rows, s_rows, starts, wends, *, query_tile, r2, max_k, qb=N
     empty = s_rows.shape[0] - 1
     out_pos = np.full((nq, max_k), empty, np.int32)
     out_d2 = np.full((nq, max_k), EMPTY_D2, np.float32)
-    qb = qb or select_block(nq, query_tile)
+    qb = qb or select_block(nq, query_tile, max_k)
     assert query_tile % qb == 0 and max_k <= KMAX
+    S = select_slots(max_k)
     r2 = np.float32(r2)
     for cta in range(nq // qb):
         q0 = cta * qb
@@ -82,7 +87,7 @@ def emulate_select(q_rows, s_rows, starts, wends, *, query_tile, r2, max_k, qb=N
             d2 = exact_d2(rows, q[None]).numpy()
             cand = (rows[:, 3] == q[3]).numpy() & (d2 <= r2)
             keys = pack_keys(d2, pos, cand)
-            lo, hi = np.full(32, NONE), np.full(32, NONE)
+            v = np.full((32, S), NONE)
             kth = NONE
             for base in range(ws, we, CHUNK):            # staged chunks
                 for j0 in range(base, min(base + CHUNK, we), 32):   # 32-row steps
@@ -90,12 +95,12 @@ def emulate_select(q_rows, s_rows, starts, wends, *, query_tile, r2, max_k, qb=N
                     blk = keys[j0 - ws:min(j0 + 32, we) - ws]
                     step[:len(blk)] = blk
                     if max_k == 1:
-                        lo = np.minimum(lo, step)
+                        v[:, 0] = np.minimum(v[:, 0], step)
                         continue
                     for b in np.nonzero(step < kth)[0]:  # ballot, lowest lane first
-                        lo, hi = insert_key(lo, hi, step[b])
-                    kth = (hi if (max_k - 1) & 1 else lo)[(max_k - 1) >> 1]
-            slots = np.array([lo.min()]) if max_k == 1 else np.stack([lo, hi], 1).reshape(-1)
+                        v = insert_key(v, step[b])
+                    kth = v[(max_k - 1) // S, (max_k - 1) % S]
+            slots = np.array([v[:, 0].min()]) if max_k == 1 else v.reshape(-1)
             for k, key in enumerate(slots[:max_k]):
                 if key != NONE:
                     out_pos[qi, k] = int(key & np.uint64(0xFFFFFFFF))
@@ -185,7 +190,8 @@ def _grid_level(seed, n_s=300, n_q=200, tile=128, cap=512):
 
 # (radius, K): ties inside a radius that leaves lists short of K; radii that
 # cover the whole 6 x 6 x 6 grid, so each query has ~150 candidates
-GRID_CASES = [(0.075, 14), (0.075, 40), (1.0, 14), (1.0, 40), (1.0, 64), (1.0, 1)]
+GRID_CASES = [(0.075, 14), (0.075, 40), (1.0, 14), (1.0, 40), (1.0, 64), (1.0, 1),
+              (1.0, 100), (1.0, 200)]
 
 
 @pytest.mark.parametrize("r,k", GRID_CASES)
@@ -204,8 +210,10 @@ def test_select_emulation_on_ties_and_overfull_windows(r, k):
     d2 = ed2.numpy()[:200]
     ties = (d2[:, 1:] == d2[:, :-1]) & (d2[:, 1:] < EMPTY_D2)
     assert ties.any() or k == 1  # equal distances, ordered by position
-    if r == 1.0 and k > 1:  # the radius covers the grid: every list is full
+    if r == 1.0 and 1 < k <= 100:  # the radius covers the grid: every list is full
         assert (d2 < EMPTY_D2).all()
+    if k == 200:  # ~150 candidates a query: lists end short of K
+        assert (d2 == EMPTY_D2).any(1).all() and (d2[:, 100] < EMPTY_D2).all()
 
 
 def test_key_order_is_distance_then_position():
@@ -227,6 +235,8 @@ def test_select_block_spreads_every_bench_search(nq, tile):
     qb = select_block(nq, tile)
     assert qb in (2, 8, 32) and tile % qb == 0
     assert nq // qb >= 256  # CTAs: the deep searches spread over the card too
+    # one query a warp for the wide lists (four or eight slots a lane)
+    assert select_block(nq, tile, 200) == min(qb, 8) and select_block(nq, tile, 64) == qb
 
 
 def test_fma_f32_rounds_once():

@@ -14,7 +14,8 @@ parameters (``params_from_numpy``).
 (d) a NaN in one input feature: both report ``skipped`` 1; the port's
     parameters, optimizer state and step count stay as they were;
 (e) the eval step's metrics equal JAX's at rtol 1e-5;
-(f) the setting not ported yet (batch norm) raises;
+(f) batch norm builds (its checks: ``tests/test_torch_batch_norm.py``) and
+    an unknown compute dtype raises;
 (g) the port's ``Trainer`` against JAX's ``Trainer`` on this module's
     jitted band-route steps: two epochs, epoch meters, snapshots, meta,
     ``metrics.jsonl`` tags and final weights."""
@@ -173,10 +174,13 @@ def test_eval_step_matches_jax(jax_steps):
 
 @pytest.mark.parametrize("field,value", [("use_batch_norm", True)])
 def test_unported_settings_raise(field, value):
+    """Batch norm is ported (``tests/test_torch_batch_norm.py``): the steps
+    build with it, and a compute dtype the port lacks still raises."""
     tcfg = torch_config(jax_config(LAYERS, **{field: value}))
     for make in (make_train_step, make_eval_step):
-        with pytest.raises(NotImplementedError):
-            make(tcfg)
+        make(tcfg)
+        with pytest.raises(ValueError, match="compute_dtype"):
+            make(torch_config(jax_config(LAYERS, compute_dtype="float16", **{field: value})))
 
 
 def test_trainer_matches_jax_trainer(jax_steps, tmp_path):

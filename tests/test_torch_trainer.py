@@ -5,8 +5,10 @@ metrics); the npz warm start takes its epoch and bests from the meta and
 keeps a fresh optimizer; the autoexported npz loads through JAX's
 ``import_npz`` to the best-accuracy snapshot's weights; a non-finite step
 counts in ``skipped``; ``num_devices=2`` and ``device="cuda"`` without CUDA
-raise before anything runs; the ``config.json`` the port writes loads
-through JAX's ``D3FeatConfig.from_json``."""
+raise before anything runs; with batch norm, snapshots and the autoexport
+carry the running statistics and a resume is bit for bit; the
+``config.json`` the port writes loads through JAX's
+``D3FeatConfig.from_json``."""
 
 import json
 import os
@@ -149,8 +151,51 @@ def test_nonfinite_step_counts_in_skipped(tmp_path):
 def test_unported_settings_raise(tmp_path):
     with pytest.raises(RuntimeError, match="initialised process group"):
         Trainer(tiny_config(tmp_path, num_devices=2), loader(), None, device="cpu")
-    with pytest.raises(NotImplementedError, match="batch norm"):
-        Trainer(tiny_config(tmp_path, use_batch_norm=True), loader(), None, device="cpu")
+    # batch norm is ported: on one device the trainer builds (with two, the
+    # data-parallel step refuses it: tests/test_torch_data_parallel.py (e))
+    tr = Trainer(tiny_config(tmp_path, use_batch_norm=True), loader(), None, device="cpu")
+    assert any(n.endswith(".mean") for n, _ in tr.state.model.named_buffers())
+
+
+def test_batch_norm_snapshots_resume_and_export(tmp_path):
+    """With batch norm the snapshots carry the running statistics: a resume
+    holds them bit for bit and reproduces the next step's, and the
+    autoexported npz holds them as JAX model state."""
+    from d3feat_tpu_torch.compat.weights import load_npz, state_from_numpy
+
+    auto = str(tmp_path / "best.npz")
+    cfg = tiny_config(tmp_path, max_epoch=1, use_batch_norm=True, autoexport=auto)
+    tr = Trainer(cfg, loader(), loader(seed=1), device="cpu")
+    tr.train()
+    cfg2 = tiny_config(tmp_path, experiment_id="resumed", use_batch_norm=True,
+                       pretrain=os.path.join(tr.snapshots.directory, "snapshot_epoch_1"))
+    tr2 = Trainer(cfg2, loader(), None, device="cpu")
+
+    def buffers(t):
+        return {n: b.clone() for n, b in t.state.model.named_buffers()}
+
+    b1 = buffers(tr)
+    assert float(tr.state.model.encoder[0].norm.mean.abs().max()) > 0.0
+    assert all(torch.equal(b1[n], b) for n, b in buffers(tr2).items())
+    batch = fixed_batch(tr)
+    tr.state, m1 = tr._train_step(tr.state, batch, 1)
+    tr2.state, m2 = tr2._train_step(tr2.state, batch, 1)
+    assert m1 == m2
+    assert_same_state(state_of(tr), state_of(tr2))
+    b1, b2 = buffers(tr), buffers(tr2)
+    assert all(torch.equal(b1[n], b2[n]) for n in b1)
+
+    jcfg = jax_config(3, use_batch_norm=True)
+    ts = init_train_state(jax.random.key(0), jcfg)[0]
+    _, jstate, _ = j_import_npz(auto, ts.params, ts.model_state)
+    best = init_kpfcnn(cfg, device="cpu")
+    SnapshotManager(tr.snapshots.directory).restore_model(BEST_ACC, best)
+    want = dict(best.named_buffers())
+    got = state_from_numpy(jax.tree.map(np.asarray, jstate), best)
+    assert len(got) == 2 * 26 and all(torch.equal(got[n], want[n]) for n in got)
+    back = init_kpfcnn(cfg, device="cpu")
+    load_npz(back, auto)
+    assert all(torch.equal(v, best.state_dict()[k]) for k, v in back.state_dict().items())
 
 
 def test_cuda_without_cuda_raises(tmp_path):

@@ -142,6 +142,16 @@ def torch_batch_from_jax(pyr, features_sorted):
     }
 
 
+def torch_batch_from_jax_original(pyr):
+    """The port's batch dict of a numpy JAX original-order pyramid."""
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True))
+
+    out = {k: [t(a) for a in pyr[k]]
+           for k in ("points", "neighbors", "pools", "upsamples", "lengths", "masks")}
+    return dict(out, band={}, sel_thr={}, overflow=t(pyr["overflow"]))
+
+
 # --- plain emulations of the kernels' list decomposition (K2 and K4 on the
 # lists of ``ops.band_lists``), which the CUDA kernels compute on the card ---
 
@@ -225,8 +235,6 @@ def band_conv_bwd_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, g
     gs`` and ``dx[r] = sum_q sum_kp w_kp(q, r) V[q, kp]`` gathered over the
     same pairs, ``V = bf16(gs W^T)``, gs, W and the weights rounded to
     bf16."""
-    from d3feat_tpu_torch.ops.band_lists import LCAP
-
     kpn, c, cout = weights.shape
     ns, nq = s_rows.shape[0], q_rows.shape[0]
     rnd = (lambda t: t) if chunk is None else _bf16
@@ -244,7 +252,7 @@ def band_conv_bwd_from_lists(lists, q_rows, s_rows, x, weights, kernel_points, g
     f = pairs[:n_ent].long()
     r = torch.repeat_interleave(torch.arange(ns, device=f.device),
                                 (row_ptr[1:] - row_ptr[:-1]).long())
-    qi = f // LCAP
+    qi = f // lists.width
     d2 = None if lists.ld2 is None else lists.ld2.reshape(-1)[f][:, None, None]  # [E, 1, 1]
     rows, q = s_rows[r][:, None, :], q_rows[qi][:, None, :]
     every = torch.ones((f.shape[0], 1, 1), dtype=torch.bool)
@@ -278,7 +286,7 @@ def bf16_rn(a):
 
 
 def piece_starts_serial(lpos, lcnt, ws, chunk):
-    """[Nq, LCAP] bool, the first entry of each piece of each list (the
+    """[Nq, L] bool, the first entry of each piece of each list (the
     entries of one chunk of ``chunk`` rows from the window start ``ws[q]``):
     the serial scan that every lane ran before, ``j1`` advanced while the
     chunk id equals the piece's first entry's."""
@@ -297,22 +305,25 @@ def piece_starts_serial(lpos, lcnt, ws, chunk):
 
 
 def piece_starts_ballot(lpos, lcnt, ws, chunk):
-    """The same from ``weighted_bf16_kernel``'s ballot: lane l holds entries l
-    and l + 32, their chunk ids (-1 past the count); ``shfl_up`` gives each
-    lane the previous lane's id, lane 0 of the upper half takes entry 31's
-    (``shfl`` from lane 31); a lane votes for an entry below the count that
-    is entry 0 or whose id differs from the previous one. Returns the two
-    32-bit ballots' 64-bit mask as bools."""
+    """The same from ``weighted_bf16_kernel``'s ballots: lane l holds entries
+    l + 32 h (h < L / 32), their chunk ids (-1 past the count); ``shfl_up``
+    gives each lane the previous lane's id in word h, lane 0 takes entry 32
+    h - 1's (``shfl`` from lane 31 of word h - 1; in word 0 its own); a lane
+    votes for an entry below the count that is entry 0 or whose id differs
+    from the previous one. Returns the L / 32 ballots as bools."""
     lpos, lcnt = np.asarray(lpos, np.int64), np.asarray(lcnt)
     lane = np.arange(32)
     valid = np.arange(lpos.shape[1])[None, :] < lcnt[:, None]
     cid = np.where(valid, (lpos - np.asarray(ws)[:, None]) // chunk, -1)
-    c0, c1 = cid[:, :32], cid[:, 32:]
-    prev0 = np.concatenate([c0[:, :1], c0[:, :-1]], 1)            # shfl_up: lane 0 keeps its own
-    prev1 = np.concatenate([c0[:, 31:32], c1[:, :-1]], 1)         # lane 0: entry 31's id
-    vote0 = valid[:, :32] & ((lane == 0)[None, :] | (c0 != prev0))
-    vote1 = valid[:, 32:] & (c1 != prev1)
-    return np.concatenate([vote0, vote1], 1)
+    votes, last = [], None
+    for h in range(lpos.shape[1] // 32):
+        c = cid[:, 32 * h:32 * h + 32]
+        lane0 = c[:, :1] if last is None else last                 # word 0: lane 0 keeps its own
+        prev = np.concatenate([lane0, c[:, :-1]], 1)
+        votes.append(valid[:, 32 * h:32 * h + 32]
+                     & (((lane == 0) & (h == 0))[None, :] | (c != prev)))
+        last = c[:, 31:32]
+    return np.concatenate(votes, 1)
 
 
 def pieces_of(first, n):
@@ -392,14 +403,12 @@ def dx_by_pairs(lists, q_rows, s_rows, weights, kernel_points, gs, extent):
     (query q, entry j, row r) = one m16n8k16 step from zero of its bf16
     weights by V[q] (a truncating addition of 15 exact products), then each
     support row's U summed in ascending pair order in f32."""
-    from d3feat_tpu_torch.ops.band_lists import LCAP
-
     kpn, c, cout = weights.shape
     nq, ns = q_rows.shape[0], s_rows.shape[0]
     wb = _bf16(weights).reshape(kpn * c, cout).numpy()
     v = bf16_rn(mma_bf16_two_staged(_bf16(gs).numpy(), None, wb.T)).reshape(nq, kpn, c)
     _, _, w = _route_inputs(lists, q_rows, s_rows, torch.zeros((ns, 1)), kernel_points, extent)
-    u = _rz(np.einsum("qkl,qkc->qlc", w, v.astype(np.float64))).reshape(nq * LCAP, c)
+    u = _rz(np.einsum("qkl,qkc->qlc", w, v.astype(np.float64))).reshape(nq * lists.width, c)
     row_ptr, pairs = (t.numpy() for t in lists.transpose(ns))
     dx = np.zeros((ns, c), np.float32)
     for r in range(ns):
