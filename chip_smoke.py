@@ -9,9 +9,10 @@ It needs one CUDA device, ``nvcc`` (the CUDA toolkit), the committed r5
 weights (``artifacts/model_best_acc_r5.npz``), the committed eval-cache
 fragments and poses (``artifacts/eval_cache``) and the JAX recall
 references (``tests/torch_port_recall_r5.json``, and
-``tests/torch_port_recall_r5_gather.json`` for the gather route); it
-imports nothing of JAX or of the JAX package. Besides the kernels' build directory
-(``d3feat_tpu_torch/_build``) it writes only into a temporary directory
+``tests/torch_port_recall_r5_gather.json`` for the gather route), and
+``g++`` for the native host library; it imports nothing of JAX or of the
+JAX package. Besides the kernels' build directory
+(``d3feat_tpu_torch/_build``) it writes only into temporary directories
 (under ``TMPDIR``) that it removes. Phases, each announced with the elapsed seconds:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
@@ -202,22 +203,53 @@ imports nothing of JAX or of the JAX package. Besides the kernels' build directo
    gradients atol/rtol 5e-3), 3 SGD steps with finite losses, the logits
    on ``'banded'`` within 1e-4 of the band route's, clouds/s. One JSON line
    ``{"variants": ...}``;
-13. with ``--profile``, device time by kernel and the device busy share
+13. the reference ``.pth`` bridges and the host utilities
+   (``bridges_phase``), its seconds printed, every time and size beside
+   the card's name and power limit: (a) the r5 model out through
+   ``compat/torch_export.py::save_torch_checkpoint`` and back through
+   ``compat/torch_import.py::load_torch_checkpoint`` onto the card, every
+   tensor bit for bit; the serving batch through ``FeatureExtractor``
+   with both models, each call counted (K1, the list stage, K2, K3; no
+   twin), descriptors and scores equal (max |diff| 0); phase 12's batch
+   norm model (with its running statistics) and its deformable models
+   round-tripped, tensors only; (b) ``python3 -m
+   d3feat_tpu_torch.test_3dmatch --synthetic`` on the ``.pth`` (the r5
+   npz's config as ``--chosen_snapshot``'s ``config.json``) and on the npz,
+   in two subprocesses started together (they run beside (c)): their JSON
+   lines equal; (c) the native library (``native/src/geometry.cpp``,
+   ``g++ -fopenmp``) built, its seconds printed; ``compute_correspondences``
+   on the training pair (within ``CORR_RADIUS``, mutual) on the native and
+   the numpy route, the seconds of each and the rows that differ, each
+   differing row explained by the two routes' arithmetic (float32 against
+   float64: a tie, or the threshold); ``grid_subsample_batch`` of the
+   serving fragments at ``first_subsampling_dl`` against
+   ``ops/subsample.py::voxel_subsample`` on the card: counts per cloud
+   equal, barycentres equal as sets (atol 1e-4, as ``tests/test_native.py``);
+   (d) ``utils/profiling.py``: ``SectionTimer`` (synchronising on the card)
+   around (a)'s save, load and extractions, its report printed; ``trace``
+   around one extraction call with an ``annotate`` region, which the trace
+   file must hold, the port's kernel events in it counted (information: a
+   profile can leave ``ctypes`` launches out); ``utils/metrics.py``'s
+   ``accuracy`` and ``iou`` of a KPCNN forward's logits on the card equal
+   to the same functions on the host copies. One JSON line
+   ``{"bridges": ...}``;
+14. with ``--profile``, device time by kernel and the device busy share
    over 4 extraction calls (f32 and bf16) and over 3 train steps (f32
    and bf16) (``torch.profiler``);
-14. one JSON line with every kernel's numbers (K1 on unsorted clouds with
+15. one JSON line with every kernel's numbers (K1 on unsorted clouds with
    its launches counted on the main path, 0 on the band route, and those
    of phase 11's counted calls as ``gather_phase_launches``; every
    kernel's launches in phase 12's counted runs as
-   ``variants_phase_launches``), then the result line.
+   ``variants_phase_launches``, in phase 13's as
+   ``bridges_phase_launches``), then the result line.
 
 The JSON lines come in this order before the last: the bench's two, then
 ``{"recall": ...}``, ``{"trainer": ...}`` (corpus seconds, per dtype the
 epochs' losses and accuracies, steps, steps/s, data-wait and overflow
 shares; the bests written, the resume comparison, the counted step's
 launches, the recall on scene 424245, the card), ``{"data_parallel": ...}``,
-``{"gather_route": ...}``, ``{"variants": ...}``, the throughput line and
-the kernels line.
+``{"gather_route": ...}``, ``{"variants": ...}``, ``{"bridges": ...}``, the
+throughput line and the kernels line.
 
 Any failed check exits non-zero before the result line.
 """
@@ -2782,11 +2814,11 @@ def timed_steps(step, state, batch, n):
     return n / (time.perf_counter() - t)
 
 
-def variants_bn(cfg, frags, batch, line, acc, device="cuda"):
+def variants_bn(cfg, frags, batch, line, acc, device="cuda", keep=None):
     """(a) A ``use_batch_norm`` KPFCNN drawn from a seed: one counted train
     step against the twins, ``TRAIN_STEPS`` more and steps/s, then one
     eval-mode extraction of the serving batch with the running statistics
-    against the twins."""
+    against the twins. The trained model and its config go into ``keep``."""
 
     import torch
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
@@ -2798,6 +2830,8 @@ def variants_bn(cfg, frags, batch, line, acc, device="cuda"):
     bcfg = route_config(cfg, use_batch_norm=True)
     spec = make_pyramid_spec(bcfg)
     model = init_kpfcnn(bcfg, seed=0, device=device)
+    if keep is not None:
+        keep["batch_norm"] = (bcfg, model)
     n_r5 = warm_from_r5(model)  # batch norms: scale 1, offset r5's bias, statistics 0 and 1
     twin, tm, witness = twin_steps(bcfg, spec, model, batch)
     state = TrainState(model, make_optimizer(bcfg, model))
@@ -2892,10 +2926,11 @@ def deform_caps(cfg, samples, device="cuda"):
     return PyramidCaps(points=cfg.caps.points, neighbors=tuple(caps), corr=cfg.caps.corr)
 
 
-def variants_deform(cfg, frags, batch, line, acc, device="cuda"):
+def variants_deform(cfg, frags, batch, line, acc, device="cuda", keep=None):
     """(b) Levels ``DEFORM_LAYERS`` deformable, unmodulated and modulated,
     with calibrated caps: one counted extraction and one counted train step
-    each against the twins; steps/s and peak memory."""
+    each against the twins; steps/s and peak memory. The trained models and
+    their configs go into ``keep``."""
     import math
 
     import torch
@@ -2921,6 +2956,8 @@ def variants_deform(cfg, frags, batch, line, acc, device="cuda"):
         spec = make_pyramid_spec(dcfg)
         model = init_kpfcnn(dcfg, seed=1, device=device)
         warm_from_r5(model)  # the offset convs keep their seeded draw
+        if keep is not None:
+            keep[f"deformable {tag}"] = (dcfg, model)
         n_def = sum(1 for blk in model.encoder if getattr(getattr(blk, "conv", None),
                                                           "deformable", False))
         pyr = build_pyramid(batch["points"], batch["lengths"], spec=spec)
@@ -3119,16 +3156,17 @@ def variants_kpcnn(cfg, frags, line, acc, device="cuda"):
                          clouds_per_s=cps, seconds=time.perf_counter() - t)
 
 
-def variants_phase(cfg, frags, batch, report, card, device="cuda"):
+def variants_phase(cfg, frags, batch, report, card, device="cuda", keep=None):
     """Phase 12: batch norm, deformable KPConv, randomised kernel points
     and KPCNN on the card, subphases (a)-(d) of the module docstring; each
     kernel's launches in the phase's counted runs go into ``report`` as
-    ``variants_phase_launches``. Returns the JSON line's dict."""
+    ``variants_phase_launches``; the batch norm and deformable models, as
+    trained, into ``keep`` (for phase 13). Returns the JSON line's dict."""
     t = time.perf_counter()
     line = {"card": card}
     acc = {}
-    variants_bn(cfg, frags, batch, line, acc, device)
-    variants_deform(cfg, frags, batch, line, acc, device)
+    variants_bn(cfg, frags, batch, line, acc, device, keep)
+    variants_deform(cfg, frags, batch, line, acc, device, keep)
     variants_kernel_points(cfg, frags, line, acc, device)
     variants_kpcnn(cfg, frags, line, acc, device)
     for name, *_ in KERNELS:
@@ -3137,6 +3175,372 @@ def variants_phase(cfg, frags, batch, report, card, device="cuda"):
     line["launches"] = {k: v for k, v in acc.items() if v}
     line["seconds"] = time.perf_counter() - t
     phase(f"variants: {line['seconds']:.1f} s")
+    return line
+
+
+BRIDGE_LABELS_SEED = 13   # the seeded labels that (d) scores KPCNN's logits against
+CLI_TIMEOUT_S = 300       # each command line of (b)
+PORT_KERNELS_RE = r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\("
+
+
+def round_trip(label, path, model, mcfg, device="cuda", **kw):
+    """``model`` out through ``save_torch_checkpoint`` to ``path`` and back
+    through ``load_torch_checkpoint``; every tensor must come back bit for
+    bit (dtype and device included). Returns (the loaded model, meta,
+    seconds to save, seconds to load, the file's bytes)."""
+    import torch
+    from d3feat_tpu_torch.compat.torch_export import save_torch_checkpoint
+    from d3feat_tpu_torch.compat.torch_import import load_torch_checkpoint
+
+    t = time.perf_counter()
+    save_torch_checkpoint(path, model, mcfg, **kw)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded, meta = load_torch_checkpoint(path, mcfg, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    want, got = model.state_dict(), loaded.state_dict()
+    bad = [k for k in want if not (got[k].dtype == want[k].dtype and got[k].device == want[k].device
+                                   and torch.equal(got[k], want[k]))]
+    check(set(got) == set(want) and not bad, f"{label}: the .pth round trip changed {bad[:4]}")
+    return loaded, meta, save_s, load_s, os.path.getsize(path)
+
+
+def bridges_round_trip(cfg, model, frags, models, tmp, line, acc, timer, card, device="cuda"):
+    """(a) The r5 model out to a reference-layout ``.pth`` and back, bit for
+    bit; the serving batch through ``FeatureExtractor`` with both models,
+    each call counted, descriptors and scores equal; then phase 12's batch
+    norm and deformable models, tensors only. Returns the .pth's path and
+    the extractor of the loaded model."""
+    import numpy as np
+    import torch
+    from d3feat_tpu_torch.compat.portable import read_npz
+    from d3feat_tpu_torch.eval.extract import FeatureExtractor
+
+    params = read_npz(os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                                   "model_best_acc_r5.npz"))[0]
+    sd = model.state_dict()
+    check(all(torch.equal(sd[k].cpu(), torch.from_numpy(v)) for k, v in params.items()),
+          "bridges (a): the serving model no longer holds the r5 npz's weights")
+    pth = os.path.join(tmp, "model_best_acc_r5.pth")
+    with timer.section("save and load the r5 .pth", sync=list(model.parameters())[:1]):
+        loaded, meta, save_s, load_s, size = round_trip("bridges (a) r5", pth, model, cfg, device,
+                                                        epoch=114, best_loss=0.0)
+    check(meta == {"epoch": 114, "best_loss": 0.0}, f"bridges (a): meta {meta}")
+    n_values = sum(v.numel() for v in model.state_dict().values())
+    phase(f"bridges (a): r5 ({n_values} values, {len(model.state_dict())} tensors) to a "
+          f"{size} byte .pth in {save_s:.3f} s and back onto the card in {load_s:.3f} s, bit "
+          f"for bit, on {card}")
+    group = frags[:2]
+    outs, exs = {}, {}
+    for tag, m in (("npz", model), ("pth", loaded)):
+        exs[tag] = FeatureExtractor(cfg, m, batch_fragments=2, device=device)
+        sync = []
+        with timer.section(f"extract, r5 from the {tag}", sync=sync):
+            outs[tag], c = counted(f"bridges (a) extraction, r5 from the {tag}",
+                                   lambda: exs[tag].extract_many(group), acc)
+            sync.append(list(m.parameters())[:1])
+        need(c, f"bridges (a) extraction ({tag})", ("K1 select", "K2/K4 band_lists",
+                                                    "K2 band_conv", "K3 band_head"))
+    diff = max(max(float(np.abs(a - b).max()) for a, b in zip(x, y))
+               for x, y in zip(outs["npz"], outs["pth"]))
+    check(diff == 0.0, f"bridges (a): extraction from the .pth differs by {diff}")
+    phase(f"bridges (a): the serving batch ({', '.join(str(len(f)) for f in group)} points) "
+          f"from the .pth weights equals the npz weights' bit for bit (descriptors and "
+          f"scores, max |diff| {diff})")
+    line["r5"] = dict(values=n_values, tensors=len(model.state_dict()), pth_bytes=size,
+                      save_s=save_s, load_s=load_s, extraction_max_abs_diff=diff)
+    for tag, (mcfg, m) in models.items():
+        _, _, s_s, l_s, sz = round_trip(f"bridges (a) {tag}", os.path.join(tmp, f"{tag}.pth"),
+                                        m, mcfg, device)
+        phase(f"bridges (a): phase 12's {tag} model, {sz} bytes, saved in {s_s:.3f} s and "
+              f"loaded in {l_s:.3f} s, bit for bit, on {card}")
+        line[tag] = dict(pth_bytes=sz, save_s=s_s, load_s=l_s)
+    return pth, exs["pth"], group
+
+
+def bridges_cli_start(pth, tmp, device="cuda"):
+    """(b) Both command lines started together: ``--synthetic`` on the .pth
+    (the r5 npz's config as the run's ``config.json``) and on the npz, on
+    ``device``."""
+    import subprocess
+    from d3feat_tpu_torch.compat.portable import read_npz
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    npz = os.path.join(here, "artifacts", "model_best_acc_r5.npz")
+    run = os.path.join(tmp, "r5_run")
+    os.makedirs(run)
+    with open(os.path.join(run, "config.json"), "w") as f:
+        json.dump(read_npz(npz)[2]["config"], f)
+    base = [sys.executable, "-m", "d3feat_tpu_torch.test_3dmatch", "--synthetic",
+            *(["--cpu"] if device == "cpu" else [])]
+    cmds = {"pth": base + ["--chosen_snapshot", run, "--torch_checkpoint", pth],
+            "npz": base + ["--snapshot", npz]}
+    return {k: (subprocess.Popen(c, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True), time.perf_counter())
+            for k, c in cmds.items()}
+
+
+def bridges_cli_finish(procs, line, card):
+    import subprocess
+
+    got, secs = {}, {}
+    for k, (p, t) in procs.items():
+        try:
+            out, err = p.communicate(timeout=CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"bridges (b): the {k} command line ran past {CLI_TIMEOUT_S} s")
+        secs[k] = time.perf_counter() - t
+        check(p.returncode == 0, f"bridges (b): the {k} command line exited "
+              f"{p.returncode}:\n{err[-3000:]}")
+        got[k] = json.loads(out.strip().splitlines()[-1])
+    check(got["pth"] == got["npz"], f"bridges (b): --torch_checkpoint {got['pth']} vs "
+          f"--snapshot {got['npz']}")
+    phase(f"bridges (b): test_3dmatch --synthetic on the .pth equals it on the npz: "
+          f"{json.dumps(got['pth'])} ({secs['pth']:.1f} s and {secs['npz']:.1f} s of wall, "
+          f"run together beside (c), on {card})")
+    line["cli"] = dict(result=got["pth"], pth_s=secs["pth"], npz_s=secs["npz"])
+
+
+def native_row_diffs(a, b, thr, nat, npy):
+    """Rows where ``_nn_within``'s native route (``nat``) and its numpy route
+    (``npy``) part, queries ``a`` against targets ``b``: (rows, rows that
+    the two routes' own arithmetic does not explain, the largest gap in
+    float32 ulps of thr²). The native search computes in float32, numpy in
+    float64: a row is explained when the routes pick different targets and
+    each is nearest by its own arithmetic (a tie), or when the target's
+    squared distance lies on one side of thr² in float32 and on the other
+    in float64 (the threshold)."""
+    import numpy as np
+
+    a32, b32 = a.astype(np.float32), b.astype(np.float32)
+    r2_32, r2_64 = np.float32(thr) * np.float32(thr), float(thr) ** 2
+    ulp = float(np.spacing(r2_32))
+
+    def d2_32(r, j):  # the native's arithmetic: float32, no contraction
+        dx, dy, dz = (b32[j] - a32[r]).tolist()
+        dx, dy, dz = np.float32(dx), np.float32(dy), np.float32(dz)
+        return (dx * dx + dy * dy) + dz * dz
+
+    def d2_64(r, j):
+        return float(np.sum((b[j] - a[r]) ** 2))
+
+    (i_n, ok_n), (i_p, ok_p) = nat, npy
+    rows = np.nonzero((ok_n != ok_p) | (ok_n & ok_p & (i_n != i_p)))[0]
+    bad, gap = 0, 0.0
+    for r in rows:
+        if ok_n[r] and ok_p[r]:
+            good = (d2_32(r, i_n[r]) <= d2_32(r, i_p[r])
+                    and d2_64(r, i_p[r]) <= d2_64(r, i_n[r]))
+            g = abs(d2_64(r, i_n[r]) - d2_64(r, i_p[r]))
+        else:
+            j = i_n[r] if ok_n[r] else i_p[r]
+            good = (d2_32(r, j) <= r2_32) == bool(ok_n[r]) and (d2_64(r, j) <= r2_64) == bool(ok_p[r])
+            g = abs(d2_64(r, j) - r2_64)
+        bad += not good
+        gap = max(gap, g / ulp)
+    return len(rows), bad, gap
+
+
+def bridges_native(cfg, frags, pair_name, line, card, device="cuda"):
+    """(c) The native library built from the checkout; ``compute_correspondences``
+    on the training pair on both routes (the search's results recorded as
+    they are made, so the numpy route runs once); ``grid_subsample_batch``
+    of the serving fragments against ``voxel_subsample`` on the card."""
+    import numpy as np
+    import torch
+    from d3feat_tpu_torch import native
+    from d3feat_tpu_torch.data import prepare
+    from d3feat_tpu_torch.data.pack import EVAL_CACHE
+    from d3feat_tpu_torch.ops.build import BUILD_DIR
+    from d3feat_tpu_torch.ops.subsample import voxel_subsample
+
+    t = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t
+    check(os.path.dirname(lib) == BUILD_DIR and native.available(),
+          f"bridges (c): the native library {lib} is not the port's")
+    phase(f"bridges (c): native library {os.path.relpath(lib)} built (or found) in "
+          f"{build_s:.2f} s by g++ on the host of {card}")
+
+    fname, key = pair_name.split(":")
+    i, j = key.split("_")[1:]
+    with np.load(os.path.join(EVAL_CACHE, fname), allow_pickle=False) as z:
+        src, tgt = (np.asarray(z[f"frag_{k}"], np.float32) for k in (i, j))
+        pose = np.asarray(z[key], np.float64)
+    calls = []
+    orig = prepare._nn_within
+
+    def recording(a, b, thr, use_native=True):
+        out = orig(a, b, thr, use_native)
+        calls.append((use_native, a, b, out))
+        return out
+
+    corr, secs = {}, {}
+    prepare._nn_within = recording
+    try:
+        for use_native in (True, False):
+            t = time.perf_counter()
+            corr[use_native] = prepare.compute_correspondences(src, tgt, pose, CORR_RADIUS,
+                                                               mutual=True,
+                                                               use_native=use_native)
+            secs[use_native] = time.perf_counter() - t
+    finally:
+        prepare._nn_within = orig
+    rows, bad, gap = 0, 0, 0.0
+    nat = [c for c in calls if c[0]]
+    npy = [c for c in calls if not c[0]]
+    for (_, a, b, n_out), (_, _, _, p_out) in zip(nat, npy):
+        r, u, g = native_row_diffs(a, b, CORR_RADIUS, n_out, p_out)
+        rows, bad, gap = rows + r, bad + u, max(gap, g)
+    pairs = {tuple(p) for p in corr[True].tolist()} ^ {tuple(p) for p in corr[False].tolist()}
+    check(len(nat) == len(npy) == 2 and bad == 0,
+          f"bridges (c): {bad} of {rows} differing search rows not explained by float32 "
+          f"rounding")
+    phase(f"bridges (c): compute_correspondences on {pair_name} ({len(src)} + {len(tgt)} "
+          f"points, radius {CORR_RADIUS}, mutual): native {secs[True]:.3f} s "
+          f"({len(corr[True])} pairs), numpy {secs[False]:.3f} s ({len(corr[False])} pairs), "
+          f"on the host of {card}; {rows} search rows differ ({bad} unexplained, largest gap "
+          f"{gap:.3g} float32 ulps of r²), {len(pairs)} correspondences differ")
+    line["native"] = dict(build_s=build_s, pair=pair_name, native_s=secs[True],
+                          numpy_s=secs[False], pairs_native=len(corr[True]),
+                          pairs_numpy=len(corr[False]), differing_rows=rows,
+                          differing_pairs=len(pairs))
+
+    group = frags[:2]
+    pts = np.concatenate(group).astype(np.float32)
+    lens = np.array([len(f) for f in group], np.int32)
+    dl = cfg.first_subsampling_dl
+    t = time.perf_counter()
+    h_pts, h_lens, h_over = native.grid_subsample_batch(pts, lens, dl)
+    host_s = time.perf_counter() - t
+    pts_d, lens_d = torch.from_numpy(pts).to(device), torch.from_numpy(lens).to(device)
+    voxel_subsample(pts_d, lens_d, dl, out_capacity=len(pts), num_clouds=2)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = voxel_subsample(pts_d, lens_d, dl, out_capacity=len(pts), num_clouds=2)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t
+    d_lens = res.lengths.cpu().numpy()
+    d_pts = res.points[:int(d_lens.sum())].cpu().numpy()
+    check(not h_over and not bool(res.overflow) and np.array_equal(h_lens, d_lens),
+          f"bridges (c): voxel counts native {h_lens.tolist()} vs the card's {d_lens.tolist()}")
+    s = 0
+    for n in h_lens:  # barycentres as sets, as tests/test_native.py compares them
+        a = np.asarray(sorted(map(tuple, np.round(h_pts[s:s + n], 5))))
+        b = np.asarray(sorted(map(tuple, np.round(d_pts[s:s + n], 5))))
+        check(np.allclose(a, b, atol=1e-4, rtol=0), "bridges (c): barycentres differ")
+        s += n
+    row_diff = float(np.abs(h_pts - d_pts).max())
+    phase(f"bridges (c): grid_subsample_batch at {dl} of {lens.tolist()} points: "
+          f"{h_lens.tolist()} voxels as voxel_subsample on the card, barycentres equal as "
+          f"sets (atol 1e-4; row by row within {row_diff:.3g}); host {host_s * 1e3:.2f} ms, "
+          f"card {dev_s * 1e3:.2f} ms (one call, events not used), on {card}")
+    line["native"].update(voxels=h_lens.tolist(), subsample_host_ms=host_s * 1e3,
+                          subsample_card_ms=dev_s * 1e3, barycentre_row_diff=row_diff)
+
+
+def bridges_utils(cfg, frags, ex, group, tmp, line, timer, card, device="cuda"):
+    """(d) ``trace`` around one extraction call with an ``annotate``
+    region, the timer's report, and ``accuracy``/``iou`` of a KPCNN
+    forward's logits on the card against the same functions on host
+    copies."""
+    import glob
+    import re as re_
+
+    import numpy as np
+    import torch
+    from d3feat_tpu_torch.models.kpcnn import apply_kpcnn, init_kpcnn
+    from d3feat_tpu_torch.ops.neighbors import permute_rows
+    from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+    from d3feat_tpu_torch.utils.metrics import accuracy, iou
+    from d3feat_tpu_torch.utils.profiling import TRACE_FILE, annotate, trace
+
+    logdir = os.path.join(tmp, "trace")
+    region = "bridges_extraction"
+    reset_launches()
+    with trace(logdir):
+        with annotate(region):
+            ex.extract_many(group)
+        torch.cuda.synchronize()
+    launched = sum(launches_by_kernel().values())
+    path = os.path.join(logdir, TRACE_FILE)
+    check(os.path.exists(path), f"bridges (d): no trace at {path}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    check(any(e.get("name") == region for e in events),
+          f"bridges (d): the trace holds no {region!r} region")
+    names = set()
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "d3feat_tpu_torch", "ops",
+                       "cuda")
+    for fn in glob.glob(os.path.join(src, "*.cu*")):
+        with open(fn) as f:
+            names.update(re_.findall(PORT_KERNELS_RE, f.read()))
+    traced = {}
+    for e in events:
+        n = stage_name(str(e.get("name", "")))
+        if e.get("cat") == "kernel" and n in names:
+            traced[n] = traced.get(n, 0) + 1
+    phase(f"bridges (d): trace of one extraction call, {len(events)} events, {region!r} "
+          f"region present; the port's kernels in it {traced} ({sum(traced.values())} "
+          f"events) beside {launched} wrapper launches (information: a profile can leave "
+          f"ctypes launches out), on {card}")
+    print("bridges (d): SectionTimer report\n" + timer.report(), flush=True)
+
+    kcfg = route_config(cfg, num_classes=40)
+    kpcnn = init_kpcnn(kcfg, seed=2, device=device)
+    serving = packed_batch(group, kcfg.caps.points[0], device)
+    pyr = build_pyramid(serving["points"], serving["lengths"],
+                        spec=make_pyramid_spec(kcfg, num_clouds=2))
+    with torch.no_grad():
+        logits = apply_kpcnn(kpcnn, dict(pyr, features=permute_rows(
+            serving["features"], pyr["band"][0]["order"]))).logits
+    labels = torch.from_numpy(np.random.default_rng(BRIDGE_LABELS_SEED).integers(
+        0, 40, logits.shape[0])).to(device)
+    acc_d, acc_h = accuracy(logits, labels), accuracy(logits.cpu().numpy(), labels.cpu().numpy())
+    iou_d = iou(logits.argmax(-1), labels, 40)
+    iou_h = iou(logits.cpu().numpy().argmax(-1), labels.cpu().numpy(), 40)
+    check(logits.device.type == torch.device(device).type and acc_d == acc_h and np.array_equal(iou_d, iou_h),
+          f"bridges (d): metrics on the card's logits {acc_d} differ from the host copies' {acc_h}")
+    phase(f"bridges (d): KPCNN logits {tuple(logits.shape)} on the card scored as their host "
+          f"copies: accuracy {acc_d}, mean IoU {float(iou_d.mean()):.6g}")
+    line["utils"] = dict(trace_events=len(events), traced_kernels=traced,
+                         wrapper_launches=launched, accuracy=acc_d,
+                         mean_iou=float(iou_d.mean()), timer=timer.report().splitlines())
+
+
+def bridges_phase(cfg, model, frags, pair_name, models, report, card, device="cuda"):
+    """Phase 13: the reference ``.pth`` bridges, the native host geometry,
+    and the metrics and profiling utilities, subphases (a)-(d) of the
+    module docstring; K1-K3's launches in (a)'s counted extractions go into
+    ``report`` as ``bridges_phase_launches``. Returns the JSON line's dict."""
+    import tempfile
+
+    from d3feat_tpu_torch.utils.profiling import SectionTimer
+
+    t = time.perf_counter()
+    line = {"card": card}
+    acc = {}
+    timer = SectionTimer()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bridges_") as tmp:
+        pth, ex, group = bridges_round_trip(cfg, model, frags, models, tmp, line, acc, timer,
+                                            card, device)
+        procs = bridges_cli_start(pth, tmp, device)
+        try:  # the command lines run while (c) runs here
+            bridges_native(cfg, frags, pair_name, line, card, device)
+            bridges_cli_finish(procs, line, card)
+        finally:
+            for p, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bridges_utils(cfg, frags, ex, group, tmp, line, timer, card, device)
+    for name, *_ in KERNELS:
+        if name in report:
+            report[name]["bridges_phase_launches"] = acc.get(name, 0)
+    line["launches"] = {k: v for k, v in acc.items() if v}
+    line["seconds"] = time.perf_counter() - t
+    phase(f"bridges: {line['seconds']:.1f} s on {card}")
     return line
 
 
@@ -3229,7 +3633,11 @@ def main():
     phase("gather route")
     gather_line = gather_phase(cfg, model, frags, batch, report, smi)
     phase("variants: batch norm, deformable KPConv, randomised kernel points, KPCNN")
-    variants_line = variants_phase(cfg, frags, batch, report, smi)
+    trained = {}
+    variants_line = variants_phase(cfg, frags, batch, report, smi, keep=trained)
+    phase("bridges: the reference .pth, native host geometry, metrics and profiling")
+    bridges_line = bridges_phase(cfg, model, frags, name, trained, report, smi)
+    del trained
 
     kernels = []
     for name, _, _, _, src, replaces in KERNELS:
@@ -3242,6 +3650,7 @@ def main():
         if "gather_phase_launches" in r:  # off the main path: its launches in phase 11
             kernels[-1]["gather_phase_launches"] = r["gather_phase_launches"]
         kernels[-1]["variants_phase_launches"] = r["variants_phase_launches"]  # phase 12
+        kernels[-1]["bridges_phase_launches"] = r["bridges_phase_launches"]  # phase 13
     phase("library_ms: K3's sums and K5 by one cuSPARSE SpMM of their lists as a CSR of "
           "ones; null for the others, which no single PyTorch call computes (each includes "
           "the threshold selection of its rows)")
@@ -3252,6 +3661,7 @@ def main():
     print(json.dumps({"data_parallel": dp_line}), flush=True)
     print(json.dumps({"gather_route": gather_line}), flush=True)
     print(json.dumps({"variants": variants_line}), flush=True)
+    print(json.dumps({"bridges": bridges_line}), flush=True)
     print(json.dumps({"fragments_per_s": fps, "fragments_per_s_bf16": fps_bf16,
                       "train_steps_per_s": sps, "train_steps_per_s_bf16": sps_bf16,
                       "card": smi}), flush=True)

@@ -23,7 +23,11 @@ on the pair datasets (``data/synthetic.py``, ``data/threedmatch.py``,
 snapshots (``train/checkpoint.py``) and the portable npz both ways
 (``compat/portable.py``), driven by ``python3 -m
 d3feat_tpu_torch.train_3dmatch`` on a corpus that ``python3 -m
-d3feat_tpu_torch.gen_corpus`` writes.
+d3feat_tpu_torch.gen_corpus`` writes. Reference ``.pth`` checkpoints go
+both ways through ``compat/torch_export.py`` and ``compat/torch_import.py``;
+``native/`` builds the host geometry (``g++``) that ``data/prepare.py``
+searches with; ``utils/metrics.py`` and ``utils/profiling.py`` are the
+classification metrics and ``torch.profiler`` helpers.
 
 Entry points default to ``device="cuda"`` and raise when CUDA is missing;
 tests pass ``device="cpu"`` explicitly.

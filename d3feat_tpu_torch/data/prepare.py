@@ -11,9 +11,13 @@ pickles in exactly the layout the training dataset consumes.
 
 Correspondences: target points are moved into the source frame by the GT
 pose; each source point matches its nearest target point within
-``threshold`` (mutual filtering optional). The neighbor search is the
-JAX package's numpy route (chunked brute force); its native C++ route
-(``d3feat_tpu/native/``) is not ported.
+``threshold`` (mutual filtering optional). The neighbor search takes the
+native C++ cell-grid route (``d3feat_tpu_torch/native/``, OpenMP) by
+default, or the chunked numpy brute force with ``use_native=False``. The
+native search computes in float32, numpy in float64: they can part only
+where that rounding decides, on a tie between near-equidistant targets or
+a distance at the threshold. Unlike the JAX package, a native build or
+load failure raises: there is no silent fallback to numpy.
 """
 
 from __future__ import annotations
@@ -31,10 +35,17 @@ from d3feat_tpu_torch.data.threedmatch import voxel_downsample
 from d3feat_tpu_torch.eval.gtlog import load_gt_log
 
 
-def _nn_within(src: np.ndarray, tgt: np.ndarray, threshold: float
-               ) -> Tuple[np.ndarray, np.ndarray]:
+def _nn_within(src: np.ndarray, tgt: np.ndarray, threshold: float,
+               use_native: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """For each src point: (nearest tgt index, within-threshold mask), by
-    chunked brute force."""
+    the native radius search or (``use_native=False``) chunked brute force."""
+    if use_native:
+        from d3feat_tpu_torch import native
+
+        nbrs = native.radius_neighbors_batch(src, tgt, [len(src)], [len(tgt)], threshold,
+                                             1)[:, 0]
+        ok = nbrs < len(tgt)
+        return np.where(ok, nbrs, 0), ok
     idx = np.zeros(len(src), np.int64)
     ok = np.zeros(len(src), bool)
     for i0 in range(0, len(src), 2048):
@@ -53,15 +64,17 @@ def compute_correspondences(
     threshold: float,
     *,
     mutual: bool = True,
+    use_native: bool = True,
 ) -> np.ndarray:
     """[M, 2] (src_idx, tgt_idx) pairs within ``threshold`` after moving the
-    target cloud into the source frame by the 4x4 GT pose ``trans``."""
+    target cloud into the source frame by the 4x4 GT pose ``trans``; the
+    search by ``_nn_within``'s route ``use_native``."""
     tgt_in_src = tgt @ trans[:3, :3].T + trans[:3, 3]
-    s2t, ok_s = _nn_within(src, tgt_in_src, threshold)
+    s2t, ok_s = _nn_within(src, tgt_in_src, threshold, use_native)
     if not mutual:
         src_idx = np.nonzero(ok_s)[0]
         return np.stack([src_idx, s2t[src_idx]], axis=1).astype(np.int32)
-    t2s, ok_t = _nn_within(tgt_in_src, src, threshold)
+    t2s, ok_t = _nn_within(tgt_in_src, src, threshold, use_native)
     src_idx = np.nonzero(ok_s)[0]
     keep = t2s[s2t[src_idx]] == src_idx
     keep &= ok_t[s2t[src_idx]]
@@ -84,6 +97,7 @@ def prepare_split(
     min_overlap_pairs: int = 1,
     out_dir: Optional[str] = None,
     verbose: bool = False,
+    use_native: bool = True,
 ) -> Tuple[str, str]:
     """Build the training pickles for ``scenes``.
 
@@ -127,7 +141,7 @@ def prepare_split(
             if i >= len(clouds) or j >= len(clouds):
                 continue
             corr = compute_correspondences(
-                clouds[i], clouds[j], pose, threshold
+                clouds[i], clouds[j], pose, threshold, use_native=use_native
             )
             if len(corr) >= min_overlap_pairs:
                 keypts[f"{scene}/cloud_bin_{i}@{scene}/cloud_bin_{j}"] = corr

@@ -8,10 +8,15 @@ pointers, sizes and a ``cudaStream_t``, launch on that stream and return
 the shared ``.cuh`` headers and the flags, under a file lock so concurrent
 processes build it once.
 Nothing here needs the PyTorch headers or ninja.
+
+``build_host`` compiles a host C++ source (``native/src/geometry.cpp``)
+with ``g++`` and ``HOST_FLAGS`` the same way: into ``_build/``, keyed on a
+hash of the source and the flags, under the same lock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -28,6 +33,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # every fused multiply-add is an explicit __fmaf_rn.
 NVCC_FLAGS = ("-O3", "-std=c++17", "-arch=sm_90a", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC")
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 
 # every kernel source under cuda/; the first load builds all that are missing
 KERNELS = ("select", "band_lists", "band_conv", "head", "band_conv_bwd", "head_bwd")
@@ -54,17 +61,23 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """``BUILD_DIR``'s file lock, held exclusively."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
 def build(names: Iterable[str]) -> Dict[str, float]:
     """Compile every named kernel source that has no up-to-date library,
     one ``nvcc`` process per source, all started together. Returns the
     seconds each build took (0.0 when it was already built)."""
     import time
 
-    os.makedirs(BUILD_DIR, exist_ok=True)
     names = list(names)
-    lock_path = os.path.join(BUILD_DIR, ".lock")
-    with open(lock_path, "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with _build_lock():
         procs = {}
         t0 = time.perf_counter()
         for name in names:
@@ -87,6 +100,35 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         if errors:
             raise RuntimeError("\n".join(errors))
     return secs
+
+
+def host_target(src: str) -> str:
+    """Library path of the host source ``src``, keyed on it and ``HOST_FLAGS``."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    with open(src, "rb") as fh:
+        h.update(fh.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"host_{stem}-{h.hexdigest()[:16]}.so")
+
+
+def build_host(src: str) -> str:
+    """Compile the host C++ source ``src`` with ``g++`` and ``HOST_FLAGS``
+    unless its library is up to date; returns the library's path. A failed
+    build raises with the compiler's log."""
+    so = host_target(src)
+    with _build_lock():
+        if os.path.exists(so):
+            return so
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("g++ not found on PATH")
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {src} (rc {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, so)
+    return so
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,8 +18,11 @@ whole pipeline hermetically on generated fragments with exact poses.
 ``--snapshot`` takes the portable npz (default: the config's random init,
 the port's own stream); ``--chosen_snapshot`` a snapshot directory of the
 port's trainer (its ``config.json`` and the snapshot ``--snapshot_name``,
-default ``model_best_acc``). ``--torch_checkpoint`` (reference ``.pth``
-files) is not ported yet. Without ``--cpu`` it needs a CUDA device.
+default ``model_best_acc``). ``--torch_checkpoint`` takes a reference
+``.pth`` (``compat/torch_import.py::load_torch_checkpoint``; the layout
+that either package's ``save_torch_checkpoint`` writes), on the config of
+``--chosen_snapshot``'s ``config.json`` when that is given, else
+``D3FeatConfig()``. Without ``--cpu`` it needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ def parse_args(argv=None):
     p.add_argument("--chosen_snapshot", type=str, default="",
                    help="snapshot directory of the port's trainer (config.json + snapshots)")
     p.add_argument("--torch_checkpoint", type=str, default="",
-                   help="reference .pth checkpoint (not ported yet)")
+                   help="reference .pth checkpoint (its config from --chosen_snapshot's "
+                   "config.json, else the default config)")
     p.add_argument("--snapshot_name", type=str, default="model_best_acc")
     p.add_argument("--inlier_ratio_threshold", default=0.05, type=float)
     p.add_argument("--distance_threshold", default=0.10, type=float)
@@ -56,16 +60,19 @@ def parse_args(argv=None):
 
 
 def load_model(args, device):
-    """(config, model): the npz's weights, the snapshot directory's
-    (``--chosen_snapshot``, ``--snapshot_name``), or the default config's
-    init."""
+    """(config, model): the ``.pth``'s weights (``--torch_checkpoint``), the
+    npz's, the snapshot directory's (``--chosen_snapshot``,
+    ``--snapshot_name``), or the default config's init."""
     from d3feat_tpu_torch.config import D3FeatConfig
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
 
     if args.torch_checkpoint:
-        raise NotImplementedError("--torch_checkpoint: reference .pth import waits for "
-                                  "compat/torch_import.py (ROADMAP Queue 1 item 8)")
-    if args.snapshot or args.chosen_snapshot:
+        from d3feat_tpu_torch.compat.torch_import import load_torch_checkpoint
+
+        config = (D3FeatConfig.from_json(os.path.join(args.chosen_snapshot, "config.json"))
+                  if args.chosen_snapshot else D3FeatConfig())
+        model, _ = load_torch_checkpoint(args.torch_checkpoint, config, device=device)
+    elif args.snapshot or args.chosen_snapshot:
         from d3feat_tpu_torch.final_recall import load_snapshot
 
         config, model, _ = load_snapshot(args.snapshot or args.chosen_snapshot, device,
@@ -147,7 +154,7 @@ def main(argv=None):
 
     save_path = args.save_path or os.path.join(
         "geometric_registration",
-        os.path.splitext(os.path.basename(args.snapshot))[0]
+        os.path.splitext(os.path.basename(args.torch_checkpoint or args.snapshot))[0]
         or os.path.basename(args.chosen_snapshot.rstrip("/")) or "d3feat_tpu_torch")
     testset = ThreeDMatchTestset(config.root, downsample=config.downsample)
 

@@ -278,16 +278,33 @@ def test_final_recall_cli_matches_jax(weights, tmp_path, capsys, monkeypatch):
     assert got["recall_gain"] == got["recall_trained"] - got["recall_init"]
 
 
-def test_recall_entry_points_refuse(weights, tmp_path):
+def test_recall_entry_points_refuse(weights, tmp_path, capsys):
     from d3feat_tpu_torch import final_recall
     from d3feat_tpu_torch import test_3dmatch as t_3dmatch
+    from d3feat_tpu_torch.compat.torch_export import save_torch_checkpoint
 
     # a snapshot directory loads (tests/test_torch_train_cli.py); one
     # without the run's config.json is refused
     with pytest.raises(FileNotFoundError, match="config.json"):
         t_3dmatch.main(["--synthetic", "--cpu", "--chosen_snapshot", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="torch_import"):
-        t_3dmatch.main(["--synthetic", "--cpu", "--torch_checkpoint", "model.pth"])
+    # a reference .pth of the same weights, on the config of --chosen_snapshot's
+    # config.json, gives the npz route's JSON; a missing one is refused
+    jcfg, _, _, model, npz = weights
+    run = tmp_path / "run"
+    run.mkdir()
+    (run / "config.json").write_text(json.dumps(jcfg.to_dict()))
+    pth = str(tmp_path / "small.pth")
+    save_torch_checkpoint(pth, model, torch_config(jcfg), epoch=3)
+    capsys.readouterr()
+    assert t_3dmatch.main(["--synthetic", "--cpu", "--chosen_snapshot", str(run),
+                           "--torch_checkpoint", pth]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert t_3dmatch.main(["--synthetic", "--cpu", "--snapshot", npz]) == 0
+    assert got == json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["scene"] == "synthetic" and got["recall"] is not None
+    with pytest.raises(FileNotFoundError):
+        t_3dmatch.main(["--synthetic", "--cpu", "--torch_checkpoint",
+                        str(tmp_path / "missing.pth")])
     with pytest.raises(FileNotFoundError, match="config.json"):
         final_recall.main(["--cpu", "--snapshot", str(tmp_path)])
     if not torch.cuda.is_available():  # no silent CPU fallback

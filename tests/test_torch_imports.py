@@ -55,7 +55,10 @@ for m in ("d3feat_tpu_torch.bench", "d3feat_tpu_torch.data.synthetic",
           "d3feat_tpu_torch.train.checkpoint", "d3feat_tpu_torch.train.logging_utils",
           "d3feat_tpu_torch.train.trainer", "d3feat_tpu_torch.train_3dmatch",
           "d3feat_tpu_torch.gen_corpus", "d3feat_tpu_torch.models.kpcnn",
-          "d3feat_tpu_torch.models.kernel_points", "d3feat_tpu_torch.losses.regularizers"):
+          "d3feat_tpu_torch.models.kernel_points", "d3feat_tpu_torch.losses.regularizers",
+          "d3feat_tpu_torch.compat.torch_export", "d3feat_tpu_torch.compat.torch_import",
+          "d3feat_tpu_torch.native", "d3feat_tpu_torch.utils.metrics",
+          "d3feat_tpu_torch.utils.profiling"):
     assert m in mods, m
 print(len(mods))
 '''

@@ -1,8 +1,8 @@
 """Port vs JAX: the 3DMatch training data path on files the test writes
 (the download is not in the repository): ``prepare_split`` from fragment
-PLYs and a gt log against the JAX package's numpy route (its native
-neighbour search switched off from the test side), pickles equal byte for
-byte; ``compute_correspondences`` with and without the mutual filter; then
+PLYs and a gt log against the JAX package's, on its numpy route (JAX's
+native neighbour search switched off from the test side) and on both
+packages' native route, pickles equal byte for byte; ``compute_correspondences`` with and without the mutual filter; then
 ``ThreeDMatchPairDataset.get_pair`` and ``packed`` draw for draw,
 including ``self_augment``, the oversize resample (``max_points``) and the
 capacity resample (``point_capacity``)."""
@@ -68,16 +68,21 @@ def raw_root(tmp_path_factory):
     return root
 
 
-@pytest.fixture(scope="module")
-def prepared(raw_root, tmp_path_factory):
-    """(JAX's pickle paths, the port's) for the train split."""
+@pytest.fixture(scope="module", params=["numpy", "native"])
+def prepared(request, raw_root, tmp_path_factory):
+    """(JAX's pickle paths, the port's) for the train split, the
+    correspondence search on one route in both packages: numpy (JAX's
+    native search switched off from the test side, the port's by
+    ``use_native=False``) or native (both packages' defaults)."""
     out = {}
+    use_native = request.param == "native"
     orig = JP._nn_within
-    JP._nn_within = functools.partial(orig, use_native=False)
+    if not use_native:
+        JP._nn_within = functools.partial(orig, use_native=False)
     try:
-        for tag, mod in (("jax", JP), ("port", TP)):
+        for tag, mod, kw in (("jax", JP, {}), ("port", TP, {"use_native": use_native})):
             out[tag] = mod.prepare_split(raw_root, SCENES, split="train", downsample=DOWNSAMPLE,
-                                         out_dir=str(tmp_path_factory.mktemp(tag)))
+                                         out_dir=str(tmp_path_factory.mktemp(tag)), **kw)
     finally:
         JP._nn_within = orig
     return out
