@@ -225,11 +225,12 @@ JAX package. Besides the kernels' build directory
    serving fragments at ``first_subsampling_dl`` against
    ``ops/subsample.py::voxel_subsample`` on the card: counts per cloud
    equal, barycentres equal as sets (atol 1e-4, as ``tests/test_native.py``);
-   (d) ``utils/profiling.py``: ``SectionTimer`` (synchronising on the card)
-   around (a)'s save, load and extractions, its report printed; ``trace``
-   around one extraction call with an ``annotate`` region, which the trace
-   file must hold, the port's kernel events in it counted (information: a
-   profile can leave ``ctypes`` launches out); ``utils/metrics.py``'s
+   (d) ``utils/profiling.py``: ``trace`` around one extraction call,
+   whose trace file must hold the port's spans (``port.extract[..]``,
+   ``port.extract.step``, ``port.pyramid``, ``port.model.head``,
+   ``port.sync.copy_out``), their counts and host ms printed, the port's
+   kernel events in it counted (information: a profile can leave
+   ``ctypes`` launches out); ``utils/metrics.py``'s
    ``accuracy`` and ``iou`` of a KPCNN forward's logits on the card equal
    to the same functions on the host copies. One JSON line
    ``{"bridges": ...}``;
@@ -3206,7 +3207,7 @@ def round_trip(label, path, model, mcfg, device="cuda", **kw):
     return loaded, meta, save_s, load_s, os.path.getsize(path)
 
 
-def bridges_round_trip(cfg, model, frags, models, tmp, line, acc, timer, card, device="cuda"):
+def bridges_round_trip(cfg, model, frags, models, tmp, line, acc, card, device="cuda"):
     """(a) The r5 model out to a reference-layout ``.pth`` and back, bit for
     bit; the serving batch through ``FeatureExtractor`` with both models,
     each call counted, descriptors and scores equal; then phase 12's batch
@@ -3223,9 +3224,8 @@ def bridges_round_trip(cfg, model, frags, models, tmp, line, acc, timer, card, d
     check(all(torch.equal(sd[k].cpu(), torch.from_numpy(v)) for k, v in params.items()),
           "bridges (a): the serving model no longer holds the r5 npz's weights")
     pth = os.path.join(tmp, "model_best_acc_r5.pth")
-    with timer.section("save and load the r5 .pth", sync=list(model.parameters())[:1]):
-        loaded, meta, save_s, load_s, size = round_trip("bridges (a) r5", pth, model, cfg, device,
-                                                        epoch=114, best_loss=0.0)
+    loaded, meta, save_s, load_s, size = round_trip("bridges (a) r5", pth, model, cfg, device,
+                                                    epoch=114, best_loss=0.0)
     check(meta == {"epoch": 114, "best_loss": 0.0}, f"bridges (a): meta {meta}")
     n_values = sum(v.numel() for v in model.state_dict().values())
     phase(f"bridges (a): r5 ({n_values} values, {len(model.state_dict())} tensors) to a "
@@ -3235,11 +3235,8 @@ def bridges_round_trip(cfg, model, frags, models, tmp, line, acc, timer, card, d
     outs, exs = {}, {}
     for tag, m in (("npz", model), ("pth", loaded)):
         exs[tag] = FeatureExtractor(cfg, m, batch_fragments=2, device=device)
-        sync = []
-        with timer.section(f"extract, r5 from the {tag}", sync=sync):
-            outs[tag], c = counted(f"bridges (a) extraction, r5 from the {tag}",
-                                   lambda: exs[tag].extract_many(group), acc)
-            sync.append(list(m.parameters())[:1])
+        outs[tag], c = counted(f"bridges (a) extraction, r5 from the {tag}",
+                               lambda: exs[tag].extract_many(group), acc)
         need(c, f"bridges (a) extraction ({tag})", ("K1 select", "K2/K4 band_lists",
                                                     "K2 band_conv", "K3 band_head"))
     diff = max(max(float(np.abs(a - b).max()) for a, b in zip(x, y))
@@ -3440,11 +3437,10 @@ def bridges_native(cfg, frags, pair_name, line, card, device="cuda"):
                           subsample_card_ms=dev_s * 1e3, barycentre_row_diff=row_diff)
 
 
-def bridges_utils(cfg, frags, ex, group, tmp, line, timer, card, device="cuda"):
-    """(d) ``trace`` around one extraction call with an ``annotate``
-    region, the timer's report, and ``accuracy``/``iou`` of a KPCNN
-    forward's logits on the card against the same functions on host
-    copies."""
+def bridges_utils(cfg, frags, ex, group, tmp, line, card, device="cuda"):
+    """(d) ``trace`` around one extraction call, whose file must hold the
+    port's spans, and ``accuracy``/``iou`` of a KPCNN forward's logits on
+    the card against the same functions on host copies."""
     import glob
     import re as re_
 
@@ -3454,22 +3450,28 @@ def bridges_utils(cfg, frags, ex, group, tmp, line, timer, card, device="cuda"):
     from d3feat_tpu_torch.ops.neighbors import permute_rows
     from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
     from d3feat_tpu_torch.utils.metrics import accuracy, iou
-    from d3feat_tpu_torch.utils.profiling import TRACE_FILE, annotate, trace
+    from d3feat_tpu_torch.utils.profiling import TRACE_FILE, trace
 
     logdir = os.path.join(tmp, "trace")
-    region = "bridges_extraction"
     reset_launches()
     with trace(logdir):
-        with annotate(region):
-            ex.extract_many(group)
+        ex.extract_many(group)
         torch.cuda.synchronize()
     launched = sum(launches_by_kernel().values())
     path = os.path.join(logdir, TRACE_FILE)
     check(os.path.exists(path), f"bridges (d): no trace at {path}")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    check(any(e.get("name") == region for e in events),
-          f"bridges (d): the trace holds no {region!r} region")
+    spans = {}  # base name -> [count, host ms]
+    for e in events:
+        n = str(e.get("name", ""))
+        if n.startswith("port.") and e.get("cat") == "cpu_op":  # the host ranges
+            s = spans.setdefault(n.split("[", 1)[0], [0, 0.0])
+            s[0] += 1
+            s[1] += float(e.get("dur", 0.0)) * 1e-3
+    missing = {"port.extract", "port.extract.step", "port.pyramid", "port.model.head",
+               "port.sync.copy_out"} - set(spans)
+    check(not missing, f"bridges (d): the trace holds none of the spans {sorted(missing)}")
     names = set()
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "d3feat_tpu_torch", "ops",
                        "cuda")
@@ -3481,11 +3483,12 @@ def bridges_utils(cfg, frags, ex, group, tmp, line, timer, card, device="cuda"):
         n = stage_name(str(e.get("name", "")))
         if e.get("cat") == "kernel" and n in names:
             traced[n] = traced.get(n, 0) + 1
-    phase(f"bridges (d): trace of one extraction call, {len(events)} events, {region!r} "
-          f"region present; the port's kernels in it {traced} ({sum(traced.values())} "
+    phase(f"bridges (d): trace of one extraction call, {len(events)} events, the port's "
+          f"spans present; the port's kernels in it {traced} ({sum(traced.values())} "
           f"events) beside {launched} wrapper launches (information: a profile can leave "
           f"ctypes launches out), on {card}")
-    print("bridges (d): SectionTimer report\n" + timer.report(), flush=True)
+    print("bridges (d): the port's spans (count, host ms)\n" + "\n".join(
+        f"{n}: {c} x, {ms:.3f} ms" for n, (c, ms) in sorted(spans.items())), flush=True)
 
     kcfg = route_config(cfg, num_classes=40)
     kpcnn = init_kpcnn(kcfg, seed=2, device=device)
@@ -3506,7 +3509,7 @@ def bridges_utils(cfg, frags, ex, group, tmp, line, timer, card, device="cuda"):
           f"copies: accuracy {acc_d}, mean IoU {float(iou_d.mean()):.6g}")
     line["utils"] = dict(trace_events=len(events), traced_kernels=traced,
                          wrapper_launches=launched, accuracy=acc_d,
-                         mean_iou=float(iou_d.mean()), timer=timer.report().splitlines())
+                         mean_iou=float(iou_d.mean()), spans=spans)
 
 
 def bridges_phase(cfg, model, frags, pair_name, models, report, card, device="cuda"):
@@ -3516,15 +3519,12 @@ def bridges_phase(cfg, model, frags, pair_name, models, report, card, device="cu
     ``report`` as ``bridges_phase_launches``. Returns the JSON line's dict."""
     import tempfile
 
-    from d3feat_tpu_torch.utils.profiling import SectionTimer
-
     t = time.perf_counter()
     line = {"card": card}
     acc = {}
-    timer = SectionTimer()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bridges_") as tmp:
-        pth, ex, group = bridges_round_trip(cfg, model, frags, models, tmp, line, acc, timer,
-                                            card, device)
+        pth, ex, group = bridges_round_trip(cfg, model, frags, models, tmp, line, acc, card,
+                                            device)
         procs = bridges_cli_start(pth, tmp, device)
         try:  # the command lines run while (c) runs here
             bridges_native(cfg, frags, pair_name, line, card, device)
@@ -3534,7 +3534,7 @@ def bridges_phase(cfg, model, frags, pair_name, models, report, card, device="cu
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        bridges_utils(cfg, frags, ex, group, tmp, line, timer, card, device)
+        bridges_utils(cfg, frags, ex, group, tmp, line, card, device)
     for name, *_ in KERNELS:
         if name in report:
             report[name]["bridges_phase_launches"] = acc.get(name, 0)

@@ -26,8 +26,10 @@ d3feat_tpu_torch.train_3dmatch`` on a corpus that ``python3 -m
 d3feat_tpu_torch.gen_corpus`` writes. Reference ``.pth`` checkpoints go
 both ways through ``compat/torch_export.py`` and ``compat/torch_import.py``;
 ``native/`` builds the host geometry (``g++``) that ``data/prepare.py``
-searches with; ``utils/metrics.py`` and ``utils/profiling.py`` are the
-classification metrics and ``torch.profiler`` helpers.
+searches with; ``utils/metrics.py`` holds the classification metrics, and
+``utils/profiling.py`` the port's spans and host-sync ranges (``port.*``
+in a ``torch.profiler`` trace, recorded only while a profiler records)
+and the trace exporter.
 
 Entry points default to ``device="cuda"`` and raise when CUDA is missing;
 tests pass ``device="cpu"`` explicitly.

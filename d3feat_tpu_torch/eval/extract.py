@@ -8,6 +8,7 @@ extraction step on the device; the valid rows come back to the host.
 
 from __future__ import annotations
 
+import itertools
 import warnings
 from typing import Dict, Optional, Sequence
 
@@ -19,6 +20,7 @@ from d3feat_tpu_torch.config import D3FeatConfig, PyramidCaps
 from d3feat_tpu_torch.data.pack import choose_bucket, pack_fragments, pack_single
 from d3feat_tpu_torch.eval.registration import FragmentFeatures
 from d3feat_tpu_torch.train.step import make_extract_step
+from d3feat_tpu_torch.utils.profiling import span
 
 DEFAULT_BUCKETS = (4096, 8192, 16384, 32768)
 
@@ -56,6 +58,7 @@ class FeatureExtractor:
         self.on_overflow = on_overflow
         self.impl = impl
         self._steps: Dict[tuple, object] = {}
+        self._calls = itertools.count()  # the ``port.extract`` spans' numbers
 
     def _step_for(self, cap0: int, num_clouds: int):
         key = (cap0, num_clouds)
@@ -67,7 +70,9 @@ class FeatureExtractor:
 
     def _handle_overflow(self, overflow, cap0: int, context: str) -> bool:
         """True when the caller should retry in a larger bucket."""
-        if not bool(overflow):
+        with span("sync.overflow"):
+            overflowed = bool(overflow)
+        if not overflowed:
             return False
         larger = [c for c in self.buckets if c > cap0]
         if self.on_overflow == "retry" and larger:
@@ -76,53 +81,79 @@ class FeatureExtractor:
                f"neighbor lists were truncated and descriptors/scores are degraded. "
                f"Raise the capacity buckets or recalibrate the neighbor caps.")
         if self.on_overflow == "warn":
-            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+            warnings.warn(msg, RuntimeWarning, stacklevel=5)
             return False
         raise RuntimeError(msg)
 
-    def _run(self, step, batch):
-        tensors = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
-        return step(self.model, tensors)
+    def _run(self, step, batch, bucket: int, context: str):
+        """(features, scores, whether to retry in a larger bucket) of one
+        extraction step on the packed ``batch``."""
+        with span("extract.step"):
+            tensors = {k: _to_device(v, self.device) for k, v in batch.items()}
+            feats, scores, overflow = step(self.model, tensors)
+            return feats, scores, self._handle_overflow(overflow, bucket, context)
 
     def extract(self, points: np.ndarray):
         """(descriptors [N, D], scores [N]) for one fragment."""
+        with span("extract", next(self._calls)):
+            return self._extract_one(points)
+
+    def _extract_one(self, points: np.ndarray):
         n = len(points)
         cap0 = choose_bucket(n, self.buckets)
         while True:
-            batch = pack_single(points, np.ones((n, 1), np.float32), point_capacity=cap0)
-            feats, scores, overflow = self._run(self._step_for(cap0, 2), batch)
-            if self._handle_overflow(overflow, cap0, f"fragment of {n} pts"):
+            with span("extract.pack"):
+                batch = pack_single(points, np.ones((n, 1), np.float32), point_capacity=cap0)
+            feats, scores, retry = self._run(self._step_for(cap0, 2), batch, cap0,
+                                             f"fragment of {n} pts")
+            if retry:
                 cap0 = min(c for c in self.buckets if c > cap0)
                 continue
-            return feats[:n].cpu().numpy(), scores[:n, 0].cpu().numpy()
+            with span("extract.copy_out"):
+                return _to_host(feats[:n]), _to_host(scores[:n, 0])
 
     def extract_many(self, clouds):
         """[(descriptors, scores)] for a list of fragments,
         ``batch_fragments`` per step."""
+        with span("extract", next(self._calls)):
+            if self.batch_fragments == 1:
+                return [self._extract_one(c) for c in clouds]
+            return self._extract_groups(clouds)
+
+    def _extract_groups(self, clouds):
         b = self.batch_fragments
-        if b == 1:
-            return [self.extract(c) for c in clouds]
         results = []
         for i in range(0, len(clouds), b):
             group = clouds[i : i + b]
             per_frag = choose_bucket(max(len(c) for c in group), self.buckets)
             while True:
                 cap0 = per_frag * b
-                batch = pack_fragments(group, point_capacity=cap0, num_clouds=b)
-                feats, scores, overflow = self._run(self._step_for(cap0, b), batch)
-                if self._handle_overflow(overflow, per_frag,
-                                         f"group of {len(group)} fragments"):
+                with span("extract.pack"):
+                    batch = pack_fragments(group, point_capacity=cap0, num_clouds=b)
+                feats, scores, retry = self._run(self._step_for(cap0, b), batch, per_frag,
+                                                 f"group of {len(group)} fragments")
+                if retry:
                     per_frag = min(c for c in self.buckets if c > per_frag)
                     continue
                 break
-            feats = feats.cpu().numpy()
-            scores = scores.cpu().numpy()
+            with span("extract.copy_out"):
+                feats, scores = _to_host(feats), _to_host(scores)
             row = 0
             for c in group:
                 n = len(c)
                 results.append((feats[row : row + n], scores[row : row + n, 0]))
                 row += n
         return results
+
+
+def _to_device(array: np.ndarray, device) -> torch.Tensor:
+    with span("sync.copy_in"):  # pageable memory: the copy blocks the host
+        return torch.from_numpy(array).to(device)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    with span("sync.copy_out"):
+        return t.cpu().numpy()
 
 
 def generate_features(

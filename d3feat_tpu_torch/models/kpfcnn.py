@@ -30,6 +30,7 @@ from torch import nn
 from d3feat_tpu_torch import resolve_device
 from d3feat_tpu_torch.models.blocks import BlockSpec, classify_block, make_block
 from d3feat_tpu_torch.models.kernel_points import load_kernels
+from d3feat_tpu_torch.utils.profiling import device_tensor, span
 
 
 @dataclass(frozen=True)
@@ -181,7 +182,8 @@ def detection_scores(batch, features: torch.Tensor, *, config, train: bool = Fal
         cidc = torch.clamp(lengths_to_cloud_ids(lengths, f.shape[0]), max=num_clouds - 1).long()
         rowmax = f.amax(1)
         cmax = torch.stack([
-            torch.where(cidc == b, rowmax, torch.tensor(-torch.inf, device=f.device)).amax()
+            torch.where(cidc == b, rowmax,
+                        device_tensor(-torch.inf, f.device, site="const.head")).amax()
             for b in range(num_clouds)])
         f = f / (cmax[cidc, None] + 1e-6)
     else:
@@ -251,18 +253,21 @@ def _forward(model: KPFCNN, batch, train: bool, per_cloud_norm: bool, impl: str,
     for i, block in enumerate(model.encoder):
         if i in specs.encoder_skips:
             skips.append(x)
-        x, aux = block(x, batch, impl=impl, compute_dtype=compute_dtype, train=train)
+        with span("model.block", ("enc", i, specs.encoder[i].name)):
+            x, aux = block(x, batch, impl=impl, compute_dtype=compute_dtype, train=train)
         if aux is not None:
             auxes.append(aux)
     for i, block in enumerate(model.decoder):
         if i in specs.decoder_concats:
             x = torch.cat([x, skips.pop()], 1)
-        x, aux = block(x, batch, impl=impl, compute_dtype=compute_dtype, train=train)
+        with span("model.block", ("dec", i, specs.decoder[i].name)):
+            x, aux = block(x, batch, impl=impl, compute_dtype=compute_dtype, train=train)
         if aux is not None:
             auxes.append(aux)
     x = x * mask0[:, None]
-    scores = detection_scores(batch, x, config=model.config, train=train,
-                              per_cloud_norm=per_cloud_norm, impl=impl)
+    with span("model.head"):
+        scores = detection_scores(batch, x, config=model.config, train=train,
+                                  per_cloud_norm=per_cloud_norm, impl=impl)
     # safe L2 normalisation: zero (padding) rows stay zero with finite
     # gradients (the reference's double-where)
     norm2 = (x * x).sum(-1, keepdim=True)

@@ -33,6 +33,7 @@ import torch
 
 from d3feat_tpu_torch.ops import build
 from d3feat_tpu_torch.ops.select import tile_windows
+from d3feat_tpu_torch.utils.profiling import span
 
 LCAP = 64   # the narrowest lists' width (band_lists.cuh: LSEG)
 LMAX = 256  # the widest (K1's largest cap)
@@ -83,7 +84,9 @@ def transpose_lists_plain(lists: BandLists, n_rows: int):
     bounds = torch.arange(n_rows + 1, device=flat.device, dtype=rows.dtype)
     row_ptr = torch.searchsorted(rows, bounds).to(torch.int32)
     pairs = pairs.to(torch.int32)
-    pairs[int(row_ptr[-1]):] = 0  # past the entries: unused
+    with span("sync.transpose_end"):
+        end = int(row_ptr[-1])
+    pairs[end:] = 0  # past the entries: unused
     return row_ptr, pairs
 
 

@@ -18,6 +18,7 @@ import torch
 
 from d3feat_tpu_torch.ops.select import band_select, fma_f32
 from d3feat_tpu_torch.ops.subsample import lengths_to_cloud_ids
+from d3feat_tpu_torch.utils.profiling import device_tensor, span
 
 SHADOW_LIKE = 1.0e6
 _BIG = 3.0e37
@@ -89,9 +90,9 @@ def make_level_frame(points: torch.Tensor, lengths: torch.Tensor,
     cid = lengths_to_cloud_ids(lengths, n)
     valid = cid < num_clouds
     cidc = torch.clamp(cid, max=num_clouds - 1).long()
-    big = torch.tensor(_BIG, device=dev)
+    big = device_tensor(_BIG, dev, site="const.frame")
 
-    dirs = torch.tensor(_FRAME_DIRS, dtype=torch.float32, device=dev)
+    dirs = device_tensor(_FRAME_DIRS, dev, torch.float32, site="const.frame")
     projs = points.float() @ dirs.T                                   # [N, D]
     masked = torch.where(valid[:, None], projs, big)
     lo_proj = torch.stack([
@@ -209,7 +210,7 @@ def radius_neighbors_sorted(q_level: SortedLevel, s_level: SortedLevel, radius: 
         return out, overflow
     thr = torch.clamp(d2[:nq, -1], max=r2)
     ptie = torch.where(d2[:nq] == thr[:, None], pos[:nq].float(),
-                       torch.tensor(-1.0, device=d2.device)).amax(1)
+                       device_tensor(-1.0, d2.device, site="const.search")).amax(1)
     return out, overflow, thr, ptie
 
 
@@ -313,7 +314,8 @@ def nearest_by_expansion(qt, qt_cid, st, st_cid, s_sq, k: int):
     d = torch.where(same, d, torch.inf)
     kth = torch.topk(d, k, dim=-1, largest=False).values[..., -1:]
     cand = same & (d <= kth + 2.0 * tol)
-    m = max(k, int(cand.sum(-1).max()))
+    with span("sync.candidates"):
+        m = max(k, int(cand.sum(-1).max()))
     idx = torch.topk(torch.where(cand, d, torch.inf), m, dim=-1, largest=False).indices
     flat = idx + (torch.arange(st.shape[0], device=st.device) * st.shape[1])[:, None, None]
     d2 = (dot3(qt, qt)[..., None] - 2.0 * dot3(qt[..., None, :], st.reshape(-1, 3)[flat])) \
@@ -377,9 +379,12 @@ def _row_groups(qcid_p, s_lengths, query_tile: int):
     query gets ``lo == hi``."""
     cid = qcid_p.view(-1, query_tile).long()
     valid = cid >= 0
-    c_lo = torch.where(valid, cid, 1 << 30).amin(1).tolist()
-    c_hi = torch.where(valid, cid, -1).amax(1).tolist()
-    ends = [0] + torch.cumsum(s_lengths.long(), 0).tolist()
+    with span("sync.row_groups"):
+        c_lo = torch.where(valid, cid, 1 << 30).amin(1).tolist()
+    with span("sync.row_groups"):
+        c_hi = torch.where(valid, cid, -1).amax(1).tolist()
+    with span("sync.row_groups"):
+        ends = [0] + torch.cumsum(s_lengths.long(), 0).tolist()
     steps = []
     for t, (a, b) in enumerate(zip(c_lo, c_hi)):
         lo, hi = (ends[a], ends[b + 1]) if b >= 0 else (0, 0)

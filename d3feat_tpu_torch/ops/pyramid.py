@@ -38,6 +38,7 @@ from d3feat_tpu_torch.ops.neighbors import (
     radius_neighbors_sorted,
 )
 from d3feat_tpu_torch.ops.subsample import lengths_to_mask, voxel_subsample
+from d3feat_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -186,6 +187,11 @@ def build_pyramid(points: torch.Tensor, lengths: torch.Tensor, *, spec: PyramidS
     (see ``ops.select.band_select``); the original-order route runs no
     kernel.
     """
+    with span("pyramid"):
+        return _build_pyramid(points, lengths, spec, impl)
+
+
+def _build_pyramid(points, lengths, spec: PyramidSpec, impl: str) -> Dict:
     if points.shape[0] != spec.point_caps[0]:
         raise ValueError(f"points capacity {points.shape[0]} != spec {spec.point_caps[0]}")
     if spec.search not in SEARCHES:
@@ -200,25 +206,30 @@ def build_pyramid(points: torch.Tensor, lengths: torch.Tensor, *, spec: PyramidS
     overflow = torch.zeros((), dtype=torch.bool, device=points.device)
     overflow_by = {}
     if band_route:
-        frame_axis, frame_origin = make_level_frame(pts, lens, B)
+        with span("pyramid.frame"):
+            frame_axis, frame_origin = make_level_frame(pts, lens, B)
     levels: Dict[int, SortedLevel] = {}
 
     def level(l: int, p, ln) -> SortedLevel:
         """The band route's sorted state of level ``l``, built once."""
         if l not in levels:
-            levels[l] = SortedLevel(p, ln, B, frame_axis, frame_origin,
-                                    band_pad=level_band_pad(spec, l, p.shape[0]))
+            with span("pyramid.level", l):
+                levels[l] = SortedLevel(p, ln, B, frame_axis, frame_origin,
+                                        band_pad=level_band_pad(spec, l, p.shape[0]))
         return levels[l]
 
     def search(q, s, ql, sl, r, k, q_level, s_level, name):
         nonlocal overflow
         if band_route:
-            res = level_search(level(q_level, q, ql), level(s_level, s, sl), r, k, spec, impl)
+            q_lv, s_lv = level(q_level, q, ql), level(s_level, s, sl)
+            with span("pyramid.search", name):
+                res = level_search(q_lv, s_lv, r, k, spec, impl)
             if k > 1:  # conv/pool searches feed the band kernels
                 out["sel_thr"][name] = (res[2], res[3])
             idx, ov = res[0], res[1]
         else:
-            idx, ov = original_search(q, s, ql, sl, r, k, spec)
+            with span("pyramid.search", name):
+                idx, ov = original_search(q, s, ql, sl, r, k, spec)
         if ov is not None:
             overflow = overflow | ov
             overflow_by[name] = ov
@@ -238,12 +249,13 @@ def build_pyramid(points: torch.Tensor, lengths: torch.Tensor, *, spec: PyramidS
         out["neighbors"].append(search(pts, pts, lens, lens, r * spec.conv_r_scale[l],
                                        spec.neighbor_caps[l], l, l, f"conv{l}"))
         if l + 1 < L:
-            sub = voxel_subsample(
-                pts, lens, 2.0 * r / spec.conv_radius,
-                out_capacity=spec.point_caps[l + 1], num_clouds=B,
-                # level 0's spacing comes from the host downsample (plus
-                # noise), not from a previous level: double margin
-                occupancy_cap=64 if l == 0 else 32)
+            with span("pyramid.subsample", l):
+                sub = voxel_subsample(
+                    pts, lens, 2.0 * r / spec.conv_radius,
+                    out_capacity=spec.point_caps[l + 1], num_clouds=B,
+                    # level 0's spacing comes from the host downsample (plus
+                    # noise), not from a previous level: double margin
+                    occupancy_cap=64 if l == 0 else 32)
             overflow = overflow | sub.overflow
             overflow_by[f"sub{l}"] = sub.overflow
             out["pools"].append(search(sub.points, pts, sub.lengths, lens,

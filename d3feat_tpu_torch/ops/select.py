@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from d3feat_tpu_torch.ops import build
+from d3feat_tpu_torch.utils.profiling import span
 
 EMPTY_D2 = 3.0e38
 KMAX = 256  # top-K capacity of the kernel: eight slots per lane of a warp
@@ -38,7 +39,9 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     r = s.float()
     fix = (((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000)
            | ((s.abs() < 2.0**-125) & (s != 0.0)))
-    if bool(fix.any()):
+    with span("sync.fma_fix"):
+        any_fix = bool(fix.any())
+    if any_fix:
         p, cd, s = p.expand(s.shape)[fix], cd.expand(s.shape)[fix], s[fix]
         bb = s - p
         err = (p - (s - bb)) + (cd - bb)
@@ -62,7 +65,10 @@ def exact_d2(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def tile_windows(s_rows: torch.Tensor, starts: torch.Tensor, wends: torch.Tensor):
     """([n_tiles, W] support rows of each tile's window, their positions,
     and a validity mask); W is the widest window, short windows padded."""
-    width = int((wends - starts).max().clamp(min=0)) if starts.numel() else 0
+    width = 0
+    if starts.numel():
+        with span("sync.window_width"):
+            width = int((wends - starts).max().clamp(min=0))
     offs = torch.arange(width, device=s_rows.device)
     pos = starts.long()[:, None] + offs[None, :]
     inside = pos < wends.long()[:, None]

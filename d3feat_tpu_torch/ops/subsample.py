@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from d3feat_tpu_torch.utils.profiling import device_tensor
+
 SHADOW_COORD = 1.0e6
 _MAX_CELLS = 1 << 16  # per-axis voxel-grid bound (16 bits per axis in sort keys)
 _INVALID_KEY = (1 << 63) - 1
@@ -60,12 +62,12 @@ def voxel_subsample(points: torch.Tensor, lengths: torch.Tensor, voxel_size: flo
     n = points.shape[0]
     b = num_clouds
     dev = points.device
-    dl = torch.tensor(float(voxel_size), dtype=torch.float32, device=dev)
-    inv_dl = torch.tensor(1.0, dtype=torch.float32, device=dev) / dl
+    dl = device_tensor(float(voxel_size), dev, torch.float32, site="const.subsample")
+    inv_dl = device_tensor(1.0, dev, torch.float32, site="const.subsample") / dl
 
     cid = lengths_to_cloud_ids(lengths, n)
     valid = cid < b
-    big = torch.tensor(SHADOW_COORD, dtype=torch.float32, device=dev)
+    big = device_tensor(SHADOW_COORD, dev, torch.float32, site="const.subsample")
     mins = torch.stack([
         torch.where((cid == c)[:, None], points, big).amin(0) for c in range(b)
     ])

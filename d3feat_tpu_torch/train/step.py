@@ -38,6 +38,7 @@ must surface it).
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -51,6 +52,7 @@ from d3feat_tpu_torch.models.kpfcnn import KPFCNN, apply_kpfcnn
 from d3feat_tpu_torch.ops.neighbors import permute_rows
 from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
 from d3feat_tpu_torch.train.optim import learning_rate, optimizer_step, train_tensors
+from d3feat_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -130,6 +132,11 @@ def _forward_losses(model, batch, config, pyramid_spec, *, train: bool, impl: st
     return loss, [desc.loss, dl, desc.accuracy, desc.d_pos, desc.d_neg, overflow]
 
 
+def _stacked(loss, metrics) -> torch.Tensor:
+    """[7]: the loss and the metrics of ``_forward_losses``, detached."""
+    return torch.stack([loss.detach(), *(m.detach().float() for m in metrics)])
+
+
 def reduce_mean(tensors, extra, group):
     """All-reduce ``tensors`` and the 1-D ``extra`` in one flat buffer
     (sum, then divided by the group's size), writing the means back into
@@ -157,26 +164,39 @@ def make_train_step(config, pyramid_spec=None, impl: str = "auto", group=None):
     data-parallel step of this rank's pair (module docstring)."""
     _compute_dtype(config)
     pyramid_spec = pyramid_spec or make_pyramid_spec(config)
+    calls = itertools.count()  # the ``port.train.step`` spans' numbers
 
     def train_step(state: TrainState, batch, epoch, pyramid=None):
+        with span("train.step", next(calls)):
+            return _train_step(state, batch, epoch, pyramid)
+
+    def _train_step(state: TrainState, batch, epoch, pyramid):
         model = state.model
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = _forward_losses(model, batch, config, pyramid_spec, train=True,
-                                        impl=impl, pyramid=pyramid)
-        loss.backward()
+        with span("train.forward"):
+            loss, metrics = _forward_losses(model, batch, config, pyramid_spec, train=True,
+                                            impl=impl, pyramid=pyramid)
+        with span("train.backward"):
+            loss.backward()
         grads = [t.grad for _, t in train_tensors(model) if t.grad is not None]
-        vals = torch.stack([loss.detach(), *(m.detach().float() for m in metrics)])
+        vals = None
         if group is not None:  # overflow (0 or 1) rides the sum: its max is (mean > 0)
-            vals = reduce_mean(grads, vals, group)
-            vals[-1] = (vals[-1] > 0).float()
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        # one device-to-host copy for the skip decision and the metrics
-        vals = torch.cat([vals, finite.float()[None]]).tolist()
+            with span("train.allreduce"):
+                vals = reduce_mean(grads, _stacked(loss, metrics), group)
+                vals[-1] = (vals[-1] > 0).float()
+        with span("train.finite"):
+            if vals is None:
+                vals = _stacked(loss, metrics)
+            finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+            # one device-to-host copy for the skip decision and the metrics
+            with span("sync.metrics"):
+                vals = torch.cat([vals, finite.float()[None]]).tolist()
         loss_v, desc_l, det_l, acc, d_pos, d_neg, overflow, ok = vals
-        lr = learning_rate(config, epoch)
-        if ok:
-            optimizer_step(config, state.optimizer, model, lr)
-            state.step += 1
+        with span("train.optimizer"):
+            lr = learning_rate(config, epoch)
+            if ok:
+                optimizer_step(config, state.optimizer, model, lr)
+                state.step += 1
         return state, StepMetrics(loss=loss_v, desc_loss=desc_l, det_loss=det_l, accuracy=acc,
                                   d_pos=d_pos, d_neg=d_neg, lr=lr, skipped=1.0 - ok,
                                   overflow=overflow)
@@ -196,11 +216,12 @@ def make_eval_step(config, pyramid_spec=None, impl: str = "auto", group=None):
     def eval_step(model, batch, pyramid=None):
         loss, metrics = _forward_losses(model, batch, config, pyramid_spec, train=False,
                                         impl=impl, pyramid=pyramid)
-        vals = torch.stack([loss, *(m.float() for m in metrics)])
+        vals = _stacked(loss, metrics)
         if group is not None:
             vals = reduce_mean([], vals, group)
             vals[-1] = (vals[-1] > 0).float()
-        vals = vals.tolist()
+        with span("sync.metrics"):
+            vals = vals.tolist()
         loss_v, desc_l, det_l, acc, d_pos, d_neg, overflow = vals
         return StepMetrics(loss=loss_v, desc_loss=desc_l, det_loss=det_l, accuracy=acc,
                            d_pos=d_pos, d_neg=d_neg, lr=0.0, skipped=0.0, overflow=overflow)

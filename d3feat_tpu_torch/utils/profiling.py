@@ -1,17 +1,60 @@
-"""Profiling / tracing utilities (port of ``d3feat_tpu.utils.profiling``).
+"""Tracing of the port (the counterpart of ``d3feat_tpu.utils.profiling``).
 
 The reference's only instrumentation is wall-clock tic/toc pairs split into
-data vs. model time (reference: trainer.py:71-135, utils/timer.py). Here the
-same split is kept in the trainer meters, plus:
+data vs. model time (reference: trainer.py:71-135, utils/timer.py); the
+trainer's meters keep that split. Here, besides:
 
+* :func:`span` — a named range of the port in the ``torch.profiler``
+  trace, ``port.<name>``, or ``port.<name>[<arg>]`` with a short argument
+  (readers take the name before ``[``). A span's parent is the range that
+  encloses it on the same thread. The ranges sit in the same Kineto trace
+  as the device's events, so they share their clock. A span is a
+  function-scope ``RecordFunction`` (``torch._C._profiler.
+  _RecordFunctionFast``, as ``torch.compile``'s generated code records its
+  ranges), a ``cpu_op`` event of the trace: ``record_function``'s user
+  annotations also get device-side copies (``gpu_user_annotation``) that a
+  reader of the device's operations would have to leave out by name;
+* :func:`device_tensor` — ``torch.tensor`` of a host value on a device, a
+  host sync on the card, recorded as one;
 * :func:`trace` — context manager around ``torch.profiler.profile`` (host
   activity, and the device's when CUDA is in use) writing a Chrome trace
-  JSON (``chrome://tracing``, Perfetto) into ``logdir``;
-* :func:`annotate` — named host-side region that shows up in the trace
-  (``torch.profiler.record_function``);
-* :class:`SectionTimer` — wall-clock section stats for quick breakdowns
-  without a trace viewer, synchronising the CUDA devices of its ``sync``
-  tensors before it stops the clock.
+  JSON (``chrome://tracing``, Perfetto) into ``logdir``.
+
+**On and off.** A span records while a torch profiler records (the
+benchmark's traced window, or :func:`trace`). Otherwise :func:`span`
+returns one shared no-op context after one check of the profiler's state:
+it enters no ``RecordFunction`` and reads no clock. There is no other
+switch.
+
+**The spans** (``port.`` left out; ``[...]`` the argument):
+
+* extraction entry (``eval/extract.py``): ``extract[<call>]`` around each
+  ``extract`` or ``extract_many`` call, numbered from 0 for each
+  extractor; ``extract.pack``; ``extract.step`` (the copies in, the
+  extraction step, the overflow check); ``extract.copy_out``;
+* train step (``train/step.py``): ``train.step[<call>]``, numbered from 0
+  for each step function; ``train.forward`` (pyramid, ``apply_kpfcnn``,
+  losses); ``train.backward``; ``train.allreduce`` (with a process group);
+  ``train.finite`` (the metrics' stack, the per-leaf finite check, up to
+  and including their copy to the host); ``train.optimizer``;
+* pyramid (``ops/pyramid.py``): ``pyramid``; ``pyramid.frame``;
+  ``pyramid.level[<l>]`` (level l's sorted state, band route);
+  ``pyramid.search[conv<l>|pool<l>|up<l>]``; ``pyramid.subsample[<l>]``;
+* model (``models/kpfcnn.py``): ``model.block[enc:<i>:<name>]`` and
+  ``model.block[dec:<i>:<name>]`` around each encoder and decoder block;
+  ``model.head``;
+* host syncs: ``sync.<site>`` around each statement that blocks the host
+  on the device, so a site's count of ranges is its count of syncs and
+  their duration the host's wait. On the band route: ``fma_fix``
+  (``ops/select.py::fma_f32``), ``const.frame``, ``const.search``
+  (``ops/neighbors.py``), ``const.subsample`` (``ops/subsample.py``),
+  ``const.head`` (``models/kpfcnn.py``: host constants copied to the card),
+  ``copy_in``, ``overflow``, ``copy_out`` (``eval/extract.py``),
+  ``metrics`` (``train/step.py``, also the eval step's). On the plain
+  twins and the original-order route also ``window_width``
+  (``ops/select.py::tile_windows``), ``candidates``, ``row_groups``
+  (``ops/neighbors.py``) and ``transpose_end`` (``ops/band_lists.py``).
+  The CPU counts the same sites, none of which waits there.
 
 A profile of ``torch.profiler`` can leave out launches of the kernels that
 the port calls through ``ctypes`` (its CUPTI records missed some in one
@@ -25,20 +68,44 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Iterator
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 TRACE_FILE = "trace.json"  # the Chrome trace that ``trace`` writes into its logdir
+
+_recording = torch._C._autograd._profiler_enabled  # whether a torch profiler records
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, arg=None):
+    """The range ``port.<name>``, or ``port.<name>[<arg>]`` (a tuple
+    ``arg`` joined by ``:``), while a torch profiler records; otherwise
+    the shared no-op context. ``arg`` is formatted only while recording."""
+    if not _recording():
+        return _OFF
+    if arg is None:
+        return _RecordFunctionFast(f"port.{name}")
+    if isinstance(arg, tuple):
+        arg = ":".join(map(str, arg))
+    return _RecordFunctionFast(f"port.{name}[{arg}]")
+
+
+def device_tensor(value, device, dtype=None, *, site: str) -> torch.Tensor:
+    """``torch.tensor(value, dtype=dtype, device=device)``. On the card a
+    copy from pageable host memory, which waits until the stream has run
+    what was queued before it: the sync range ``port.sync.<site>``."""
+    with span(f"sync.{site}"):
+        return torch.tensor(value, dtype=dtype, device=device)
 
 
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     """Profile the block into ``<logdir>/trace.json`` (``TRACE_FILE``):
-    host activity, and the device's when CUDA is available. Yields the
-    profiler, whose ``key_averages()`` give the same events as tables."""
+    host activity, and the device's when CUDA is available, with the
+    port's spans. Yields the profiler, whose ``key_averages()`` give the
+    same events as tables."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -46,66 +113,3 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
-
-
-def annotate(name: str):
-    """Named region context (nests inside :func:`trace` output)."""
-    return torch.profiler.record_function(name)
-
-
-def _sync(tree) -> None:
-    """Synchronise the CUDA device of every tensor in ``tree`` (a tensor or
-    a nested tuple, list or dict of them)."""
-    devices = set()
-
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                devices.add(x.device)
-        elif isinstance(x, dict):
-            for v in x.values():
-                walk(v)
-        elif isinstance(x, (list, tuple)):
-            for v in x:
-                walk(v)
-
-    walk(tree)
-    for d in devices:
-        torch.cuda.synchronize(d)
-
-
-class SectionTimer:
-    """Accumulating per-section wall timer that syncs the device.
-
-    >>> st = SectionTimer()
-    >>> out = []
-    >>> with st.section("pyramid", sync=out):
-    ...     out.append(build_pyramid(...))
-    >>> print(st.report())
-
-    ``sync`` is walked when the block ends, so a list or dict filled inside
-    the block is synchronised on.
-    """
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def section(self, name: str, sync=None) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                _sync(sync)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            t, c = self.totals[name], self.counts[name]
-            lines.append(f"{name}: {t*1e3:.1f} ms total, "
-                         f"{t/c*1e3:.2f} ms/call x{c}")
-        return "\n".join(lines)

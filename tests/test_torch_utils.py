@@ -1,8 +1,7 @@
 """Port vs JAX: ``utils/metrics.py`` bit for bit on seeded logits and
 labels (absent classes, stacked [..., C, C] confusions; torch tensors
 scored as their numpy copies), and ``utils/profiling.py``: ``trace``
-writes a Chrome trace that holds an ``annotate`` region, ``SectionTimer``
-reports in JAX's text for the same totals."""
+writes a Chrome trace that holds the port's spans."""
 
 import json
 import os
@@ -12,9 +11,10 @@ import pytest
 import torch
 
 from d3feat_tpu.utils import metrics as j_metrics
-from d3feat_tpu.utils.profiling import SectionTimer as JSectionTimer
 from d3feat_tpu_torch.utils import metrics
-from d3feat_tpu_torch.utils.profiling import TRACE_FILE, SectionTimer, annotate, trace
+from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+from d3feat_tpu_torch.utils.profiling import TRACE_FILE, trace
+from tests.torch_port_helpers import jax_config, packed_pair, torch_config
 from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 C = 7
@@ -52,30 +52,14 @@ def test_metrics_match_jax(seed):
 
 
 def test_trace_holds_the_annotated_region(tmp_path):
-    x = torch.randn(64, 64)
+    pts, _, lens = packed_pair(seed=3)
+    spec = make_pyramid_spec(torch_config(jax_config(3)))
     with trace(str(tmp_path)) as prof:
-        with annotate("port_region_under_test"):
-            y = x @ x
-    assert prof is not None and y.shape == (64, 64)
+        pyr = build_pyramid(torch.from_numpy(pts), torch.from_numpy(lens), spec=spec)
+    assert prof is not None and len(pyr["points"]) == 3
     path = os.path.join(str(tmp_path), TRACE_FILE)
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "port_region_under_test" for e in events)
-
-
-def test_section_timer_report_matches_jax():
-    got, want = SectionTimer(), JSectionTimer()
-    for t in (got, want):
-        for name, total, count in (("pyramid", 0.0123456, 3), ("model", 0.5, 1),
-                                   ("head", 0.00042, 7)):
-            t.totals[name] = total
-            t.counts[name] = count
-    assert got.report() == want.report()
-    assert got.report().splitlines()[0] == "model: 500.0 ms total, 500.00 ms/call x1"
-    # sections accumulate; ``sync`` takes tensors nested in containers, and a
-    # list filled inside the block
-    st, out = SectionTimer(), []
-    for _ in range(2):
-        with st.section("matmul", sync=out):
-            out.append({"y": (torch.ones(3) * 2,)})
-    assert st.counts["matmul"] == 2 and st.totals["matmul"] > 0.0
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"port.pyramid", "port.pyramid.frame", "port.pyramid.level[0]",
+            "port.pyramid.search[conv0]", "port.pyramid.subsample[1]",
+            "port.sync.fma_fix", "port.sync.const.subsample"} <= names
