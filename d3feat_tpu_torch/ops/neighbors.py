@@ -18,7 +18,7 @@ import torch
 
 from d3feat_tpu_torch.ops.select import band_select, fma_f32
 from d3feat_tpu_torch.ops.subsample import lengths_to_cloud_ids
-from d3feat_tpu_torch.utils.profiling import device_tensor, span
+from d3feat_tpu_torch.utils.profiling import span
 
 SHADOW_LIKE = 1.0e6
 _BIG = 3.0e37
@@ -77,6 +77,22 @@ _FRAME_DIRS = (
     (_SQ3, _SQ3, _SQ3), (_SQ3, _SQ3, -_SQ3),
     (_SQ3, -_SQ3, _SQ3), (-_SQ3, _SQ3, _SQ3),
 )
+_FRAME_DIRS_ON = {}  # device -> [7, 3] float32 _FRAME_DIRS
+
+
+def frame_dirs(device) -> torch.Tensor:
+    """``_FRAME_DIRS`` as a float32 tensor on ``device``, made once per
+    device by fills (no copy from the host, so no wait on the device)."""
+    device = torch.device(device)
+    dirs = _FRAME_DIRS_ON.get(device)
+    if dirs is None:
+        dirs = torch.zeros((len(_FRAME_DIRS), 3), dtype=torch.float32, device=device)
+        for i, row in enumerate(_FRAME_DIRS):
+            for j, v in enumerate(row):
+                if v:
+                    dirs[i, j].fill_(v)  # item assignment would copy a host tensor
+        _FRAME_DIRS_ON[device] = dirs
+    return dirs
 
 
 def make_level_frame(points: torch.Tensor, lengths: torch.Tensor,
@@ -90,18 +106,17 @@ def make_level_frame(points: torch.Tensor, lengths: torch.Tensor,
     cid = lengths_to_cloud_ids(lengths, n)
     valid = cid < num_clouds
     cidc = torch.clamp(cid, max=num_clouds - 1).long()
-    big = device_tensor(_BIG, dev, site="const.frame")
 
-    dirs = device_tensor(_FRAME_DIRS, dev, torch.float32, site="const.frame")
+    dirs = frame_dirs(dev)
     projs = points.float() @ dirs.T                                   # [N, D]
-    masked = torch.where(valid[:, None], projs, big)
+    masked = torch.where(valid[:, None], projs, _BIG)
     lo_proj = torch.stack([
-        torch.where((cidc == b)[:, None], masked, big).amin(0)
+        torch.where((cidc == b)[:, None], masked, _BIG).amin(0)
         for b in range(num_clouds)
     ])                                                                # [B, D]
 
     keys = cidc[:, None].float() * SortedLevel.KOFF + (projs - lo_proj[cidc])
-    keys = torch.where(valid[:, None], keys, big)
+    keys = torch.where(valid[:, None], keys, _BIG)
     stride = max(1, n // 2048)
     keys = keys[::stride]
     m = keys.shape[0]
@@ -209,8 +224,7 @@ def radius_neighbors_sorted(q_level: SortedLevel, s_level: SortedLevel, radius: 
     if not with_threshold:
         return out, overflow
     thr = torch.clamp(d2[:nq, -1], max=r2)
-    ptie = torch.where(d2[:nq] == thr[:, None], pos[:nq].float(),
-                       device_tensor(-1.0, d2.device, site="const.search")).amax(1)
+    ptie = torch.where(d2[:nq] == thr[:, None], pos[:nq].float(), -1.0).amax(1)
     return out, overflow, thr, ptie
 
 

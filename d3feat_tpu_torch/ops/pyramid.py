@@ -24,6 +24,7 @@ per-query selection thresholds of every conv and pool search.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -31,12 +32,14 @@ import torch
 
 from d3feat_tpu_torch.ops.neighbors import (
     SortedLevel,
+    frame_dirs,
     make_level_frame,
     radius_neighbors,
     radius_neighbors_banded,
     radius_neighbors_grid,
     radius_neighbors_sorted,
 )
+from d3feat_tpu_torch.ops.select import band_select, runs_kernel
 from d3feat_tpu_torch.ops.subsample import lengths_to_mask, voxel_subsample
 from d3feat_tpu_torch.utils.profiling import span
 
@@ -186,9 +189,87 @@ def build_pyramid(points: torch.Tensor, lengths: torch.Tensor, *, spec: PyramidS
     ``overflow_by`` {source: flag}. ``impl`` selects the K1 implementation
     (see ``ops.select.band_select``); the original-order route runs no
     kernel.
+
+    The band route with K1's kernel on the card waits on the device
+    nowhere and every shape in it follows from ``spec``, so there it is
+    built by replaying a CUDA graph captured once per spec and device
+    (``PyramidGraph``): the result is the eager build's, bit for bit, in
+    tensors of its own. Every other route, and a call inside another
+    capture, builds eagerly.
     """
     with span("pyramid"):
+        if (points.is_cuda and lengths.device == points.device and spec.search == "pallas"
+                and runs_kernel(impl, points) and not torch.cuda.is_current_stream_capturing()):
+            return _graph(points, lengths, spec, impl).replay(points, lengths)
         return _build_pyramid(points, lengths, spec, impl)
+
+
+build_pyramid.launches_captured = 0  # graphs captured
+build_pyramid.launches_replayed = 0  # pyramids built by a replay
+
+GRAPHS = 8  # graphs kept, the least recently used dropped first
+_graphs: "OrderedDict[tuple, PyramidGraph]" = OrderedDict()
+
+
+def _graph(points, lengths, spec: PyramidSpec, impl: str) -> "PyramidGraph":
+    key = (spec, points.device)
+    g = _graphs.get(key)
+    if g is None:
+        g = _graphs[key] = PyramidGraph(points, lengths, spec, impl)
+        while len(_graphs) > GRAPHS:
+            _graphs.popitem(last=False)
+    _graphs.move_to_end(key)
+    return g
+
+
+def _clone(x):
+    """``x`` with every tensor in it (nested in lists, tuples and dicts)
+    copied."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+class PyramidGraph:
+    """The band-route pyramid of one spec on one device as a CUDA graph:
+    captured from the eager build on static input buffers (float32 points,
+    int32 lengths) after one eager build warms the path on a side stream
+    (the kernels' libraries loaded, the constants on the device), in a
+    private memory pool. K1's launches inside it count on
+    ``band_select.launches`` at every replay."""
+
+    def __init__(self, points, lengths, spec: PyramidSpec, impl: str):
+        with span("pyramid.capture"), torch.cuda.device(points.device):
+            self.points = points.float().clone()
+            self.lengths = lengths.to(torch.int32).clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                _build_pyramid(self.points, self.lengths, spec, impl)
+            torch.cuda.current_stream().wait_stream(side)
+            self.dirs = frame_dirs(points.device)  # read by the graph: held for its life
+            self.graph = torch.cuda.CUDAGraph()
+            k1 = band_select.launches
+            with torch.cuda.graph(self.graph):
+                self.out = _build_pyramid(self.points, self.lengths, spec, impl)
+            # K1's launches recorded into the graph run at each replay
+            self.k1, band_select.launches = band_select.launches - k1, k1
+        build_pyramid.launches_captured += 1
+
+    def replay(self, points, lengths) -> Dict:
+        """The pyramid of ``points`` and ``lengths``, in new tensors: the
+        graph's own outputs are overwritten by its next replay."""
+        with span("pyramid.replay"):
+            self.points.copy_(points)
+            self.lengths.copy_(lengths)
+            self.graph.replay()
+            band_select.launches += self.k1
+            build_pyramid.launches_replayed += 1
+            return _clone(self.out)
 
 
 def _build_pyramid(points, lengths, spec: PyramidSpec, impl: str) -> Dict:

@@ -29,26 +29,22 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     In float64 the product is exact, and the float64 sum rounded to float32
     is already the single-rounded result unless it lies exactly halfway
     between two float32 values (or in their subnormal range), where the
-    float64 rounding may have decided the tie. Only those entries, usually
-    none, are redone: TwoSum gives the sum's rounding error, which makes the
-    float64 sum round-to-odd, and a round-to-odd value with 29 spare bits
-    rounds to float32 exactly as the single-rounded result."""
+    float64 rounding may have decided the tie. Those entries, usually none,
+    take the corrected value: TwoSum gives the sum's rounding error, which
+    makes the float64 sum round-to-odd, and a round-to-odd value with 29
+    spare bits rounds to float32 exactly as the single-rounded result. The
+    correction is computed for every entry and selected, so the host never
+    waits on the device to learn whether any entry needs it."""
     p = a.double() * b.double()
     cd = c.double()
     s = p + cd
-    r = s.float()
     fix = (((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000)
            | ((s.abs() < 2.0**-125) & (s != 0.0)))
-    with span("sync.fma_fix"):
-        any_fix = bool(fix.any())
-    if any_fix:
-        p, cd, s = p.expand(s.shape)[fix], cd.expand(s.shape)[fix], s[fix]
-        bb = s - p
-        err = (p - (s - bb)) + (cd - bb)
-        even = (s.view(torch.int64) & 1) == 0
-        toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
-        r[fix] = torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
-    return r
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    nudge = fix & (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where(nudge, torch.nextafter(s, toward), s).float()
 
 
 def exact_d2(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -158,6 +154,12 @@ def select_kernel(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: 
     return out_pos, out_d2
 
 
+def runs_kernel(impl: str, t: torch.Tensor) -> bool:
+    """Whether ``band_select`` launches the kernel, and not the twin, for
+    ``impl`` on tensors on ``t``'s device."""
+    return not (impl == "plain" or (impl == "auto" and not t.is_cuda))
+
+
 def band_select(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: int,
                 impl: str = "auto"):
     """([Nq_pad, max_k] int32 positions, [Nq_pad, max_k] float32 d2).
@@ -167,7 +169,7 @@ def band_select(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: in
     int32 windows (``neighbors.band_windows``). ``impl="auto"`` launches
     the kernel for CUDA tensors and runs the twin for CPU tensors;
     ``"plain"`` forces the twin (the card's kernel-vs-twin checks)."""
-    if impl == "plain" or (impl == "auto" and not q_rows.is_cuda):
+    if not runs_kernel(impl, q_rows):
         return select_plain(q_rows, s_rows, starts, wends, query_tile=query_tile,
                             r2=r2, max_k=max_k)
     return select_kernel(q_rows, s_rows, starts, wends, query_tile=query_tile,

@@ -20,8 +20,6 @@ from typing import NamedTuple
 
 import torch
 
-from d3feat_tpu_torch.utils.profiling import device_tensor
-
 SHADOW_COORD = 1.0e6
 _MAX_CELLS = 1 << 16  # per-axis voxel-grid bound (16 bits per axis in sort keys)
 _INVALID_KEY = (1 << 63) - 1
@@ -62,17 +60,23 @@ def voxel_subsample(points: torch.Tensor, lengths: torch.Tensor, voxel_size: flo
     n = points.shape[0]
     b = num_clouds
     dev = points.device
-    dl = device_tensor(float(voxel_size), dev, torch.float32, site="const.subsample")
-    inv_dl = device_tensor(1.0, dev, torch.float32, site="const.subsample") / dl
+    # float32 constants held on the host, so no launch waits to read them
+    dl_t = torch.tensor(float(voxel_size), dtype=torch.float32)
+    dl, inv_dl = float(dl_t), float(torch.tensor(1.0) / dl_t)
 
     cid = lengths_to_cloud_ids(lengths, n)
     valid = cid < b
-    big = device_tensor(SHADOW_COORD, dev, torch.float32, site="const.subsample")
     mins = torch.stack([
-        torch.where((cid == c)[:, None], points, big).amin(0) for c in range(b)
+        torch.where((cid == c)[:, None], points, SHADOW_COORD).amin(0) for c in range(b)
     ])
     cid_c = torch.clamp(cid, max=b - 1).long()
-    scale = (lambda v: v / dl) if divide else (lambda v: v * inv_dl)
+    if divide:
+        # a device divisor: CUDA divides by a host scalar as a multiply by
+        # its reciprocal
+        dl_dev = torch.full((), dl, dtype=torch.float32, device=dev)
+        scale = lambda v: v / dl_dev  # noqa: E731
+    else:
+        scale = lambda v: v * inv_dl  # noqa: E731
     origin = torch.floor(scale(mins)) * dl
 
     rel = scale(points - origin[cid_c])
@@ -117,7 +121,7 @@ def voxel_subsample(points: torch.Tensor, lengths: torch.Tensor, voxel_size: flo
     out_slot_valid = run_ids < torch.clamp(n_unique, max=c)
     occ_overflow = torch.where(out_slot_valid, ends - starts, 0).max() > window
     bary = sums / torch.clamp(cnts, min=1.0)[:, None]
-    out_points = torch.where(out_slot_valid[:, None], bary, big)
+    out_points = torch.where(out_slot_valid[:, None], bary, SHADOW_COORD)
     out_cid = torch.where(out_slot_valid, seg_cid, torch.full_like(seg_cid, b))
     out_lengths = torch.stack([(out_cid == c_).sum() for c_ in range(b)])
     return SubsampleResult(

@@ -40,18 +40,20 @@ switch.
 * pyramid (``ops/pyramid.py``): ``pyramid``; ``pyramid.frame``;
   ``pyramid.level[<l>]`` (level l's sorted state, band route);
   ``pyramid.search[conv<l>|pool<l>|up<l>]``; ``pyramid.subsample[<l>]``;
+  on the card's band route ``pyramid.capture`` (a spec's first call: one
+  eager build and the capture of its CUDA graph, each under the spans
+  above) and ``pyramid.replay`` (every call: the copies in, the replay,
+  the copies of the outputs);
 * model (``models/kpfcnn.py``): ``model.block[enc:<i>:<name>]`` and
   ``model.block[dec:<i>:<name>]`` around each encoder and decoder block;
   ``model.head``;
 * host syncs: ``sync.<site>`` around each statement that blocks the host
   on the device, so a site's count of ranges is its count of syncs and
-  their duration the host's wait. On the band route: ``fma_fix``
-  (``ops/select.py::fma_f32``), ``const.frame``, ``const.search``
-  (``ops/neighbors.py``), ``const.subsample`` (``ops/subsample.py``),
-  ``const.head`` (``models/kpfcnn.py``: host constants copied to the card),
-  ``copy_in``, ``overflow``, ``copy_out`` (``eval/extract.py``),
-  ``metrics`` (``train/step.py``, also the eval step's). On the plain
-  twins and the original-order route also ``window_width``
+  their duration the host's wait. On the band route: ``const.head``
+  (``models/kpfcnn.py``: host constants copied to the card), ``copy_in``,
+  ``overflow``, ``copy_out`` (``eval/extract.py``), ``metrics``
+  (``train/step.py``, also the eval step's); the band route's pyramid has
+  none. On the plain twins and the original-order route also ``window_width``
   (``ops/select.py::tile_windows``), ``candidates``, ``row_groups``
   (``ops/neighbors.py``) and ``transpose_end`` (``ops/band_lists.py``).
   The CPU counts the same sites, none of which waits there.

@@ -244,6 +244,35 @@ def test_fma_rn_is_fma_f32():
     assert torch.equal(fma_f32(a, b, c), _fma_two_sum(a, b, c))
 
 
+def test_fma_f32_corrects_every_entry():
+    """Every entry a sum whose float64 rounding lands halfway between two
+    float32 values (below it or above it, either sign, exponents from
+    2^-10 to 2^10) or in float32's subnormal range, so the branch-free
+    correction decides each: equal to TwoSum bit for bit, and not to the
+    plain float64 sum rounded."""
+    from d3feat_tpu_torch.ops.select import fma_f32
+
+    g = torch.Generator().manual_seed(2)
+    n = 50_000
+    k = torch.randint(1, 300, (n,), generator=g).double() * 2.0**-23
+    e = torch.randint(-10, 11, (n,), generator=g).double()
+    base = (1.0 + torch.rand(n, generator=g, dtype=torch.float64)).float().double() * 2.0**e
+    up = torch.rand(n, generator=g) < 0.5  # the exact sum just under or just over the tie
+    sign = torch.where(torch.rand(n, generator=g) < 0.5, 1.0, -1.0).double()
+    a = (1.0 + k).float()
+    b = torch.where(up, -1.0, 1.0).double() * (1.0 - k) * 2.0**(e - 24)
+    c = torch.where(up, base + 2.0**(e - 23), base)
+    a, b, c = a * sign.float(), b.float(), (c * sign).float()
+    tiny = torch.randn(3, n, generator=g) * torch.tensor([[1e-20], [1e-20], [1e-39]])
+    a, b, c = (torch.cat([x, t]) for x, t in zip((a, b, c), tiny))
+    s = a.double() * b.double() + c.double()
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    assert bool(torch.all(tie[:n])) and bool(torch.all(s[n:].abs() < 2.0**-125))
+    got = fma_f32(a, b, c)
+    assert torch.equal(got.view(torch.int32), _fma_two_sum(a, b, c).view(torch.int32))
+    assert int((got != s.float())[:n].sum()) > n // 3
+
+
 @pytest.mark.parametrize("n", [1, 3, 32, 33, 220, 512, 1025, 4000])
 def test_sum_rows_is_xla_column_sum(n):
     x = (np.random.default_rng(n).standard_normal((n, 3)) * 2 + 5).astype(np.float32)

@@ -108,3 +108,37 @@ def test_pyramid_matches_jitted_jax_on_eval_fragments():
         _boundary_only(tp["pools"][l].numpy(), pyr["pools"][l],
                        pyr["points"][l + 1].astype(np.float64), pyr["points"][l],
                        pyr["sel_thr"][f"pool{l}"][0])
+
+
+def _equal(a, b):
+    """``a`` and ``b`` hold the same structure and equal tensors, bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+@pytest.mark.parametrize("search,impl", [("pallas", "auto"), ("pallas", "plain"),
+                                         ("banded", "auto"), ("brute", "auto"),
+                                         ("grid", "auto")])
+def test_graph_path_stays_off_the_cpu_and_the_eager_routes(search, impl):
+    """The CUDA graph is the band route's with K1's kernel on the card only:
+    on the CPU, under ``impl="plain"`` and on the original-order routes
+    ``build_pyramid`` captures and replays nothing and returns the eager
+    build, bit for bit."""
+    from d3feat_tpu_torch.ops import pyramid
+    from tests.torch_port_helpers import jax_config, packed_pair
+
+    cfg = torch_config(jax_config(3))
+    cfg.neighbor_search = search
+    spec = make_pyramid_spec(cfg)
+    pts, _, lens = packed_pair(seed=3)
+    pts, lens = torch.from_numpy(pts), torch.from_numpy(lens)
+    before = (build_pyramid.launches_captured, build_pyramid.launches_replayed)
+    got = build_pyramid(pts, lens, spec=spec, impl=impl)
+    assert (build_pyramid.launches_captured, build_pyramid.launches_replayed) == before
+    assert not pyramid._graphs
+    assert _equal(got, pyramid._build_pyramid(pts, lens, spec, impl))

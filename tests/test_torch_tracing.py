@@ -103,28 +103,21 @@ def _check_parents(rs, allowed):
 
 PYRAMID_PARENTS = {
     "pyramid.frame": {"pyramid"}, "pyramid.level": {"pyramid"}, "pyramid.search": {"pyramid"},
-    "pyramid.subsample": {"pyramid"}, "sync.const.frame": {"pyramid.frame"},
-    "sync.const.search": {"pyramid.search"}, "sync.const.subsample": {"pyramid.subsample"},
+    "pyramid.subsample": {"pyramid"},
     # the twins of K1 (every search) and of K2/K3 (every block and the head)
     "sync.window_width": {"pyramid.search", "model.block", "model.head", "train.backward"},
-    "sync.fma_fix": {"pyramid.level", "pyramid.search", "model.block", "model.head",
-                     "train.backward"},
 }
 
 
 def _pyramid_counts():
     """The pyramid's ranges as ``ops/pyramid.py`` builds it on the band
     route: L levels, L conv searches, L - 1 pool, upsample and subsample
-    calls; each level's sorted state rounds two multiply-adds
-    (``fma_fix``), each K1 twin's distances two more; three constants a
-    subsample, two for the frame, one for each conv and pool search's
-    tie positions."""
+    calls; its one sync site is the K1 twin's window width, once a
+    search (the kernel sizes its windows on the host and syncs nowhere)."""
     L = LAYERS
     searches = L + 2 * (L - 1)
     return {"pyramid": 1, "pyramid.frame": 1, "pyramid.level": L, "pyramid.search": searches,
-            "pyramid.subsample": L - 1, "sync.const.frame": 2,
-            "sync.const.search": L + (L - 1), "sync.const.subsample": 3 * (L - 1),
-            "sync.window_width": searches, "sync.fma_fix:pyramid": 2 * L + 2 * searches}
+            "pyramid.subsample": L - 1, "sync.window_width": searches}
 
 
 def test_span_off_is_the_shared_noop(pair, monkeypatch):
@@ -150,7 +143,7 @@ def test_extraction_records_its_spans(pair):
     assert names[0] == "port.extract[1]" and names.count("port.extract[1]") == 1
     assert not any(n.startswith("port.extract[") for n in names[1:])
     got = _counts(rs)
-    want = {k: v for k, v in _pyramid_counts().items() if ":" not in k}
+    want = _pyramid_counts()
     want.update({"extract": 1, "extract.pack": 1, "extract.step": 1, "extract.copy_out": 1,
                  "sync.copy_in": 3, "sync.overflow": 1, "sync.copy_out": 2,
                  "model.block": 12, "model.head": 1, "sync.const.head": 2,
@@ -159,8 +152,8 @@ def test_extraction_records_its_spans(pair):
         assert got[k] == v, (k, got[k], v)
     pyr = next(i for i, r in enumerate(rs) if r[0] == "port.pyramid")
     inside = [r for r in rs if rs[pyr][1] <= r[1] and r[2] <= rs[pyr][2]]
-    assert sum(_base(n) == "sync.fma_fix" for n, *_ in inside) == \
-        _pyramid_counts()["sync.fma_fix:pyramid"]
+    assert [_base(n) for n, *_ in inside if _base(n).startswith("sync.")] == \
+        ["sync.window_width"] * _pyramid_counts()["sync.window_width"]
     assert [n for n, *_ in rs if _base(n) == "pyramid.search"] == [
         "port.pyramid.search[conv0]", "port.pyramid.search[pool0]", "port.pyramid.search[up0]",
         "port.pyramid.search[conv1]", "port.pyramid.search[pool1]", "port.pyramid.search[up1]",
@@ -189,7 +182,7 @@ def test_train_step_records_its_spans(pair):
         assert got[k] == 1, (k, got[k])
     assert got["train.allreduce"] == 0 and got["model.block"] == 12
     for k, v in _pyramid_counts().items():
-        if ":" not in k and k != "sync.window_width":
+        if k != "sync.window_width":
             assert got[k] == v, (k, got[k], v)
     assert [_base(n) for n, *_ in rs if _base(n).startswith("train.")] == [
         "train.step", "train.forward", "train.backward", "train.finite", "train.optimizer"]
@@ -212,9 +205,7 @@ def test_pyramid_sync_counts(pair):
     _, batch = pair
     spec = make_pyramid_spec(_config())
     _, rs = _ranges(lambda: build_pyramid(batch["points"], batch["lengths"], spec=spec))
-    got, want = _counts(rs), _pyramid_counts()
-    assert got.pop("sync.fma_fix") == want.pop("sync.fma_fix:pyramid")
-    assert dict(got) == want
+    assert dict(_counts(rs)) == _pyramid_counts()
     _check_parents(rs, dict(PYRAMID_PARENTS, pyramid={None}))
     cfg = _config()
     cfg.neighbor_search = "brute"

@@ -62,4 +62,4 @@ def test_trace_holds_the_annotated_region(tmp_path):
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"port.pyramid", "port.pyramid.frame", "port.pyramid.level[0]",
             "port.pyramid.search[conv0]", "port.pyramid.subsample[1]",
-            "port.sync.fma_fix", "port.sync.const.subsample"} <= names
+            "port.sync.window_width"} <= names
