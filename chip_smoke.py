@@ -1102,13 +1102,11 @@ def main_path(cfg, model, frags, report, device="cuda"):
 
 
 def route_config(cfg, **fields):
-    """A copy of ``cfg`` with ``fields`` set."""
-    from d3feat_tpu_torch.config import D3FeatConfig
+    """A copy of ``cfg`` with ``fields`` set; a subclass keeps its
+    ``architecture()``."""
+    import dataclasses
 
-    c = D3FeatConfig.from_dict(cfg.to_dict())
-    for k, v in fields.items():
-        setattr(c, k, v)
-    return c
+    return dataclasses.replace(cfg, **fields)
 
 
 def bf16_config(cfg):
@@ -2938,6 +2936,7 @@ def variants_deform(cfg, frags, batch, line, acc, device="cuda", keep=None):
     from d3feat_tpu_torch.losses.regularizers import p2p_fitting_regularizer
     from d3feat_tpu_torch.models.kpfcnn import apply_kpfcnn, init_kpfcnn
     from d3feat_tpu_torch.ops.band_lists import LCAP
+    from d3feat_tpu_torch.ops.deform_conv import deform_sums
     from d3feat_tpu_torch.ops.neighbors import permute_rows
     from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
     from d3feat_tpu_torch.train.optim import make_optimizer
@@ -2990,9 +2989,12 @@ def variants_deform(cfg, frags, batch, line, acc, device="cuda", keep=None):
         check(n_band == n_rigid > 0 and n_def == 3 * len(DEFORM_LAYERS),
               f"variants (b) {tag}: {n_band} band convs of {n_rigid} rigid, {n_def} deformable")
 
+        k6 = deform_sums.launches
         out, c = counted(f"variants (b) {tag}, extraction",
                          lambda: make_extract_step(dcfg, num_clouds=2)(model, serving), acc)
         need(c, f"variants (b) {tag} extraction", ("K1 select", "K3 band_head"))
+        check(deform_sums.launches - k6 == 2 * n_def, f"variants (b) {tag} extraction: K6 "
+              f"launched {deform_sums.launches - k6} times for {n_def} deformable convs")
         check(c["K2 band_conv"] == n_band, f"variants (b) {tag} extraction: K2 launched "
               f"{c['K2 band_conv']} times for {n_band} rigid band convs")
         tout = make_extract_step(dcfg, num_clouds=2, impl="plain")(model, serving)

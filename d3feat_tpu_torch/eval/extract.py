@@ -8,6 +8,7 @@ extraction step on the device; the valid rows come back to the host.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import warnings
 from typing import Dict, Optional, Sequence
@@ -63,8 +64,9 @@ class FeatureExtractor:
     def _step_for(self, cap0: int, num_clouds: int):
         key = (cap0, num_clouds)
         if key not in self._steps:
-            cfg = D3FeatConfig.from_dict(self.config.to_dict())
-            cfg.caps = _bucket_caps(self.config, cap0)
+            # a copy, not a rebuild from to_dict(): a subclass keeps its
+            # architecture() (a deformable model its block list)
+            cfg = dataclasses.replace(self.config, caps=_bucket_caps(self.config, cap0))
             self._steps[key] = make_extract_step(cfg, num_clouds=num_clouds, impl=self.impl)
         return self._steps[key]
 

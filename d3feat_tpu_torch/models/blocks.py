@@ -4,7 +4,8 @@ rigid and deformable), nearest-upsample, max-pool and global-average; the
 two rigid KPConvs, the band KPConv (K2 forward, K4 backward) where
 ``band_conv_eligible`` holds and the gather KPConv
 (``models.kpconv.kpconv``) everywhere else; and the deformable KPConv
-(``models.kpconv.deformable_kpconv``), always a gather.
+(``models.kpconv.deformable_kpconv``), whose neighbour sums run on K6
+where no gradient is needed and by the gather route otherwise.
 
 Modules carry the JAX package's parameter names, so a parameter's
 ``state_dict`` name is its JAX key path written with dots
@@ -355,10 +356,12 @@ def apply_gather_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, c
 
 
 def apply_deformable_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batch, config,
-                            compute_dtype=torch.float32):
+                            impl: str = "auto", compute_dtype=torch.float32):
     """Deformable KPConv of one block (``models.kpconv.deformable_kpconv``)
     on either pyramid, with the block's points and lists as
-    ``apply_gather_kpconv`` reads them. Returns (features, KPConvAux)."""
+    ``apply_gather_kpconv`` reads them; its neighbour sums on K6 or by the
+    gather route as ``impl`` and the need for a gradient say
+    (``ops.deform_conv.deform_sums``). Returns (features, KPConvAux)."""
     l = spec.layer
     q_level = l + 1 if spec.strided else l
     inds = batch["pools"][l] if spec.strided else batch["neighbors"][l]
@@ -366,7 +369,7 @@ def apply_deformable_kpconv(conv: KPConv, spec: BlockSpec, x: torch.Tensor, batc
                              KP_extent=spec.radius * config.KP_extent / config.conv_radius,
                              KP_influence=config.KP_influence,
                              aggregation_mode=config.aggregation_mode,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, impl=impl)
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +385,7 @@ class _ConvBlock(nn.Module):
 
     def _conv(self, x, batch, impl, compute_dtype):
         if self.spec.deformable:
-            return apply_deformable_kpconv(self.conv, self.spec, x, batch, self.config,
+            return apply_deformable_kpconv(self.conv, self.spec, x, batch, self.config, impl,
                                            compute_dtype)
         if band_conv_eligible(self.spec, batch, self.config):
             return apply_band_kpconv(self.conv, self.spec, x, batch, self.config, impl,

@@ -18,10 +18,12 @@ A deformable KPConv also holds ``offset_weights`` [KP, Cin, offset_dim],
 per-query kernel-point offsets (and, modulated, per-kernel-point weights)
 with a rigid gather KPConv on the same neighbours, then convolves with the
 deformed kernel points. The JAX package keeps it in XLA, so it has no band
-kernel. Neighbours out of range of every deformed kernel point are masked
-to the shadow row (the reference prunes them with a top-k; same result,
-static shape), and the forward returns ``KPConvAux`` for the fitting
-regularizer (``losses.regularizers``).
+kernel; its two neighbour sums run on K6 (``ops/deform_conv.py``) where no
+gradient is needed, and by the gather route otherwise. Neighbours out of
+range of every deformed kernel point are masked to the shadow row (the
+reference prunes them with a top-k; same result, static shape), and the
+forward returns ``KPConvAux`` for the fitting regularizer
+(``losses.regularizers``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from d3feat_tpu_torch.ops.deform_conv import deform_sums, deform_sums_plain
+from d3feat_tpu_torch.utils.profiling import span
 
 SHADOW_COORD = 1.0e6
 
@@ -122,47 +127,33 @@ def kpconv(q_pts: torch.Tensor, s_pts: torch.Tensor, neighb_inds: torch.Tensor,
     float32, so a bf16 run sums exact products of bf16 operands in f32 as
     the reference's ``preferred_element_type=f32``; the second rounds its
     bf16 product to bf16. The result is divided by the count of neighbours
-    whose compute-dtype feature sum is > 0, at least 1."""
-    kp = kernel_points.detach().float()
-    s_ext = torch.cat([s_pts.detach().float(), s_pts.new_full((1, 3), SHADOW_COORD)])
-    nb = s_ext[neighb_inds.long()] - q_pts.detach().float()[:, None, :]    # [Q, nn, 3]
-    n_sq = (nb * nb).sum(-1)                                               # [Q, nn]
-    kp_sq = (kp * kp).sum(-1)                                              # [KP]
-    cross = (nb[..., 0:1] * kp[:, 0] + nb[..., 1:2] * kp[:, 1]) + nb[..., 2:3] * kp[:, 2]
-    sq_d = torch.clamp(n_sq[..., None] - 2.0 * cross + kp_sq, min=0.0)    # [Q, nn, KP]
-    w = influence(sq_d, KP_extent, KP_influence)
-    if aggregation_mode == "closest":
-        w = w * F.one_hot(sq_d.argmin(-1), kp.shape[0]).to(w.dtype)
-    elif aggregation_mode != "sum":
-        raise ValueError(f"unknown aggregation {aggregation_mode!r}")
-    w = w.transpose(1, 2)                                                  # [Q, KP, nn]
-
-    neighb_x = gather_rows(x.to(compute_dtype), neighb_inds)                   # [Q, nn, Cin]
-    weighted = torch.bmm(w.to(compute_dtype).float(), neighb_x.float())   # [Q, KP, Cin]
-    return contract(weighted, weights, neighb_x, compute_dtype)
+    whose compute-dtype feature sum is > 0, at least 1. The neighbour sums
+    are ``ops/deform_conv.py::deform_sums_plain`` on shared kernel points."""
+    weighted, density, _ = deform_sums_plain(
+        q_pts, s_pts, neighb_inds, x, kernel_points, extent=KP_extent, drop=False,
+        influence=KP_influence, aggregation=aggregation_mode, compute_dtype=compute_dtype)
+    return contract(weighted, weights, density, compute_dtype)
 
 
-def contract(weighted: torch.Tensor, weights: torch.Tensor, neighb_x: torch.Tensor,
+def contract(weighted: torch.Tensor, weights: torch.Tensor, density: torch.Tensor,
              compute_dtype) -> torch.Tensor:
     """A gather KPConv's second product and density: ``weighted`` [Q, KP,
     Cin] against ``weights`` [KP, Cin, Cout] (the bf16 product rounded to
-    bf16), divided by the count of neighbours whose gathered features
-    ``neighb_x`` [Q, nn, Cin] sum to > 0, at least 1."""
+    bf16), divided by ``density`` [Q] float32 (the count of neighbours whose
+    features sum to > 0, at least 1)."""
     kf, cin, cout = weights.shape
     w2 = weights.reshape(kf * cin, cout)
     if compute_dtype == torch.float32:
         out = weighted.reshape(-1, kf * cin) @ w2
     else:
         out = (weighted.reshape(-1, kf * cin).to(compute_dtype) @ w2.to(compute_dtype)).float()
-    active = neighb_x.float().sum(-1) > 0.0
-    denom = torch.clamp(active.sum(-1), min=1).to(out.dtype)
-    return out / denom[:, None]
+    return out / density[:, None]
 
 
 def deformable_kpconv(q_pts: torch.Tensor, s_pts: torch.Tensor, neighb_inds: torch.Tensor,
                       x: torch.Tensor, conv: KPConv, *, KP_extent: float,
                       KP_influence: str = "linear", aggregation_mode: str = "sum",
-                      compute_dtype=torch.float32):
+                      compute_dtype=torch.float32, impl: str = "auto"):
     """Deformable KPConv (the deformable branch of
     ``d3feat_tpu/models/kpconv.py::kpconv``): ``([Q, Cout] float32,
     KPConvAux)``, arguments as ``kpconv``'s.
@@ -176,40 +167,35 @@ def deformable_kpconv(q_pts: torch.Tensor, s_pts: torch.Tensor, neighb_inds: tor
     within ``KP_extent`` of no deformed point is replaced by the shadow
     before the features are gathered, so it neither adds to the sums nor
     counts in the density. Gradients reach the features, ``weights``,
-    ``offset_weights`` and ``offset_bias``, never the kernel points."""
-    off = kpconv(q_pts, s_pts, neighb_inds, x, conv.offset_weights, conv.offset_kernel_points,
-                 KP_extent=KP_extent, KP_influence=KP_influence,
-                 aggregation_mode=aggregation_mode, compute_dtype=compute_dtype)
-    off = off + conv.offset_bias
+    ``offset_weights`` and ``offset_bias``, never the kernel points.
+
+    Both neighbour sums go through ``ops/deform_conv.py::deform_sums``:
+    with ``impl="auto"`` on K6 where no gradient is needed (extraction,
+    evaluation) at linear influence, sum aggregation and float32, else by
+    the gather route, its twin. Spans: ``deform.offsets`` (the offset
+    KPConv and the moved kernel points), ``deform.sums`` (the deformed
+    sums), ``deform.contract`` (the modulations, the product with the
+    weights and the density)."""
+    kw = dict(extent=KP_extent, influence=KP_influence, aggregation=aggregation_mode,
+              compute_dtype=compute_dtype, impl=impl)
     kp = conv.kernel_points.detach().float()
     k, p_dim = kp.shape
-    if conv.modulated:
-        unscaled = off[:, :p_dim * k].reshape(-1, k, p_dim)
-        modulations = 2.0 * torch.sigmoid(off[:, p_dim * k:])                  # [Q, KP]
-    else:
-        unscaled = off.reshape(-1, k, p_dim)
-        modulations = None
-    deformed_kp = unscaled * KP_extent + kp                                     # [Q, KP, 3]
-
-    inds = neighb_inds.long()
-    s_ext = torch.cat([s_pts.detach().float(), s_pts.new_full((1, p_dim), SHADOW_COORD)])
-    nb = s_ext[inds] - q_pts.detach().float()[:, None, :]                      # [Q, nn, 3]
-    diff = nb[:, :, None, :] - deformed_kp[:, None, :, :]                       # [Q, nn, KP, 3]
-    sq_d = (diff * diff).sum(-1)                                                # [Q, nn, KP]
-    min_d2 = sq_d.amin(1)  # ties share the gradient, as jnp.min's
-
-    in_range = (sq_d < KP_extent**2).any(-1)                                    # [Q, nn]
-    eff_inds = torch.where(in_range, inds, s_pts.shape[0])
-    w = torch.where(in_range[:, :, None], influence(sq_d, KP_extent, KP_influence), 0.0)
-    if aggregation_mode == "closest":
-        w = w * F.one_hot(sq_d.argmin(-1), k).to(w.dtype)
-    elif aggregation_mode != "sum":
-        raise ValueError(f"unknown aggregation {aggregation_mode!r}")
-    w = w.transpose(1, 2)                                                       # [Q, KP, nn]
-
-    neighb_x = gather_rows(x, eff_inds)                                         # [Q, nn, Cin]
-    weighted = torch.bmm(w.to(compute_dtype).float(), neighb_x.to(compute_dtype).float())
-    if modulations is not None:
-        weighted = weighted * modulations[:, :, None]
-    out = contract(weighted, conv.weights, neighb_x, compute_dtype)  # density on f32 features
+    with span("deform.offsets"):
+        weighted, density, _ = deform_sums(q_pts, s_pts, neighb_inds, x,
+                                           conv.offset_kernel_points, drop=False, **kw)
+        off = contract(weighted, conv.offset_weights, density, compute_dtype) + conv.offset_bias
+        if conv.modulated:
+            unscaled = off[:, :p_dim * k].reshape(-1, k, p_dim)
+            modulations = 2.0 * torch.sigmoid(off[:, p_dim * k:])              # [Q, KP]
+        else:
+            unscaled = off.reshape(-1, k, p_dim)
+            modulations = None
+        deformed_kp = unscaled * KP_extent + kp                                 # [Q, KP, 3]
+    with span("deform.sums"):
+        weighted, density, min_d2 = deform_sums(q_pts, s_pts, neighb_inds, x, deformed_kp,
+                                                drop=True, **kw)
+    with span("deform.contract"):
+        if modulations is not None:
+            weighted = weighted * modulations[:, :, None]
+        out = contract(weighted, conv.weights, density, compute_dtype)  # density on f32 features
     return out, KPConvAux(min_d2=min_d2, deformed_kp=deformed_kp)

@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-arch=sm_90a", "-fmad=false",
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 
 # every kernel source under cuda/; the first load builds all that are missing
-KERNELS = ("select", "band_lists", "band_conv", "head", "band_conv_bwd", "head_bwd")
+KERNELS = ("select", "band_lists", "band_conv", "head", "band_conv_bwd", "head_bwd",
+           "deform_conv")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHERS: Dict[Tuple[str, str], Callable[..., int]] = {}

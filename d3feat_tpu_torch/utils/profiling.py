@@ -47,6 +47,11 @@ switch.
 * model (``models/kpfcnn.py``): ``model.block[enc:<i>:<name>]`` and
   ``model.block[dec:<i>:<name>]`` around each encoder and decoder block;
   ``model.head``;
+* deformable KPConv (``models/kpconv.py::deformable_kpconv``, inside its
+  block's ``model.block``): ``deform.offsets`` (the offset KPConv and the
+  moved kernel points), ``deform.sums`` (the deformed neighbour sums, K6
+  or the gather route), ``deform.contract`` (the modulations, the product
+  with the weights and the density); no sync;
 * host syncs: ``sync.<site>`` around each statement that blocks the host
   on the device, so a site's count of ranges is its count of syncs and
   their duration the host's wait. On the band route: ``const.head``
