@@ -3,7 +3,8 @@
 
 Each fragment, or group of ``batch_fragments`` fragments riding the cloud
 axis, is packed into the smallest capacity bucket and runs through one
-extraction step on the device; the valid rows come back to the host.
+extraction step on the device; the valid rows come back to the host
+(``ops/transfer.py::to_host``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from d3feat_tpu_torch import resolve_device
 from d3feat_tpu_torch.config import D3FeatConfig, PyramidCaps
 from d3feat_tpu_torch.data.pack import choose_bucket, pack_fragments, pack_single
 from d3feat_tpu_torch.eval.registration import FragmentFeatures
+from d3feat_tpu_torch.ops.transfer import to_host
 from d3feat_tpu_torch.train.step import make_extract_step
 from d3feat_tpu_torch.utils.profiling import span
 
@@ -70,10 +72,8 @@ class FeatureExtractor:
             self._steps[key] = make_extract_step(cfg, num_clouds=num_clouds, impl=self.impl)
         return self._steps[key]
 
-    def _handle_overflow(self, overflow, cap0: int, context: str) -> bool:
+    def _handle_overflow(self, overflowed: bool, cap0: int, context: str) -> bool:
         """True when the caller should retry in a larger bucket."""
-        with span("sync.overflow"):
-            overflowed = bool(overflow)
         if not overflowed:
             return False
         larger = [c for c in self.buckets if c > cap0]
@@ -87,13 +87,16 @@ class FeatureExtractor:
             return False
         raise RuntimeError(msg)
 
-    def _run(self, step, batch, bucket: int, context: str):
-        """(features, scores, whether to retry in a larger bucket) of one
-        extraction step on the packed ``batch``."""
+    def _run(self, step, batch, bucket: int, rows: int, context: str):
+        """(descriptors [rows, D], scores [rows] on the host, whether to
+        retry in a larger bucket) of one extraction step on the packed
+        ``batch``: the first ``rows`` rows of its outputs, the valid ones."""
         with span("extract.step"):
             tensors = {k: _to_device(v, self.device) for k, v in batch.items()}
             feats, scores, overflow = step(self.model, tensors)
-            return feats, scores, self._handle_overflow(overflow, bucket, context)
+        with span("extract.copy_out"):
+            feats, scores, overflowed = to_host(feats, scores, overflow, rows)
+        return feats, scores, self._handle_overflow(overflowed, bucket, context)
 
     def extract(self, points: np.ndarray):
         """(descriptors [N, D], scores [N]) for one fragment."""
@@ -106,13 +109,12 @@ class FeatureExtractor:
         while True:
             with span("extract.pack"):
                 batch = pack_single(points, np.ones((n, 1), np.float32), point_capacity=cap0)
-            feats, scores, retry = self._run(self._step_for(cap0, 2), batch, cap0,
+            feats, scores, retry = self._run(self._step_for(cap0, 2), batch, cap0, n,
                                              f"fragment of {n} pts")
             if retry:
                 cap0 = min(c for c in self.buckets if c > cap0)
                 continue
-            with span("extract.copy_out"):
-                return _to_host(feats[:n]), _to_host(scores[:n, 0])
+            return feats, scores
 
     def extract_many(self, clouds):
         """[(descriptors, scores)] for a list of fragments,
@@ -133,17 +135,16 @@ class FeatureExtractor:
                 with span("extract.pack"):
                     batch = pack_fragments(group, point_capacity=cap0, num_clouds=b)
                 feats, scores, retry = self._run(self._step_for(cap0, b), batch, per_frag,
+                                                 sum(len(c) for c in group),
                                                  f"group of {len(group)} fragments")
                 if retry:
                     per_frag = min(c for c in self.buckets if c > per_frag)
                     continue
                 break
-            with span("extract.copy_out"):
-                feats, scores = _to_host(feats), _to_host(scores)
             row = 0
             for c in group:
                 n = len(c)
-                results.append((feats[row : row + n], scores[row : row + n, 0]))
+                results.append((feats[row : row + n], scores[row : row + n]))
                 row += n
         return results
 
@@ -151,11 +152,6 @@ class FeatureExtractor:
 def _to_device(array: np.ndarray, device) -> torch.Tensor:
     with span("sync.copy_in"):  # pageable memory: the copy blocks the host
         return torch.from_numpy(array).to(device)
-
-
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    with span("sync.copy_out"):
-        return t.cpu().numpy()
 
 
 def generate_features(

@@ -31,7 +31,8 @@ switch.
 * extraction entry (``eval/extract.py``): ``extract[<call>]`` around each
   ``extract`` or ``extract_many`` call, numbered from 0 for each
   extractor; ``extract.pack``; ``extract.step`` (the copies in, the
-  extraction step, the overflow check); ``extract.copy_out``;
+  extraction step); ``extract.copy_out`` (the valid rows and the overflow
+  flag copied back, ``ops/transfer.py::to_host``, once a step);
 * train step (``train/step.py``): ``train.step[<call>]``, numbered from 0
   for each step function; ``train.forward`` (pyramid, ``apply_kpfcnn``,
   losses); ``train.backward``; ``train.allreduce`` (with a process group);
@@ -55,8 +56,8 @@ switch.
 * host syncs: ``sync.<site>`` around each statement that blocks the host
   on the device, so a site's count of ranges is its count of syncs and
   their duration the host's wait. On the band route: ``const.head``
-  (``models/kpfcnn.py``: host constants copied to the card), ``copy_in``,
-  ``overflow``, ``copy_out`` (``eval/extract.py``), ``metrics``
+  (``models/kpfcnn.py``: host constants copied to the card), ``copy_in``
+  (``eval/extract.py``), ``copy_out`` (``ops/transfer.py``), ``metrics``
   (``train/step.py``, also the eval step's); the band route's pyramid has
   none. On the plain twins and the original-order route also ``window_width``
   (``ops/select.py::tile_windows``), ``candidates``, ``row_groups``

@@ -145,7 +145,7 @@ def test_extraction_records_its_spans(pair):
     got = _counts(rs)
     want = _pyramid_counts()
     want.update({"extract": 1, "extract.pack": 1, "extract.step": 1, "extract.copy_out": 1,
-                 "sync.copy_in": 3, "sync.overflow": 1, "sync.copy_out": 2,
+                 "sync.copy_in": 3, "sync.overflow": 0, "sync.copy_out": 1,
                  "model.block": 12, "model.head": 1, "sync.const.head": 2,
                  "sync.window_width": 7 + 9})  # the K2 twin of each block and the head's
     for k, v in want.items():
@@ -166,7 +166,7 @@ def test_extraction_records_its_spans(pair):
     _check_parents(rs, dict(PYRAMID_PARENTS, **{
         "extract": {None}, "extract.pack": {"extract"}, "extract.step": {"extract"},
         "extract.copy_out": {"extract"}, "sync.copy_in": {"extract.step"},
-        "sync.overflow": {"extract.step"}, "sync.copy_out": {"extract.copy_out"},
+        "sync.copy_out": {"extract.copy_out"},
         "pyramid": {"extract.step"}, "model.block": {"extract.step"},
         "model.head": {"extract.step"}, "sync.const.head": {"model.head"}}))
 
