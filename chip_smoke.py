@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (``d3feat_tpu_torch``) once on one GPU.
+"""Check the PyTorch/CUDA port (``d3feat_tpu_torch``) once on one GPU.
 
 Run from the repository root with no arguments::
 
-    python3 chip_smoke.py            # add --profile for a device-time breakdown
+    python3 chip_smoke.py
 
 It needs one CUDA device, ``nvcc`` (the CUDA toolkit), the committed r5
 weights (``artifacts/model_best_acc_r5.npz``), the committed eval-cache
@@ -13,69 +13,63 @@ references (``tests/torch_port_recall_r5.json``, and
 ``g++`` for the native host library; it imports nothing of JAX or of the
 JAX package. Besides the kernels' build directory
 (``d3feat_tpu_torch/_build``) it writes only into temporary directories
-(under ``TMPDIR``) that it removes. Phases, each announced with the elapsed seconds:
+(under ``TMPDIR``) that it removes. It is a correctness check: the port is
+measured by ``benchmark/run.py``. Its one timer is ``held_ms``, the
+kernel-alone device time of each kernel by CUDA events on a stream held by
+a spin kernel until the calls are queued (no launch is left out, the
+host's launch gaps are not timed). Phases, each announced with the elapsed
+seconds:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: the kernel sources ``d3feat_tpu_torch/ops/cuda/*.cu`` with
    ``nvcc``, one process per source, all started together;
 3. kernels vs twins on one real pyramid (two eval-cache fragments at the
-   bench capacities): K1 bit for bit (positions, d2, thr, ptie) on all 13
-   searches, each timed; K1 on the same two fragments not pre-sorted
-   (``radius_neighbors_pallas``, the original-order route's use) bit for
-   bit on their conv0 and pool0 searches, each timed, its device time by
-   events on a held stream (``held_ms``: a spin kernel holds the stream
-   until the calls are queued, so no launch is left out; the profiler's
-   figure and the launches it recorded printed beside); the list stage of
-   K2/K4 and its transpose bit for bit on the 9 searches the convs use;
-   K2 at all 14 convs (atol 3e-5,
-   rtol 1e-4, density exact); K3 from conv0's lists (sums atol 1e-6,
-   counts exact); K4 at all 14 convs from the forward's lists and weighted
-   rows and a seeded cotangent (dx and dW at atol 5e-4, rtol 1e-3); K5
-   from the transpose of conv0's lists (atol 1e-5). Then the bf16 panels
-   of K2 and K4 (``compute_dtype="bfloat16"``) at all 14 convs: against
-   their bf16 twins, which round where the kernels round (out, dx and dW
-   within relative L2 1e-4, density exact), and against the f32 kernels
-   (relative L2 1e-2, the JAX suite's bf16 bound). Kernel and twin times
-   by CUDA events (a call's launches, the host's launch work included),
-   kernel device time by ``torch.profiler``, and each bound (bf16 products
-   at the BF16 tensor-core rate); K1's sums over the 13 searches, K2's and
-   K4's over the 14 convs; for K3's sums and K5, the time of one cuSPARSE
-   SpMM (``torch.sparse.mm``) of the same lists as a CSR matrix of ones,
-   as the library's yardstick. K2's and K4's device time is also printed
-   by stage (CUDA kernel name), summed over the 14 convs, f32 and bf16.
-   The gather KPConv's device time (forward, and forward and backward) at
-   the 14 convs beside K2's route and K4's on the same lists, for phase 11
-   (a), by ``held_ms``, and by the profiler beside.
-   Then list mode (the TPU kernels' ``use_thr=False``) on the same pyramid
-   without ``sel_thr``: the list-mode list stage (``band_lists_given``)
-   and its transpose bit for bit on the 9 searches, K2 and K4 in list mode,
-   f32 and bf16, at all 14 convs against their list-mode twins at the
-   same tolerances (K4's dx on the level's rows: the list stage drops the
-   shadow and the zero pads past it), each timed with its bound, K2's
-   distance to threshold mode printed (not gated);
+   bench capacities, ``data.pack.bench_config``): K1 bit for bit
+   (positions, d2, thr, ptie) on all 13 searches; K1 on the same two
+   fragments not pre-sorted (``radius_neighbors_pallas``, the
+   original-order route's use) bit for bit on their conv0 and pool0
+   searches; the list stage of K2/K4 and its transpose bit for bit on the
+   9 searches the convs use; K2 at all 14 convs (atol 3e-5, rtol 1e-4,
+   density exact); K3 from conv0's lists (sums atol 1e-6, counts exact);
+   K4 at all 14 convs from the forward's lists and weighted rows and a
+   seeded cotangent (dx and dW at atol 5e-4, rtol 1e-3); K5 from the
+   transpose of conv0's lists (atol 1e-5). Then the bf16 panels of K2 and
+   K4 (``compute_dtype="bfloat16"``) at all 14 convs: against their bf16
+   twins, which round where the kernels round (out, dx and dW within
+   relative L2 1e-4, density exact), and against the f32 kernels
+   (relative L2 1e-2, the JAX suite's bf16 bound). Each kernel is timed by
+   ``held_ms``: K1's ms are the sum over the 13 searches, K2's and K4's
+   over the 14 convs. The gather KPConv's device time (forward, and
+   forward and backward) at the 14 convs beside K2's route and K4's on the
+   same lists, for phase 10 (a), by ``held_ms``. Then list mode (the TPU
+   kernels' ``use_thr=False``) on the same pyramid without ``sel_thr``:
+   the list-mode list stage (``band_lists_given``) and its transpose bit
+   for bit on the 9 searches, K2 and K4 in list mode, f32 and bf16, at all
+   14 convs against their list-mode twins at the same tolerances (K4's dx
+   on the level's rows: the list stage drops the shadow and the zero pads
+   past it), each timed, K2's distance to threshold mode printed (not
+   gated);
 4. serving path: ``FeatureExtractor(batch_fragments=2)`` with the r5
    weights on the eval-cache fragments of 12k-16k points: launch counts of
    one counted call (K1 on unsorted clouds counted too: none on this
-   route), output checks, the same batch through the twins on
-   the card, and fragments/s over 20 calls after warm-up; then the same
-   in bf16: one counted call (K2's bf16 kernel, never its f32 one),
-   descriptors within relative L2 1e-2 of the bf16 twins', finite, unit
-   norm, no overflow; their distance to the f32 path and the top-250
-   overlap (printed, not gated); fragments/s;
+   route), output checks, and the same batch through the twins on the
+   card; then the same in bf16: one counted call (K2's bf16 kernel, never
+   its f32 one), descriptors within relative L2 1e-2 of the bf16 twins',
+   finite, unit norm, no overflow; their distance to the f32 path and the
+   top-250 overlap (printed, not gated);
 5. training path: ``make_train_step`` at full width from a copy of the r5
    weights on the first ground-truth-posed eval-cache pair that fits the
    bench capacities (correspondences within 0.0375, 128 of them): launch
    counts of one counted step (one transpose per search, one K5 launch),
-   that step's loss and gradients against a
-   step through the twins (loss rtol 1e-3, gradients atol 5e-3, rtol
-   5e-3), then 10 more kernel steps (finite, none skipped, no overflow)
-   and train steps/s; then one bf16 step (K4's bf16 kernel, never the f32
-   K2 or K4) against one bf16 twin step: loss rtol 1e-2, finite, not
-   skipped, the flat gradient within twice the distance of a twin step
-   from weights one f32 ulp away (the bf16 step's own noise; or within
-   1e-2 where that is smaller) and nearer the twins' than the f32 step's;
-   then 10 more bf16 steps (finite, none skipped, no overflow) and bf16
-   train steps/s;
+   that step's loss and gradients against a step through the twins (loss
+   rtol 1e-3, gradients atol 5e-3, rtol 5e-3), then 10 more kernel steps
+   (finite, none skipped, no overflow); then one bf16 step (K4's bf16
+   kernel, never the f32 K2 or K4) against one bf16 twin step: loss rtol
+   1e-2, finite, not skipped, the flat gradient within twice the distance
+   of a twin step from weights one f32 ulp away (the bf16 step's own
+   noise; or within 1e-2 where that is smaller) and nearer the twins' than
+   the f32 step's; then 10 more bf16 steps (finite, none skipped, no
+   overflow);
 6. the list path (no thresholds, ``list_path``): one extraction call and
    one train step through ``make_extract_step``/``make_train_step`` on
    pyramids whose ``sel_thr`` is removed, each counted with the counts set
@@ -87,102 +81,89 @@ JAX package. Besides the kernels' build directory
    1e-2 to a bf16 twin step); distances to the threshold route printed;
 7. data parallelism at world size 1 on NCCL (``dp_phase``, a group of one
    on a ``file://`` store in the temporary directory): the DP train step
-   equal bit for bit to ``make_train_step`` (metrics, weights, momentum),
-   DP extraction to ``make_extract_step``, and the gradient all-reduce's
-   bytes and ms by events; one JSON line ``{"data_parallel": ...}``;
+   equal bit for bit to ``make_train_step`` (metrics, weights, momentum)
+   and DP extraction to ``make_extract_step``; one JSON line
+   ``{"data_parallel": ...}``;
 8. the trainer: the port's ``Trainer`` at full width on a corpus that
    ``gen_corpus.write_scene`` writes into a temporary directory (at least 8
    scenes of the train role and 2 of the validation role, numbers that are
-   multiples of ``VAL_MOD``; seconds printed), on the r5 npz's own config
-   (width 128, 5 layers, SGD lr 0.01, momentum 0.98, ``corpus_rotation``
-   mix, 128 correspondences, r5's capacities) warm-started from r5: start
-   epoch 114 and r5's bests from its meta, two epochs of 8 steps, 2
-   validation steps each, a snapshot every epoch, the autoexport in the
-   temporary directory. Gates: every epoch's mean loss finite and none
-   skipped; ``config.json``, ``metrics.jsonl``, ``snapshot_epoch_115``,
-   ``snapshot_epoch_116`` and ``model_final`` written;
-   ``model_best_loss``, ``model_best_acc`` and the autoexport written
-   exactly when validation beat r5's bests (the reference's rule; which
-   ones is printed); the trainer's weights equal bit for bit to what
-   ``final_recall.load_snapshot`` loads from the directory's
-   ``model_final`` and from an npz that ``export_npz`` writes at the end;
-   a second ``Trainer`` resumed from ``latest_periodic()`` with the same
-   momentum, its next step on a fixed batch against the continuing
-   trainer's (bit for bit, or else within the train-step gate, the
-   largest difference printed); that continuing step counted: K1 13, the
-   list stage 9, K2 14, K3 1, K4 14, the transpose 9, K5 1, and no twin
+   multiples of ``VAL_MOD``), on the r5 npz's own config (width 128, 5
+   layers, SGD lr 0.01, momentum 0.98, ``corpus_rotation`` mix, 128
+   correspondences, r5's capacities) warm-started from r5: start epoch 114
+   and r5's bests from its meta, two epochs of 8 steps, 2 validation steps
+   each, a snapshot every epoch, the autoexport in the temporary directory.
+   Gates: every epoch's mean loss finite and none skipped; ``config.json``,
+   ``metrics.jsonl``, ``snapshot_epoch_115``, ``snapshot_epoch_116`` and
+   ``model_final`` written; ``model_best_loss``, ``model_best_acc`` and the
+   autoexport written exactly when validation beat r5's bests (the
+   reference's rule; which ones is printed); the trainer's weights equal
+   bit for bit to what ``final_recall.load_snapshot`` loads from the
+   directory's ``model_final`` and from an npz that ``export_npz`` writes
+   at the end; a second ``Trainer`` resumed from ``latest_periodic()`` with
+   the same momentum, its next step on a fixed batch against the
+   continuing trainer's (bit for bit, or else within the train-step gate,
+   the largest difference printed); that continuing step counted: K1 13,
+   the list stage 9, K2 14, K3 1, K4 14, the transpose 9, K5 1, and no twin
    (``count_twins`` covers the backward twins too); then the same run in
    bf16 (finite, none skipped, K2's and K4's bf16 kernels only). Printed:
-   steps/s through the ``Trainer`` with the loader in the loop beside
-   ``make_train_step``'s from phase 5, the share of the loop spent waiting
-   on data, the overflow share, each epoch's mean train and validation
-   losses in f32 and bf16, and the recall of the trained npz on scene
-   424245 (not gated); one JSON line ``{"trainer": ...}``;
-9. the port's bench (``d3feat_tpu_torch.bench``): its measuring function
-   in f32 and in bf16 on one shared set of ``scan_fragment`` fragments
-   (no overflow), each printing its JSON line (a smoke check: the
-   baseline is the bench's command line, in a fresh process);
-10. registration recall (``d3feat_tpu_torch.final_recall``'s pass) on the
+   the overflow share, each epoch's mean train and validation losses in
+   f32 and bf16, and the recall of the trained npz on scene 424245 (not
+   gated); one JSON line ``{"trainer": ...}``;
+9. registration recall (``d3feat_tpu_torch.final_recall``'s pass) on the
    4 axis scenes of ``artifacts/eval_cache`` (48 fragments, 68 gt pairs)
    with the r5 weights on the r5 npz's own config:
    ``FeatureExtractor(batch_fragments=2, on_overflow="warn")``, then the
    protocol at 250 keypoints, 0.10 and 5 % per scene. In f32: one counted
    call (K1, K2 f32 and K3 launched, no twin called in the pass), per
    scene gt pairs, matched pairs, recall, average inlier ratio and the
-   groups that overflowed, the mean recall and the seconds for the 48
-   fragments; held against the JAX package's answer
-   (``tests/torch_port_recall_r5.json``): gt pairs equal, overflowed
-   groups equal on the band route, the matched state of every pair equal
-   except where the reference ratio lies within one correspondence of 5 %
-   (printed), equal correspondence and inlier counts where both fragments
-   select the same top-250 sets; the top-250 overlap per fragment
-   printed. Then the same in bf16 (K2's bf16 kernel, never its f32 one;
-   finite), printed beside f32, not gated on recall; one JSON line
-   ``{"recall": ...}``;
-11. the gather route (``gather_phase``; the JAX package's XLA route:
+   groups that overflowed, and the mean recall; held against the JAX
+   package's answer (``tests/torch_port_recall_r5.json``): gt pairs equal,
+   overflowed groups equal on the band route, the matched state of every
+   pair equal except where the reference ratio lies within one
+   correspondence of 5 % (printed), equal correspondence and inlier counts
+   where both fragments select the same top-250 sets; the top-250 overlap
+   per fragment printed. Then the same in bf16 (K2's bf16 kernel, never
+   its f32 one; finite), printed beside f32, not gated on recall; one JSON
+   line ``{"recall": ...}``;
+10. the gather route (``gather_phase``; the JAX package's XLA route:
    ``neighbor_search`` ``'banded'``, ``'grid'``, ``'brute'``, and the
-   gather KPConv), its seconds printed: (a) on the band pyramid of the
-   serving batch, the gather KPConv at each of the 14 convs against K2
-   (atol 3e-5, rtol 1e-4) and its autograd dx and dW for a seeded
-   cotangent against K4 (atol 5e-4, rtol 1e-3) on the same sorted lists,
-   the forwards timed by events (their device ms come from phase 3, by
-   events on a held stream: a profile may leave launches out); one
-   extraction call
-   with every conv on the gather KPConv (``bandconv_max_layer=-1``, no
-   K2 or K4 launch) against the band route's (descriptors within 1e-4,
-   the same top-250 sets) and one f32 train step on the training pair
-   against the band route's (loss rtol 1e-3, gradients atol/rtol 5e-3),
-   peak memory printed; (b) the original-order pyramid of the serving
-   batch for each of the three searches, every level's points, lists,
-   lengths, masks and overflow flags equal bit for bit to the same
-   function on the CPU, no overflow for ``banded``, each timed on the card
-   (and the CPU's seconds); (c) serving on the gather route
-   (``'banded'``, r5): one counted call with no K1-K5 launch and no twin
-   call, finite unit descriptors, fragments/s over 20 calls, then the
-   recall pass on the 4 axis scenes held pair by pair (``hold_recall``)
-   to the JAX package's own CPU route,
-   ``tests/torch_port_recall_r5_gather.json``; (d) training on the
-   gather route from r5: one counted step with no K1-K5 launch and no
-   twin call (finite, not skipped, no overflow), 10 more steps and steps/s,
+   gather KPConv): (a) on the band pyramid of the serving batch, the
+   gather KPConv at each of the 14 convs against K2 (atol 3e-5, rtol 1e-4)
+   and its autograd dx and dW for a seeded cotangent against K4 (atol
+   5e-4, rtol 1e-3) on the same sorted lists (their device ms come from
+   phase 3); one extraction call with every conv on the gather KPConv
+   (``bandconv_max_layer=-1``, no K2 or K4 launch) against the band
+   route's (descriptors within 1e-4, the same top-250 sets) and one f32
+   train step on the training pair against the band route's (loss rtol
+   1e-3, gradients atol/rtol 5e-3), peak memory printed; (b) the
+   original-order pyramid of the serving batch for each of the three
+   searches, every level's points, lists, lengths, masks and overflow
+   flags equal bit for bit to the same function on the CPU, no overflow
+   for ``banded``; (c) serving on the gather route (``'banded'``, r5): one
+   counted call with no K1-K5 launch and no twin call, finite unit
+   descriptors, then the recall pass on the 4 axis scenes held pair by
+   pair (``hold_recall``) to the JAX package's own CPU route,
+   ``tests/torch_port_recall_r5_gather.json``; (d) training on the gather
+   route from r5: one counted step with no K1-K5 launch and no twin call
+   (finite, not skipped, no overflow), 10 more steps (the same gates),
    peak memory and the loss beside a band-route step (not gated); (e) K1
-   on clouds that are not pre-sorted (``radius_neighbors_pallas``) for
-   the serving batch's conv0 and pool0 searches: one counted call each
-   (one launch), kernel against twin bit for bit, each row's set equal to
-   the banded search's wherever neither list is full (the truncated rows
-   counted), the whole wrapper timed by events beside the kernel's times
-   and bound from phase 3; (f) ``calibrate_caps`` on 4 eval-cache pairs
-   of fragments: the card's caps equal the CPU's, both timed. One JSON
-   line ``{"gather_route": ...}``;
-12. the modules that the JAX package keeps in XLA around its kernels
-   (``variants_phase``), at full width on the bench capacities, its
-   seconds printed; every run below is counted (the launch counts set to 0
-   just before, read just after, no twin called on the card) and held
-   against the same run through the twins on the card: (a) batch norm
-   (``use_batch_norm``; r5's weights, each norm's scale 1 and offset r5's
-   bias: at a random draw the step is near-tie noise): one train step on
-   the training pair (K1-K5; loss rtol 1e-3, gradients atol/rtol 5e-3,
-   the new running statistics within 1e-5; a twin step from weights one
-   ulp away printed beside), 10 more steps and steps/s, one eval-mode
+   on clouds that are not pre-sorted (``radius_neighbors_pallas``) for the
+   serving batch's conv0 and pool0 searches: one counted call each (one
+   launch), kernel against twin bit for bit, each row's set equal to the
+   banded search's wherever neither list is full (the truncated rows
+   counted); (f) ``calibrate_caps`` on 4 eval-cache pairs of fragments:
+   the card's caps equal the CPU's. One JSON line ``{"gather_route":
+   ...}``;
+11. the modules that the JAX package keeps in XLA around its kernels
+   (``variants_phase``), at full width on the bench capacities; every run
+   below is counted (the launch counts set to 0 just before, read just
+   after, no twin called on the card) and held against the same run
+   through the twins on the card: (a) batch norm (``use_batch_norm``; r5's
+   weights, each norm's scale 1 and offset r5's bias: at a random draw the
+   step is near-tie noise): one train step on the training pair (K1-K5;
+   loss rtol 1e-3, gradients atol/rtol 5e-3, the new running statistics
+   within 1e-5; a twin step from weights one ulp away printed beside), 10
+   more steps (finite, none skipped, no overflow), one eval-mode
    extraction of the serving batch with the running statistics (K1-K3;
    descriptors within 1e-4, the same top-250 sets, the statistics
    unmoved); (b) levels 3 and 4 deformable (``resnetb_deformable_strided``,
@@ -193,64 +174,59 @@ JAX package. Besides the kernels' build directory
    bit against the twin, then unmodulated and modulated one extraction
    (K1, K3, K2 at each rigid conv ``band_conv_eligible`` admits) and one
    train step (K2 and K4 at those convs, K5; the train gates), the
-   fitting regularizer finite and positive, no overflow, steps/s and peak
-   memory; (c) ``init_kpfcnn`` with randomised kernel points: every conv's
-   kernel points equal to the same call on the CPU bit for bit, one
+   fitting regularizer finite and positive, no overflow, 5 more steps,
+   peak memory; (c) ``init_kpfcnn`` with randomised kernel points: every
+   conv's kernel points equal to the same call on the CPU bit for bit, one
    extraction through K2 and K3 on them; (d) KPCNN (encoder to 2048
    channels, head 1024, 40 classes; its encoder from r5) on the serving
    batch's two fragments as clouds with fixed labels: one forward on the
    band route (K1, K2; logits atol 1e-4), one loss and backward (K4;
    gradients atol/rtol 5e-3), 3 SGD steps with finite losses, the logits
-   on ``'banded'`` within 1e-4 of the band route's, clouds/s. One JSON line
+   on ``'banded'`` within 1e-4 of the band route's. One JSON line
    ``{"variants": ...}``;
-13. the reference ``.pth`` bridges and the host utilities
-   (``bridges_phase``), its seconds printed, every time and size beside
-   the card's name and power limit: (a) the r5 model out through
+12. the reference ``.pth`` bridges and the host utilities
+   (``bridges_phase``), every size beside the card's name and power limit:
+   (a) the r5 model out through
    ``compat/torch_export.py::save_torch_checkpoint`` and back through
    ``compat/torch_import.py::load_torch_checkpoint`` onto the card, every
    tensor bit for bit; the serving batch through ``FeatureExtractor``
    with both models, each call counted (K1, the list stage, K2, K3; no
-   twin), descriptors and scores equal (max |diff| 0); phase 12's batch
+   twin), descriptors and scores equal (max |diff| 0); phase 11's batch
    norm model (with its running statistics) and its deformable models
    round-tripped, tensors only; (b) ``python3 -m
    d3feat_tpu_torch.test_3dmatch --synthetic`` on the ``.pth`` (the r5
    npz's config as ``--chosen_snapshot``'s ``config.json``) and on the npz,
    in two subprocesses started together (they run beside (c)): their JSON
    lines equal; (c) the native library (``native/src/geometry.cpp``,
-   ``g++ -fopenmp``) built, its seconds printed; ``compute_correspondences``
-   on the training pair (within ``CORR_RADIUS``, mutual) on the native and
-   the numpy route, the seconds of each and the rows that differ, each
-   differing row explained by the two routes' arithmetic (float32 against
-   float64: a tie, or the threshold); ``grid_subsample_batch`` of the
-   serving fragments at ``first_subsampling_dl`` against
-   ``ops/subsample.py::voxel_subsample`` on the card: counts per cloud
-   equal, barycentres equal as sets (atol 1e-4, as ``tests/test_native.py``);
-   (d) ``utils/profiling.py``: ``trace`` around one extraction call,
-   whose trace file must hold the port's spans (``port.extract[..]``,
-   ``port.extract.step``, ``port.pyramid``, ``port.model.head``,
-   ``port.sync.copy_out``), their counts and host ms printed, the port's
-   kernel events in it counted (information: a profile can leave
-   ``ctypes`` launches out); ``utils/metrics.py``'s
-   ``accuracy`` and ``iou`` of a KPCNN forward's logits on the card equal
-   to the same functions on the host copies. One JSON line
-   ``{"bridges": ...}``;
-14. with ``--profile``, device time by kernel and the device busy share
-   over 4 extraction calls (f32 and bf16) and over 3 train steps (f32
-   and bf16) (``torch.profiler``);
-15. one JSON line with every kernel's numbers (K1 on unsorted clouds with
-   its launches counted on the main path, 0 on the band route, and those
-   of phase 11's counted calls as ``gather_phase_launches``; every
-   kernel's launches in phase 12's counted runs as
-   ``variants_phase_launches``, in phase 13's as
-   ``bridges_phase_launches``), then the result line.
+   ``g++ -fopenmp``) built; ``compute_correspondences`` on the training
+   pair (within ``CORR_RADIUS``, mutual) on the native and the numpy
+   route, the rows that differ, each differing row explained by the two
+   routes' arithmetic (float32 against float64: a tie, or the threshold);
+   ``grid_subsample_batch`` of the serving fragments at
+   ``first_subsampling_dl`` against ``ops/subsample.py::voxel_subsample``
+   on the card: counts per cloud equal, barycentres equal as sets (atol
+   1e-4, as ``tests/test_native.py``); (d) ``utils/profiling.py``:
+   ``trace`` around one extraction call, whose trace file must hold the
+   port's spans (``port.extract[..]``, ``port.extract.step``,
+   ``port.pyramid``, ``port.model.head``, ``port.sync.copy_out``), their
+   counts and host ms printed, the port's kernel events in it counted
+   (information: a profile can leave ``ctypes`` launches out);
+   ``utils/metrics.py``'s ``accuracy`` and ``iou`` of a KPCNN forward's
+   logits on the card equal to the same functions on the host copies. One
+   JSON line ``{"bridges": ...}``;
+13. one JSON line with every kernel's launches, largest difference from
+   its twin and ``held_ms`` time (K1 on unsorted clouds with its launches
+   counted on the main path, 0 on the band route, and those of phase 10's
+   counted calls as ``gather_phase_launches``; every kernel's launches in
+   phase 11's counted runs as ``variants_phase_launches``, in phase 12's
+   as ``bridges_phase_launches``), then the result line.
 
-The JSON lines come in this order before the last: the bench's two, then
-``{"recall": ...}``, ``{"trainer": ...}`` (corpus seconds, per dtype the
-epochs' losses and accuracies, steps, steps/s, data-wait and overflow
-shares; the bests written, the resume comparison, the counted step's
-launches, the recall on scene 424245, the card), ``{"data_parallel": ...}``,
-``{"gather_route": ...}``, ``{"variants": ...}``, ``{"bridges": ...}``, the
-throughput line and the kernels line.
+The JSON lines come in this order before the last: ``{"recall": ...}``,
+``{"trainer": ...}`` (per dtype the epochs' losses and accuracies, steps
+and overflow share; the bests written, the resume comparison, the counted
+step's launches, the recall on scene 424245, the card),
+``{"data_parallel": ...}``, ``{"gather_route": ...}``, ``{"variants":
+...}``, ``{"bridges": ...}`` and the kernels line.
 
 Any failed check exits non-zero before the result line.
 """
@@ -258,25 +234,18 @@ Any failed check exits non-zero before the result line.
 import contextlib
 import json
 import os
-import re
 import sys
 import time
 
 T0 = time.perf_counter()
-BENCH_CAPS = tuple(2 * c for c in (16384, 8192, 2048, 768, 256))
 N_MIN, N_MAX = 12000, 16000  # fragment sizes of the JAX package's bench.py
 TOPK = 250                   # keypoints per fragment of the registration protocol
-WARMUP, ITERS = 3, 20
-TRAIN_STEPS = 10             # timed kernel train steps after the counted one
+WARMUP = 3                   # extraction calls before a counted one
+TRAIN_STEPS = 10             # kernel train steps after the counted one
 CORR_RADIUS = 0.0375         # ground-truth correspondence radius (synthetic.py's corr_radius)
 NUM_NODE = 128               # correspondences per pair (the reference's num_node)
-PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3, data sheet
-PEAK_FP32_S = 67e12          # H100 SXM FP32 outside the tensor cores, data sheet
-PEAK_3XTF32_S = 495e12 / 3   # H100 SXM dense TF32 tensor cores, 3 products per f32 product
-PEAK_BF16_S = 989e12         # H100 SXM dense BF16 tensor cores, data sheet
 BF16_TWIN_L2 = 1e-4          # bf16 kernels vs their bf16 twins (same rounding points), rel. L2
 BF16_L2 = 1e-2               # bf16 vs f32: the JAX suite's bound (tests/test_band_conv.py:139-195)
-D2_OPS = 8  # per query-row pair: 3 subtractions, 1 multiply, 2 fused multiply-adds
 
 
 def phase(msg):
@@ -291,68 +260,6 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
-
-
-def cuda_ms(fn, reps=5):
-    """Median milliseconds of ``fn()`` on the current stream, after one
-    warm-up call."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
-
-
-def device_events(prof):
-    """(device ms, launches, name) of every device event of a profile: the
-    kernels and copies themselves; a host operator's device time repeats
-    that of the kernels it launched, an annotation's (such as an autograd
-    function's range) that of the kernels inside it."""
-    import torch
-
-    return [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-
-
-def stage_name(key):
-    """A device event's kernel name without its template arguments and
-    signature (``weighted_mma_kernel<bf16, 16>(...)`` -> ``weighted_mma_kernel``)."""
-    m = re.search(r"(\w+)\s*[<(]", key)
-    return m.group(1) if m else key
-
-
-def device_ms(fn, reps=5, stages=None):
-    """Device milliseconds per call of ``fn()``: the time its kernels (and
-    copies) ran on the card, without the host's launch overhead, over
-    ``reps`` calls after one warm-up call (``torch.profiler``). With a dict
-    ``stages``, adds each kernel's device ms and launches per call into it
-    by ``stage_name``. The profiler may leave launches out of a profile
-    (phase 3 prints how many of K1 unsorted's it recorded), so a figure
-    that a check depends on is taken by ``held_ms``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    if stages is not None:
-        for ms, n, key in events:
-            ms0, n0 = stages.get(stage_name(key), (0.0, 0.0))
-            stages[stage_name(key)] = (ms0 + ms / reps, n0 + n / reps)
-    return sum(ms for ms, _, _ in events) / reps
 
 
 def held_ms(fn, reps=5):
@@ -383,27 +290,11 @@ def held_ms(fn, reps=5):
     return a.elapsed_time(b) / reps
 
 
-def print_stages(label, stages):
-    """The per-stage device time of a kernel, summed over its convs."""
-    rows = sorted(((ms, n, k) for k, (ms, n) in stages.items()), reverse=True)
-    phase(f"{label}, device time by stage: " + ", ".join(
-        f"{k} {ms:.4f} ms ({n:g}x)" for ms, n, k in rows))
-
-
-def bound(nbytes, ops, tc_ops=0, tc_rate=PEAK_3XTF32_S):
-    """(least milliseconds, what bounds them): bytes at the memory rate, or
-    ``ops`` at the FP32 rate plus ``tc_ops`` tensor-core operations at
-    ``tc_rate`` (f32-accurate products as 3xTF32: a third of the TF32 rate;
-    bf16 panels: the BF16 rate)."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S + tc_ops / tc_rate
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def rel_l2(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm())
 
 
-PANELS = {"float32": ("", PEAK_3XTF32_S), "bfloat16": (" bf16", PEAK_BF16_S)}
+PANELS = {"float32": "", "bfloat16": " bf16"}  # the tag of each panel dtype
 
 _BC, _BW = "d3feat_tpu/ops/pallas/band_conv.py:351", "d3feat_tpu/ops/pallas/band_conv.py:586"
 # Every kernel of the kernels line: (its name there, the wrapper's module and
@@ -440,38 +331,6 @@ KERNELS = (
     ("K1 select unsorted", "ops.neighbors", "radius_neighbors_pallas", "launches", "select.cu",
      "d3feat_tpu/ops/pallas/select.py:252"),
 )
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def window_rows(args):
-    """Window rows walked, summed over the queries of every tile."""
-    return int((args["wends"] - args["starts"]).clamp(min=0).sum()) * args["query_tile"]
-
-
-def csr_spmm(crow, col, shape, dense):
-    """(ms by events, device ms, result) of one cuSPARSE SpMM: the CSR
-    matrix of ones with rows ``crow``/``col`` (built outside the timed
-    call) times ``dense``, ``torch.sparse.mm``: a library's yardstick for a
-    kernel that sums listed rows, never called by the port."""
-    import torch
-
-    a = torch.sparse_csr_tensor(crow, col, torch.ones(col.shape[0], device=dense.device),
-                                size=shape, check_invariants=True)
-    run = lambda: torch.sparse.mm(a, dense)  # noqa: E731
-    return cuda_ms(run), device_ms(run), run()
-
-
-def bench_config():
-    from d3feat_tpu_torch.config import D3FeatConfig, PyramidCaps
-
-    cfg = D3FeatConfig(experiment_id="chip_smoke")
-    cfg.caps = PyramidCaps(points=BENCH_CAPS, neighbors=(40,) * 5, corr=128)
-    cfg.query_tile = 512
-    cfg.eval_gate_topm = 16 * TOPK * 2
-    return cfg
 
 
 def sorted_levels(pyr, spec):
@@ -522,16 +381,15 @@ def k1_args(q, s, r, k, spec):
 def check_k1(pyr, spec, report):
     """K1 bit for bit against its twin on every search of the pyramid (13
     at the default config), through ``level_search`` (positions, overflow,
-    thr, ptie) and raw (positions, d2), each search timed (kernel and twin
-    by events, kernel device time) beside its bound; its ms in the kernels
-    line is the sum over the searches of one extraction call."""
+    thr, ptie) and raw (positions, d2), each search timed by ``held_ms``;
+    its ms in the kernels line is the sum over the searches of one
+    extraction call."""
     import torch
     from d3feat_tpu_torch.ops.pyramid import level_search
     from d3feat_tpu_torch.ops.select import band_select
 
     levels = sorted_levels(pyr, spec)
-    tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, bytes=0.0)
-    conv0 = None
+    total = 0.0
     searches = k1_searches(spec, levels)
     for name, q, s, r, k in searches:
         got = level_search(q, s, r, k, spec, impl="kernel")
@@ -542,35 +400,17 @@ def check_k1(pyr, spec, report):
         kp, kd = band_select(q_rows, s_rows, starts, wends, impl="kernel", **kw)
         pp, pd = band_select(q_rows, s_rows, starts, wends, impl="plain", **kw)
         check(torch.equal(kp, pp) and torch.equal(kd, pd), f"K1 {name}: raw outputs differ")
-
-        def run(impl):
-            return band_select(q_rows, s_rows, starts, wends, impl=impl, **kw)
-
-        ms, dev_ms = cuda_ms(lambda: run("kernel")), device_ms(lambda: run("kernel"))
-        plain_ms = cuda_ms(lambda: run("plain"), reps=3)
-        nb = nbytes(q_rows, s_rows, starts, wends, kp, kd)
-        ops = D2_OPS * window_rows(dict(starts=starts, wends=wends, query_tile=kw["query_tile"]))
-        b_ms, b_by = bound(nb, ops)
-        for f, v in (("ms", ms), ("dev_ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                     ("ops", ops), ("bytes", nb)):
-            tot[f] += v
-        if name == "conv0":
-            conv0 = (ms, dev_ms, plain_ms, b_ms, b_by)
+        ms = held_ms(lambda: band_select(q_rows, s_rows, starts, wends, impl="kernel", **kw))
+        total += ms
         phase(f"K1 select {name} ({q_rows.shape[0]} queries x {kw['max_k']}, tile "
               f"{kw['query_tile']}, {int((wends - starts).clamp(min=0).max())} rows in the widest "
-              f"window): bit-exact vs twin; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin "
-              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"window): bit-exact vs twin; {ms:.4f} ms")
     check(torch.equal(level_search(levels[0], levels[0], spec.radii[0],
                                    spec.neighbor_caps[0], spec)[0],
                       pyr["neighbors"][0]), "K1 conv0: lists differ from the pyramid's")
-    phase(f"K1 select conv0: kernel {conv0[0]:.4f} ms (device {conv0[1]:.4f} ms), twin "
-          f"{conv0[2]:.3f} ms, bound {conv0[3]:.4f} ms ({conv0[4]})")
-    phase(f"K1 select, sum over the {len(searches)} searches of one extraction call: kernel "
-          f"{tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin {tot['plain_ms']:.3f} ms, "
-          f"bound {tot['bound_ms']:.4f} ms")
-    report["K1 select"] = dict(max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"],
-                               bound_ms=tot["bound_ms"],
-                               bound_by=bound(tot["bytes"], tot["ops"])[1], library_ms=None)
+    phase(f"K1 select, sum over the {len(searches)} searches of one extraction call: "
+          f"{total:.4f} ms")
+    report["K1 select"] = dict(max_abs_err=0.0, ms=total)
 
 
 def conv_cases(pyr, cfg, model, min_width=0):
@@ -596,21 +436,10 @@ def conv_features(spec, pyr, args, cin, gen, device):
     return x
 
 
-def conv_pairs(spec, pyr):
-    """Listed (= selected) query-support pairs of the conv's search; shadow
-    entries equal the support level's size."""
-    lists = pyr["pools" if spec.strided else "neighbors"][spec.layer]
-    return int((lists < pyr["points"][spec.layer].shape[0]).sum())
-
-
 def conv_label(spec, conv, args):
     kpn, cin, cout = conv.weights.shape
     return (f"{'pool' if spec.strided else 'conv'}{spec.layer} {cin} -> {cout}, "
             f"{args['q_rows'].shape[0]} queries")
-
-
-def list_nbytes(lists):
-    return nbytes(*(t for t in (lists.lpos, lists.ld2, lists.lcnt) if t is not None))
 
 
 def without_thresholds(pyr):
@@ -629,8 +458,7 @@ def check_lists(pyr, cfg, model, report, min_width=0):
     from d3feat_tpu_torch.ops.band_lists import band_lists, transpose_lists
 
     seen = {}
-    tot = {k: dict(ms=0.0, plain_ms=0.0, dev_ms=0.0, bound_ms=0.0, ops=0.0, bytes=0.0)
-           for k in "lt"}
+    tot = dict(l=0.0, t=0.0)
     for spec, conv, args in conv_cases(pyr, cfg, model, min_width):
         name = f"{'pool' if spec.strided else 'conv'}{spec.layer}"
         if name in seen:
@@ -648,33 +476,17 @@ def check_lists(pyr, cfg, model, report, min_width=0):
         check(all(torch.equal(a, b) for a, b in zip(tk, tp)),
               f"band_lists {name}: the transpose differs from the twin's")
         seen[name] = int(got.lcnt.sum())
-        fns = dict(l=lambda impl: band_lists(impl=impl, **kw),
-                   t=lambda impl: transpose_lists(got, ns, impl=impl))
-        times = {k: (cuda_ms(lambda: f("kernel")), cuda_ms(lambda: f("plain"), reps=3),
-                     device_ms(lambda: f("kernel"))) for k, f in fns.items()}
-        work = dict(  # (bytes, operations): the d2 tests of the windows; a transpose moves ints
-            l=(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"])
-               + list_nbytes(got), D2_OPS * window_rows(args)),
-            t=(nbytes(got.lpos, got.lcnt, tk[0]) + 4 * seen[name], 0))
+        ms = dict(l=held_ms(lambda: band_lists(impl="kernel", **kw)),
+                  t=held_ms(lambda: transpose_lists(got, ns, impl="kernel")))
         for k in "lt":
-            b_ms, b_by = bound(*work[k])
-            for f, v in (("ms", times[k][0]), ("plain_ms", times[k][1]), ("dev_ms", times[k][2]),
-                         ("bound_ms", b_ms), ("bytes", work[k][0]), ("ops", work[k][1])):
-                tot[k][f] += v
+            tot[k] += ms[k]
         phase(f"band_lists {name} ({args['q_rows'].shape[0]} queries x {got.width}, "
-              f"{seen[name]} listed rows): bit-exact vs twin; kernel {times['l'][0]:.4f} ms (device "
-              f"{times['l'][2]:.4f} ms), twin {times['l'][1]:.3f} ms, bound "
-              f"{bound(*work['l'])[0]:.4f} ms; transpose bit-exact, kernel {times['t'][0]:.4f} ms "
-              f"(device {times['t'][2]:.4f} ms), twin {times['t'][1]:.3f} ms, bound "
-              f"{bound(*work['t'])[0]:.4f} ms")
+              f"{seen[name]} listed rows): bit-exact vs twin, {ms['l']:.4f} ms; transpose "
+              f"bit-exact, {ms['t']:.4f} ms")
     for k, what in (("l", "band_lists"), ("t", "band_lists transpose")):
-        phase(f"{what}, sum over the {len(seen)} searches: kernel {tot[k]['ms']:.4f} ms (device "
-              f"{tot[k]['dev_ms']:.4f} ms), twin {tot[k]['plain_ms']:.3f} ms, bound "
-              f"{tot[k]['bound_ms']:.4f} ms")
+        phase(f"{what}, sum over the {len(seen)} searches: {tot[k]:.4f} ms")
     for k, key in (("l", "K2/K4 band_lists"), ("t", "K4 band_lists transpose")):
-        report[key] = dict(max_abs_err=0.0, ms=tot[k]["ms"], plain_ms=tot[k]["plain_ms"],
-                           bound_ms=tot[k]["bound_ms"],
-                           bound_by=bound(tot[k]["bytes"], tot[k]["ops"])[1], library_ms=None)
+        report[key] = dict(max_abs_err=0.0, ms=tot[k])
 
 
 def check_list_stage(pyr, cfg, model, report, min_width=0):
@@ -689,7 +501,7 @@ def check_list_stage(pyr, cfg, model, report, min_width=0):
 
     lpyr = without_thresholds(pyr)
     seen = {}
-    tot = dict(ms=0.0, plain_ms=0.0, dev_ms=0.0, bound_ms=0.0, bytes=0.0)
+    total = 0.0
     for spec, conv, args in conv_cases(lpyr, cfg, model, min_width):
         name = f"{'pool' if spec.strided else 'conv'}{spec.layer}"
         if name in seen:
@@ -706,39 +518,13 @@ def check_list_stage(pyr, cfg, model, report, min_width=0):
                                                     transpose_lists(ref, ns, impl="plain"))),
               f"band_lists_given {name}: the transpose differs from the twin's")
         seen[name] = int(got.lcnt.sum())
-        ms = cuda_ms(lambda: band_lists_given(impl="kernel", **kw))
-        dev_ms = device_ms(lambda: band_lists_given(impl="kernel", **kw))
-        plain_ms = cuda_ms(lambda: band_lists_given(impl="plain", **kw), reps=3)
-        nb = nbytes(args["neighb"], args["starts"], args["wends"]) + list_nbytes(got)
-        b_ms, b_by = bound(nb, 0)
-        for f, v in (("ms", ms), ("plain_ms", plain_ms), ("dev_ms", dev_ms), ("bound_ms", b_ms),
-                     ("bytes", nb)):
-            tot[f] += v
+        ms = held_ms(lambda: band_lists_given(impl="kernel", **kw))
+        total += ms
         phase(f"band_lists_given {name} ({args['q_rows'].shape[0]} queries x "
               f"{args['neighb'].shape[0]}, {seen[name]} listed rows): bit-exact vs twin, "
-              f"transpose bit-exact; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin "
-              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    phase(f"band_lists_given, sum over the {len(seen)} searches: kernel {tot['ms']:.4f} ms "
-          f"(device {tot['dev_ms']:.4f} ms), twin {tot['plain_ms']:.3f} ms, bound "
-          f"{tot['bound_ms']:.4f} ms")
-    report["K2/K4 band_lists list"] = dict(max_abs_err=0.0, ms=tot["ms"],
-                                           plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-                                           bound_by=bound(tot["bytes"], 0)[1], library_ms=None)
-
-
-def k2_work(spec, conv, args, pyr, panel="float32"):
-    """(FP32 operations, tensor-core products) of one K2 call on its lists:
-    the influence weights (~12 operations a pair and kernel point), the
-    first product [pairs x Cin] and the second [queries x KP * Cin x Cout],
-    twice in bf16 (the hi and the lo rows; the first product of a single
-    input feature runs on FP32 FMA)."""
-    kpn, cin, cout = conv.weights.shape
-    pairs = conv_pairs(spec, pyr)
-    q_live = int((args["q_rows"][:, 3] >= 0).sum())
-    first = 2 * kpn * pairs * cin
-    simt = kpn * 12 * pairs + (first if cin < 8 else 0)
-    rows = 2 if panel == "bfloat16" else 1
-    return simt, (0 if cin < 8 else first) + rows * 2 * q_live * kpn * cin * cout
+              f"transpose bit-exact; {ms:.4f} ms")
+    phase(f"band_lists_given, sum over the {len(seen)} searches: {total:.4f} ms")
+    report["K2/K4 band_lists list"] = dict(max_abs_err=0.0, ms=total)
 
 
 def check_k2(pyr, cfg, model, report, device="cuda", panel="float32", mode="threshold",
@@ -754,16 +540,14 @@ def check_k2(pyr, cfg, model, report, device="cuda", panel="float32", mode="thre
     import torch
     from d3feat_tpu_torch.ops.band_conv import band_conv
 
-    tag, tc_rate = PANELS[panel]
+    tag = PANELS[panel]
     if mode == "list":
         tag = " list" + tag
         thr_cases = conv_cases(pyr, cfg, model, min_width)
         pyr = without_thresholds(pyr)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    worst = 0.0
-    tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, tc=0.0, bytes=0.0)
-    stages = {}
+    worst = total = 0.0
     cases = conv_cases(pyr, cfg, model, min_width)
     for ci, (spec, conv, args) in enumerate(cases):
         kpn, cin, cout = conv.weights.shape
@@ -792,32 +576,18 @@ def check_k2(pyr, cfg, model, report, device="cuda", panel="float32", mode="thre
             note += (f", max |list - threshold mode| {float((ko - thr).abs().max()):.3g} "
                      f"(not gated)")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: band_conv(impl="kernel", **kw))
-        dev_ms = device_ms(lambda: band_conv(impl="kernel", **kw), stages=stages)
-        plain_ms = cuda_ms(lambda: band_conv(impl="plain", **kw), reps=3)
-        ops, tc = k2_work(spec, conv, args, pyr, panel)
-        nb = (nbytes(args["q_rows"], args["s_rows"], x, conv.weights, conv.kernel_points, ko,
-                     kden) + list_nbytes(args["lists"]))
-        b_ms, b_by = bound(nb, ops, tc, tc_rate)
-        for k, v in (("ms", ms), ("dev_ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                     ("ops", ops), ("tc", tc), ("bytes", nb)):
-            tot[k] += v
+        ms = held_ms(lambda: band_conv(impl="kernel", **kw))
+        total += ms
         phase(f"K2 band_conv{tag} {conv_label(spec, conv, args)}: max err {err:.3g}{note}; "
-              f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
-    phase(f"K2 band_conv{tag}, sum over the {len(cases)} convs of one extraction call: kernel {tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin "
-          f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
-    print_stages(f"K2 band_conv{tag}, sum over the convs of one extraction call", stages)
-    report[f"K2 band_conv{tag}"] = dict(
-        max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-        bound_by=bound(tot["bytes"], tot["ops"], tot["tc"], tc_rate)[1], library_ms=None)
+              f"{ms:.4f} ms")
+    phase(f"K2 band_conv{tag}, sum over the {len(cases)} convs of one extraction call: "
+          f"{total:.4f} ms")
+    report[f"K2 band_conv{tag}"] = dict(max_abs_err=worst, ms=total)
 
 
 def check_k3(pyr, cfg, report, device="cuda"):
     """K3 against its twin on the level-0 band (sums atol 1e-6, counts
-    exact), timed by events and by device time, with the bound of the
-    route that reads conv0's lists beside that of the route that selects
-    from the windows."""
+    exact), from conv0's lists, timed by ``held_ms``."""
     import torch
     from d3feat_tpu_torch.models.kpfcnn import band_head_inputs
     from d3feat_tpu_torch.ops.head import band_head
@@ -836,27 +606,10 @@ def check_k3(pyr, cfg, report, device="cuda"):
     err = float((ks - ps).abs().max())
     check(torch.equal(kc, pc), "K3: counts differ from the twin")
     check(err <= 1e-6, f"K3: max |kernel - twin| = {err}")
-    ms = cuda_ms(lambda: band_head(x=x, impl="kernel", **args))
-    dev_ms = device_ms(lambda: band_head(x=x, impl="kernel", **args))
-    plain_ms = cuda_ms(lambda: band_head(x=x, impl="plain", **args), reps=3)
-    pairs = int(lists.lcnt.sum())
-    # the lists' route: lists read up to their counts, x once, sums and counts written
-    b_ms, b_by = bound(4 * pairs + nbytes(lists.lcnt, x, ks, kc), pairs * c)
-    # the windows' route: every window row tested against every query of its tile
-    w_ms, w_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
-                              x, ks, kc), D2_OPS * window_rows(args) + pairs * c)
-    # the sums alone as a library call: the lists as a CSR [Nq_pad, Ns_pad] times x
-    live = torch.arange(lists.lpos.shape[1], device=device)[None, :] < lists.lcnt[:, None]
-    crow = torch.cat([lists.lcnt.new_zeros(1), lists.lcnt.cumsum(0, dtype=torch.int32)])
-    lib_ms, lib_dev, lib = csr_spmm(crow, lists.lpos[live], (ks.shape[0], x.shape[0]), x)
-    lib_err = float((lib - ps).abs().max())
-    report["K3 band_head"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, library_ms=lib_ms)
-    phase(f"K3 band_head ({args['q_rows'].shape[0]} queries x {c}, {pairs} listed rows): max "
-          f"err {err:.3g}; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}) from the lists, {w_ms:.4f} ms ({w_by}) from the "
-          f"windows; SpMM of the sums {lib_ms:.4f} ms (device {lib_dev:.4f} ms, max diff "
-          f"{lib_err:.3g} from the twin)")
+    ms = held_ms(lambda: band_head(x=x, impl="kernel", **args))
+    report["K3 band_head"] = dict(max_abs_err=err, ms=ms)
+    phase(f"K3 band_head ({args['q_rows'].shape[0]} queries x {c}, {int(lists.lcnt.sum())} "
+          f"listed rows): max err {err:.3g}; {ms:.4f} ms")
 
 
 def check_k4(pyr, cfg, model, report, device="cuda", panel="float32", mode="threshold",
@@ -874,15 +627,13 @@ def check_k4(pyr, cfg, model, report, device="cuda", panel="float32", mode="thre
     import torch
     from d3feat_tpu_torch.ops.band_conv import band_conv_bwd, band_conv_kernel
 
-    tag, tc_rate = PANELS[panel]
+    tag = PANELS[panel]
     if mode == "list":
         tag = " list" + tag
         pyr = without_thresholds(pyr)
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
-    worst = 0.0
-    tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, tc=0.0, bytes=0.0)
-    stages = {}
+    worst = total = 0.0
     for ci, (spec, conv, args) in enumerate(conv_cases(pyr, cfg, model, min_width)):
         kpn, cin, cout = conv.weights.shape
         nq = args["q_rows"].shape[0]
@@ -926,52 +677,20 @@ def check_k4(pyr, cfg, model, report, device="cuda", panel="float32", mode="thre
                            for n, (a, b) in errs.items())
         check(float(pdw.abs().max()) > 1e-3, f"{label}: vacuous comparison")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: band_conv_bwd(impl="kernel", **kept, **kw))
-        dev_ms = device_ms(lambda: band_conv_bwd(impl="kernel", **kept, **kw), stages=stages)
-        plain_ms = cuda_ms(lambda: band_conv_bwd(impl="plain", **kw), reps=3)
-        pairs = conv_pairs(spec, pyr)
-        q_live = int((args["q_rows"][:, 3] >= 0).sum())
-        # f32: dW on the tensor cores [queries x KP * Cin x Cout]; with dx,
-        # the gather (influence weights and [pairs x Cout] per kernel point)
-        # and dx = G W^T on the tensor cores over the listed support rows.
-        # bf16: dW over the hi and the lo rows; with dx, V = gs W^T on the
-        # tensor cores [queries x Cout x KP * Cin] and the weights and
-        # products by pairs ([pairs x KP * Cin]), counted as FP32 operations
-        # whichever unit runs them, so the bound reads the same work for
-        # every version of the kernel
-        row_ptr = args["lists"].transpose(args["s_rows"].shape[0])[0]
-        rows_live = int((row_ptr[1:] > row_ptr[:-1]).sum())
-        if panel == "float32":
-            tc = 2 * kpn * cin * cout * (q_live + (rows_live if need_dx else 0))
-            ops = kpn * (12 + 2 * cout) * pairs if need_dx else 0
-        else:
-            tc = 2 * kpn * cin * cout * (2 * q_live + (q_live if need_dx else 0))
-            ops = kpn * (12 + 2 * cin) * pairs if need_dx else 0
-        nb = (nbytes(args["q_rows"], args["s_rows"], conv.weights, conv.kernel_points, gs, wtd,
-                     kdw, *((kdx,) if need_dx else ())) + list_nbytes(args["lists"]))
-        b_ms, b_by = bound(nb, ops, tc, tc_rate)
-        for k, v in (("ms", ms), ("dev_ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                     ("ops", ops), ("tc", tc), ("bytes", nb)):
-            tot[k] += v
+        ms = held_ms(lambda: band_conv_bwd(impl="kernel", **kept, **kw))
+        total += ms
         phase(f"K4 band_conv_bwd{tag} {conv_label(spec, conv, args)}"
-              f"{'' if need_dx else ', no dx'}: max err {err:.3g}{note}; kernel {ms:.4f} ms "
-              f"(device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    phase(f"K4 band_conv_bwd{tag}, sum over the {ci + 1} convs of one train step: kernel "
-          f"{tot['ms']:.4f} ms (device {tot['dev_ms']:.4f} ms), twin {tot['plain_ms']:.3f} ms, "
-          f"bound {tot['bound_ms']:.4f} ms")
-    print_stages(f"K4 band_conv_bwd{tag}, sum over the convs of one train step", stages)
-    report[f"K4 band_conv_bwd{tag}"] = dict(
-        max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-        bound_by=bound(tot["bytes"], tot["ops"], tot["tc"], tc_rate)[1], library_ms=None)
+              f"{'' if need_dx else ', no dx'}: max err {err:.3g}{note}; {ms:.4f} ms")
+    phase(f"K4 band_conv_bwd{tag}, sum over the {ci + 1} convs of one train step: "
+          f"{total:.4f} ms")
+    report[f"K4 band_conv_bwd{tag}"] = dict(max_abs_err=worst, ms=total)
 
 
 def check_k5(pyr, cfg, report, device="cuda"):
     """K5 against its twin on the level-0 band (atol 1e-5), from the
     transpose of conv0's lists that the train step shares with K4 (held
     bit for bit against the twin's transpose first: K5 equals its twin bit
-    for bit only on ascending entries), timed by events and by device time,
-    with the bound of the route that reads the transpose beside that of the
-    route that selects from the windows, and one SpMM of the transpose."""
+    for bit only on ascending entries), timed by ``held_ms``."""
     import torch
     from d3feat_tpu_torch.models.kpfcnn import band_head_inputs
     from d3feat_tpu_torch.ops.band_lists import transpose_lists_plain
@@ -994,24 +713,10 @@ def check_k5(pyr, cfg, report, device="cuda"):
     err = float((kdx - pdx).abs().max())
     check(torch.allclose(kdx, pdx, atol=1e-5, rtol=0), f"K5: max |kernel - twin| = {err}")
     check(float(pdx.abs().max()) > 1.0, "K5: vacuous comparison")
-    ms = cuda_ms(lambda: band_head_bwd(g=g, impl="kernel", **args))
-    dev_ms = device_ms(lambda: band_head_bwd(g=g, impl="kernel", **args))
-    plain_ms = cuda_ms(lambda: band_head_bwd(g=g, impl="plain", **args), reps=3)
-    n_ent = int(row_ptr[-1])  # listed pairs
-    # the transpose's route: row_ptr and the entries read, g once, dx written
-    b_ms, b_by = bound(4 * n_ent + nbytes(row_ptr, g, kdx), n_ent * c)
-    # the windows' route: every window row tested against every query of its tile
-    w_ms, w_by = bound(nbytes(args["q_rows"], args["thr"], args["ptie"], args["s_rows"],
-                              g, kdx), D2_OPS * window_rows(args) + n_ent * c)
-    lib_ms, lib_dev, lib = csr_spmm(row_ptr, pairs[:n_ent] // lists.width, (ns, nq), g)
-    lib_err = float((lib - pdx).abs().max())
-    report["K5 band_head_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                      bound_by=b_by, library_ms=lib_ms)
-    phase(f"K5 band_head_bwd ({nq} queries x {c}, {n_ent} listed pairs): max err {err:.3g}; "
-          f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}) from the transpose, {w_ms:.4f} ms ({w_by}) from the "
-          f"windows; SpMM {lib_ms:.4f} ms (device {lib_dev:.4f} ms, max diff {lib_err:.3g} "
-          f"from the twin)")
+    ms = held_ms(lambda: band_head_bwd(g=g, impl="kernel", **args))
+    report["K5 band_head_bwd"] = dict(max_abs_err=err, ms=ms)
+    phase(f"K5 band_head_bwd ({nq} queries x {c}, {int(row_ptr[-1])} listed pairs): max err "
+          f"{err:.3g}; {ms:.4f} ms")
 
 
 def topk_agree(a, b, k, atol):
@@ -1028,9 +733,7 @@ def topk_agree(a, b, k, atol):
 def main_path(cfg, model, frags, report, device="cuda"):
     import numpy as np
     import torch
-    from d3feat_tpu_torch.data.pack import pack_fragments
     from d3feat_tpu_torch.eval.extract import FeatureExtractor
-    from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
 
     names = ("K1 select", "K2/K4 band_lists", "K2 band_conv", "K3 band_head")
     # the serving policy: a group that overflows the bench bucket is run
@@ -1076,29 +779,7 @@ def main_path(cfg, model, frags, report, device="cuda"):
     phase(f"main path vs twins on the card: max descriptor diff {worst_d:.3g}, "
           f"top-{TOPK} sets agree")
 
-    spec = make_pyramid_spec(cfg, num_clouds=2)
-    over = {}
-    for gi, g in enumerate(groups[:ITERS]):
-        b = pack_fragments(g, point_capacity=cfg.caps.points[0], num_clouds=2)
-        p = build_pyramid(torch.from_numpy(b["points"]).to(device),
-                          torch.from_numpy(b["lengths"]).to(device), spec=spec)
-        srcs = [k for k, v in p["overflow_by"].items() if bool(v)]
-        if srcs:
-            over[gi] = srcs
-    phase(f"bench-bucket overflow in {len(over)} of {min(ITERS, len(groups))} groups "
-          f"{over}; those run again in the next bucket")
-
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for i in range(ITERS):
-        ex.extract_many(groups[i % len(groups)])
-    torch.cuda.synchronize()
-    fps = 2 * ITERS / (time.perf_counter() - t)
-    phase(f"throughput: {fps:.3f} fragments/s ({ITERS} calls of 2 fragments, "
-          f"gate top-{cfg.eval_gate_topm})")
-    if "--profile" in sys.argv:
-        profile(lambda i: ex.extract_many(groups[i % len(groups)]), 4, "extraction calls")
-    return fps, out
+    return out
 
 
 def route_config(cfg, **fields):
@@ -1125,7 +806,7 @@ def serve_bf16(cfg, model, frags, report, f32_out, device="cuda"):
     launched, its f32 kernel never), the descriptors against the bf16
     twins on the card (relative L2 ``BF16_L2``; finite, unit norm, no
     overflow) and against the f32 kernel path (relative L2 and top-250
-    overlap: measured, not gated), then fragments/s."""
+    overlap: measured, not gated)."""
     import numpy as np
     import torch
     from d3feat_tpu_torch.eval.extract import FeatureExtractor
@@ -1166,38 +847,6 @@ def serve_bf16(cfg, model, frags, report, f32_out, device="cuda"):
         phase(f"bf16 fragment of {len(frag)} points: descriptors at relative L2 {e_twin:.4g} "
               f"from the bf16 twins on the card; {e_f32:.4g} from the f32 kernel path, top-{TOPK} "
               f"overlap {overlap}/{TOPK} (measured, not gated)")
-
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for i in range(ITERS):
-        ex.extract_many(groups[i % len(groups)])
-    torch.cuda.synchronize()
-    fps = 2 * ITERS / (time.perf_counter() - t)
-    phase(f"bf16 throughput: {fps:.3f} fragments/s ({ITERS} calls of 2 fragments)")
-    if "--profile" in sys.argv:
-        profile(lambda i: ex.extract_many(groups[i % len(groups)]), 4, "bf16 extraction calls")
-    return fps
-
-
-def profile(run, calls, what):
-    """Device time by kernel over ``calls`` calls of ``run(i)``, and the
-    device busy share of their wall time (``--profile``); only the device's
-    own events count (``device_events``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for i in range(calls):
-            run(i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    rows = sorted((r for r in device_events(prof) if r[0] > 0), reverse=True)
-    busy = sum(r[0] for r in rows)
-    phase(f"profile: {calls} {what}, wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f} %)")
-    for ms, n, key in rows[:20]:
-        print(f"    {ms:9.3f} ms  {n:6d}x  {key[:90]}", flush=True)
 
 
 def training_pair(cfg, spec, device="cuda"):
@@ -1260,10 +909,10 @@ def r5_model(cfg, device="cuda"):
     return model
 
 
-def train_phase(cfg, report, card, batch, device="cuda"):
+def train_phase(cfg, report, batch, device="cuda"):
     """The training path at full width from a copy of the r5 weights: one
     counted kernel step against one twin step from the same state, then
-    ``TRAIN_STEPS`` more kernel steps. Returns train steps/s."""
+    ``TRAIN_STEPS`` more kernel steps."""
     import copy
     import math
 
@@ -1311,22 +960,15 @@ def train_phase(cfg, report, card, batch, device="cuda"):
     del twin_state, twin_model
 
     losses = [m.loss]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     for i in range(TRAIN_STEPS):
         state, m = step(state, batch, 0)
         check(math.isfinite(m.loss) and m.skipped == 0.0 and m.overflow == 0.0,
               f"train step {i + 1}: loss {m.loss}, skipped {m.skipped}, overflow {m.overflow}")
         losses.append(m.loss)
-    torch.cuda.synchronize()
-    sps = TRAIN_STEPS / (time.perf_counter() - t)
     check(state.step == TRAIN_STEPS + 1, f"train state counts {state.step} updates")
     phase("train losses: " + ", ".join(f"{v:.5f}" for v in losses))
-    phase(f"training: {sps:.3f} train steps/s on {card} ({TRAIN_STEPS} steps of one pair at "
-          f"full width, lr {m.lr:.6g}, accuracy {m.accuracy:.1f} %)")
-    if "--profile" in sys.argv:
-        profile(lambda i: step(state, batch, 0), 3, "train steps")
-    return sps
+    phase(f"training: {TRAIN_STEPS} steps of one pair at full width after the checked one, lr "
+          f"{m.lr:.6g}, accuracy {m.accuracy:.1f} %")
 
 
 def hold_bf16_step(label, cfg, spec, batch, model, base, m, pyramid=None):
@@ -1391,7 +1033,7 @@ def hold_bf16_step(label, cfg, spec, batch, model, base, m, pyramid=None):
 def train_bf16(cfg, report, batch, device="cuda"):
     """One counted train step with ``compute_dtype="bfloat16"`` from the r5
     weights (K4's bf16 kernel launched, the f32 K2 and K4 never), held by
-    ``hold_bf16_step``; then ``TRAIN_STEPS`` timed bf16 steps."""
+    ``hold_bf16_step``; then ``TRAIN_STEPS`` more bf16 steps."""
     import copy
     import math
 
@@ -1422,19 +1064,12 @@ def train_bf16(cfg, report, batch, device="cuda"):
           f"{band_conv_bwd.launches_bf16}, f32 0")
     phase(hold_bf16_step("bf16 train step", cfg, spec, batch, model, base, m))
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     for i in range(TRAIN_STEPS):
         state, m = step(state, batch, 0)
         check(math.isfinite(m.loss) and m.skipped == 0.0 and m.overflow == 0.0,
               f"bf16 train step {i + 1}: loss {m.loss}, skipped {m.skipped}, "
               f"overflow {m.overflow}")
-    torch.cuda.synchronize()
-    sps = TRAIN_STEPS / (time.perf_counter() - t)
-    phase(f"training bf16: {sps:.3f} train steps/s ({TRAIN_STEPS} steps after the checked one)")
-    if "--profile" in sys.argv:
-        profile(lambda i: step(state, batch, 0), 3, "bf16 train steps")
-    return sps
+    phase(f"training bf16: {TRAIN_STEPS} steps after the checked one")
 
 
 def launch_table():
@@ -1596,9 +1231,8 @@ def dp_phase(cfg, batch, frags, device="cuda"):
     """Data parallelism at world size 1 on NCCL (a group of one on a
     ``file://`` store in a temporary directory): ``make_dp_train_step`` on
     the training pair from r5 equal bit for bit to ``make_train_step``
-    (metrics, weights, momentum), ``make_dp_extract_step`` equal bit for
-    bit to ``make_extract_step`` on the first two eval-cache fragments, and
-    the time of the gradient all-reduce (one flat f32 buffer) by events.
+    (metrics, weights, momentum), and ``make_dp_extract_step`` equal bit for
+    bit to ``make_extract_step`` on the first two eval-cache fragments.
     Returns the JSON summary."""
     import tempfile
 
@@ -1639,15 +1273,10 @@ def dp_phase(cfg, batch, frags, device="cuda"):
             check(df.shape[0] == 1 and torch.equal(df[0], f) and torch.equal(ds[0], s)
                   and bool(do[0]) == bool(o), "DP extraction differs from make_extract_step")
             phase("DP extraction (NCCL, world size 1) equals make_extract_step bit for bit")
-            flat = torch.cat([t.grad.reshape(-1) for _, t in train_tensors(models[1])])
-            ar_ms = cuda_ms(lambda: dist.all_reduce(flat))
-            nb = flat.numel() * flat.element_size()
-            phase(f"DP gradient all-reduce: {nb} bytes, {ar_ms:.4f} ms by events (NCCL, one "
-                  f"rank)")
         finally:
             dist.destroy_process_group()
-    return {"world_size": n, "backend": "nccl", "allreduce_bytes": nb, "allreduce_ms": ar_ms,
-            "train_step_bitwise": True, "extract_bitwise": True}
+    return {"world_size": n, "backend": "nccl", "train_step_bitwise": True,
+            "extract_bitwise": True}
 
 
 RECALL_SEEDS = (424242, 424243, 424244, 424245)  # the axis scenes of artifacts/eval_cache
@@ -1697,14 +1326,12 @@ def recall_pass(cfg, model, scenes, device="cuda"):
     """``final_recall``'s pass: ``FeatureExtractor(batch_fragments=2,
     on_overflow="warn")``, then the registration protocol per scene at
     ``TOPK`` keypoints, 0.10 and 5 %. Returns the details per scene (as in
-    the reference file) and the seconds of extraction plus registration."""
+    the reference file)."""
     from d3feat_tpu_torch.eval.extract import FeatureExtractor
     from d3feat_tpu_torch.final_recall import scene_recall
 
     ex = FeatureExtractor(cfg, model, batch_fragments=2, on_overflow="warn", device=device)
-    t = time.perf_counter()
-    out = {seed: scene_recall(ex, frags, poses, TOPK)[1] for seed, (frags, poses) in scenes.items()}
-    return out, time.perf_counter() - t
+    return {seed: scene_recall(ex, frags, poses, TOPK)[1] for seed, (frags, poses) in scenes.items()}
 
 
 def recall_lines(got, label):
@@ -1810,7 +1437,7 @@ def recall_phase(card, device="cuda"):
             torch.cuda.synchronize()
             counts = {"K1": band_select.launches, "K2 f32": band_conv.launches,
                       "K2 bf16": band_conv.launches_bf16, "K3": band_head.launches}
-            got, secs = recall_pass(c, model, scenes, device)
+            got = recall_pass(c, model, scenes, device)
         k2 = "K2 f32" if dtype == "float32" else "K2 bf16"
         other = "K2 bf16" if dtype == "float32" else "K2 f32"
         check(counts["K1"] > 0 and counts[k2] > 0 and counts["K3"] > 0 and counts[other] == 0,
@@ -1822,9 +1449,7 @@ def recall_phase(card, device="cuda"):
             check(all(f["finite"] and len(f["top"]) == TOPK for f in g["fragments"]),
                   f"recall {dtype} scene {seed}: non-finite outputs or a short selection")
         mean = recall_lines(got, f"recall {dtype}")
-        phase(f"recall {dtype}: {sum(len(f) for f, _ in scenes.values())} fragments extracted "
-              f"and registered in {secs:.3f} s")
-        line[dtype] = {"mean_recall": mean, "seconds": secs, "launches": counts,
+        line[dtype] = {"mean_recall": mean, "launches": counts,
                        "scenes": {s: {k: g[k] for k in ("gt_pairs", "matched_pairs", "recall",
                                                         "avg_inlier_ratio",
                                                         "overflowed_groups")}
@@ -1860,13 +1485,13 @@ def write_corpus(root):
     (default resolution, warp and crop) in threads: scenes ``1..
     TRAIN_SCENES + 3`` of the train role and ``0, 50, 100`` of the
     validation role (``DiskScanPairDataset.VAL_MOD``), of which gen_corpus
-    skips a few (too few candidate pairs). Returns the seconds taken."""
+    skips a few (too few candidate pairs). Returns the scenes written of
+    each role."""
     from concurrent.futures import ThreadPoolExecutor
 
     from d3feat_tpu_torch.data.synthetic import DiskScanPairDataset
     from d3feat_tpu_torch.gen_corpus import write_scene
 
-    t = time.perf_counter()
     os.makedirs(root)
     train = list(range(1, TRAIN_SCENES + 4))
     val = [DiskScanPairDataset.VAL_MOD * k for k in range(VAL_SCENES + 1)]
@@ -1876,14 +1501,14 @@ def write_corpus(root):
     n_train, n_val = sum(ok[i] for i in train), sum(ok[i] for i in val)
     check(n_train >= TRAIN_SCENES and n_val >= VAL_SCENES,
           f"gen_corpus wrote {n_train} train and {n_val} validation scenes")
-    return time.perf_counter() - t, n_train, n_val
+    return n_train, n_val
 
 
 def run_trainer(cfg, corpus, device="cuda"):
     """The port's ``Trainer`` on ``make_loaders``' corpus route, as
     ``python3 -m d3feat_tpu_torch.train_3dmatch --corpus`` builds it.
     Returns the trainer and, per epoch, its train meters, the validation
-    results, the train loop's wall seconds and the data and step timers."""
+    results and the steps it took."""
     from d3feat_tpu_torch.train.trainer import Trainer
     from d3feat_tpu_torch.train_3dmatch import make_loaders
 
@@ -1892,19 +1517,16 @@ def run_trainer(cfg, corpus, device="cuda"):
     epochs = []
     train_epoch, evaluate = tr.train_epoch, tr.evaluate
 
-    def timed_epoch(epoch):
-        t = time.perf_counter()
+    def recorded_epoch(epoch):
         res = train_epoch(epoch)
-        epochs.append({"epoch": epoch, "train": res, "wall_s": time.perf_counter() - t,
-                       "steps": tr.step_timer.calls, "data_s": tr.data_timer.total_time,
-                       "step_s": tr.step_timer.total_time})
+        epochs.append({"epoch": epoch, "train": res, "steps": tr.step_timer.calls})
         return res
 
     def recorded_eval(epoch):
         epochs[-1]["val"] = evaluate(epoch)
         return epochs[-1]["val"]
 
-    tr.train_epoch, tr.evaluate = timed_epoch, recorded_eval
+    tr.train_epoch, tr.evaluate = recorded_epoch, recorded_eval
     return tr, epochs
 
 
@@ -1922,21 +1544,17 @@ def trainer_summary(epochs, label):
               f"trainer {label} epoch {e['epoch']}: validation {vm}")
         phase(f"trainer {label} epoch {e['epoch']}: {e['steps']} steps, mean train loss "
               f"{tm['loss']:.6f} (accuracy {tm['accuracy']:.2f} %, overflow {tm['overflow']}), "
-              f"validation loss {vm['loss']:.6f} (accuracy {vm['accuracy']:.2f} %); "
-              f"{e['steps'] / e['wall_s']:.3f} steps/s, data {e['data_s']:.3f} s, "
-              f"step {e['step_s']:.3f} s")
+              f"validation loss {vm['loss']:.6f} (accuracy {vm['accuracy']:.2f} %)")
     steps = sum(e["steps"] for e in epochs)
-    data, step = sum(e["data_s"] for e in epochs), sum(e["step_s"] for e in epochs)
     return {"epochs": [{"epoch": e["epoch"], "steps": e["steps"],
                         "train_loss": e["train"]["loss"], "train_accuracy": e["train"]["accuracy"],
-                        "val_loss": e["val"]["loss"], "val_accuracy": e["val"]["accuracy"],
-                        "steps_per_s": e["steps"] / e["wall_s"]} for e in epochs],
-            "steps": steps, "steps_per_s": steps / sum(e["wall_s"] for e in epochs),
-            "data_wait_share": data / (data + step),
+                        "val_loss": e["val"]["loss"], "val_accuracy": e["val"]["accuracy"]}
+                       for e in epochs],
+            "steps": steps,
             "overflow_share": sum(e["train"]["overflow"] * e["steps"] for e in epochs) / steps}
 
 
-def trainer_phase(card, step_sps, device="cuda"):
+def trainer_phase(card, device="cuda"):
     """The port's ``Trainer`` at full width on the card: the r5 npz's own
     config warm-started from r5 (epoch 114) for two epochs of a small
     ``gen_corpus`` corpus, in f32 and in bf16. Checks the snapshots, the
@@ -1969,12 +1587,12 @@ def trainer_phase(card, step_sps, device="cuda"):
     r5 = os.path.join(here, "artifacts", "model_best_acc_r5.npz")
     meta = read_npz(r5)[2]
     r5_best = (meta["best_loss"], meta["best_acc"])
-    line = {"card": card, "make_train_step_steps_per_s": step_sps}
+    line = {"card": card}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
         corpus = os.path.join(tmp, "corpus")
-        line["corpus_s"], n_train, n_val = write_corpus(corpus)
+        n_train, n_val = write_corpus(corpus)
         phase(f"trainer: corpus of {n_train} train and {n_val} validation scenes written by "
-              f"gen_corpus in {line['corpus_s']:.3f} s")
+              f"gen_corpus")
 
         cfg = D3FeatConfig.from_dict(meta["config"])
         cfg.pretrain = r5
@@ -2114,13 +1732,12 @@ def trainer_phase(card, step_sps, device="cuda"):
             r5_recall = json.load(f)["scenes"]["424245"]["recall"]
         scene = load_scene(cache_path(EVAL_CACHE, 424245, 12, "axis", 2.0))
         rcfg, rmodel, _ = load_snapshot(npz, device)
-        got, secs = recall_pass(rcfg, rmodel, {"424245": scene}, device)
-        g = got["424245"]
+        g = recall_pass(rcfg, rmodel, {"424245": scene}, device)["424245"]
         line["recall_424245"] = {"trained": g["recall"], "matched_pairs": g["matched_pairs"],
                                  "gt_pairs": g["gt_pairs"], "r5": r5_recall}
         phase(f"trainer: the trained npz on scene 424245: recall {g['recall']:.2f} % "
-              f"({g['matched_pairs']} of {g['gt_pairs']} pairs; r5 {r5_recall:.2f} %), "
-              f"{secs:.3f} s (printed, not gated)")
+              f"({g['matched_pairs']} of {g['gt_pairs']} pairs; r5 {r5_recall:.2f} %; printed, "
+              f"not gated)")
 
         # bf16: the same run with compute_dtype="bfloat16"
         bcfg = copy.deepcopy(cfg)
@@ -2141,37 +1758,9 @@ def trainer_phase(card, step_sps, device="cuda"):
         line["bfloat16"]["launches"] = {"K2 bf16": band_conv.launches_bf16,
                                         "K4 bf16": band_conv_bwd.launches_bf16}
     f32 = line["float32"]
-    phase(f"trainer: {f32['steps_per_s']:.3f} train steps/s through the Trainer with the "
-          f"loader in the loop (bf16 {line['bfloat16']['steps_per_s']:.3f}), make_train_step "
-          f"alone {step_sps:.3f}; the Trainer waited on data {100 * f32['data_wait_share']:.2f} "
-          f"% of its loop; overflow share {f32['overflow_share']} on {card}")
+    phase(f"trainer: overflow share {f32['overflow_share']} (bf16 "
+          f"{line['bfloat16']['overflow_share']}) on {card}")
     return line
-
-
-def bench_phase(card):
-    """The port's bench (``d3feat_tpu_torch.bench.run_bench``) in f32 and
-    in bf16 on one shared set of ``scan_fragment`` fragments; returns the
-    two JSON lines. A smoke check of the bench's function (it runs, no
-    overflow): after this script's other phases in the same process it
-    reads lower than the bench's command line, a fresh process, whose
-    lines are the port's baseline (PERF.md)."""
-    import numpy as np
-    from d3feat_tpu_torch import bench
-
-    t = time.perf_counter()
-    n = (bench.WARMUP + bench.ITERS) * 2
-    frags = bench.draw_fragments(np.random.default_rng(0), n)
-    phase(f"bench: {n} scan_fragment fragments of {bench.N_MIN}-{bench.N_MAX} points drawn in "
-          f"{time.perf_counter() - t:.1f} s")
-    lines = []
-    for bf16 in (False, True):
-        line, overflowed = bench.run_bench(frags, bench.bench_config(bf16=bf16, frags=2), frags=2)
-        check(not overflowed, f"bench ({line['compute_dtype']}): pyramid capacity overflow")
-        check(line["card"] == card, f"bench: card {line['card']!r}")
-        phase(f"bench {line['compute_dtype']}: {line['value']} fragments/s (smoke check, "
-              f"not the baseline)")
-        lines.append(line)
-    return lines
 
 
 GATHER_REFERENCE = os.path.join("tests", "torch_port_recall_r5_gather.json")
@@ -2224,12 +1813,10 @@ def time_gather_kpconv(pyr, cfg, model, report):
     """The gather KPConv's device ms beside K2's route (K2 and its list
     stage) and, forward and backward, beside K2's and K4's, summed over the
     14 convs of ``gather_conv_cases`` on the kernel phase's pyramid, by
-    events on a held stream (``held_ms``: no launch can be left out); the
-    same by ``torch.profiler`` beside them."""
+    ``held_ms``."""
     import torch
 
     ms = dict(gather=0.0, gather_bwd=0.0, band=0.0, band_bwd=0.0)
-    prof = dict(ms)
     for _, conv, x, ct, fns in gather_conv_cases(cfg, model, pyr):
         for name, fn in fns.items():
             def fwd_bwd(fn=fn):
@@ -2238,24 +1825,19 @@ def time_gather_kpconv(pyr, cfg, model, report):
 
             with torch.no_grad():
                 ms[name] += held_ms(lambda fn=fn: fn(x), reps=3)
-                prof[name] += device_ms(lambda fn=fn: fn(x), reps=3)
             ms[name + "_bwd"] += held_ms(fwd_bwd, reps=3)
-            prof[name + "_bwd"] += device_ms(fwd_bwd, reps=3)
         conv.weights.grad = None
-    for label, m in (("events on a held stream", ms), ("torch.profiler", prof)):
-        phase(f"gather KPConv device ms summed over the 14 convs ({label}): forward "
-              f"{m['gather']:.4f}, forward and backward {m['gather_bwd']:.4f}; band route (K2 "
-              f"and its lists) {m['band']:.4f}, forward and backward (K2, K4) "
-              f"{m['band_bwd']:.4f}")
+    phase(f"gather KPConv device ms summed over the 14 convs: forward {ms['gather']:.4f}, "
+          f"forward and backward {ms['gather_bwd']:.4f}; band route (K2 and its lists) "
+          f"{ms['band']:.4f}, forward and backward (K2, K4) {ms['band_bwd']:.4f}")
     report["gather KPConv"] = ms
-    report["gather KPConv profiler"] = prof
 
 
 def gather_mixed(cfg, model, frags, batch, report, line, device="cuda"):
     """(a) The gather KPConv on the band pyramid of the serving batch: at
     each of the 14 convs against K2 and its autograd gradients against K4
-    on the same sorted lists and windows; the forward's ms by events (the
-    device ms are ``time_gather_kpconv``'s, from phase 3); one extraction
+    on the same sorted lists and windows (their device ms are
+    ``time_gather_kpconv``'s, from phase 3); one extraction
     call with every conv on the gather KPConv against the band route's
     (K2 and K4 never launched); one f32 train step on the training pair
     against the band route's."""
@@ -2273,7 +1855,6 @@ def gather_mixed(cfg, model, frags, batch, report, line, device="cuda"):
     pyr = build_pyramid(b["points"], b["lengths"], spec=make_pyramid_spec(cfg, num_clouds=2))
     check(not bool(pyr["overflow"]), "gather (a): the serving batch's band pyramid overflowed")
     worst = dict(out=0.0, dx=0.0, dw=0.0)
-    ev = dict(gather=0.0, band=0.0)  # forward ms by events
     n_convs = 0
     for spec, conv, x, ct, fns in gather_conv_cases(cfg, model, pyr, device):
         n_convs += 1
@@ -2284,8 +1865,6 @@ def gather_mixed(cfg, model, frags, batch, report, line, device="cuda"):
             out = fn(xa)
             (out * ct).sum().backward()
             res[name] = (out.detach(), xa.grad, conv.weights.grad.clone())
-            with torch.no_grad():
-                ev[name] += cuda_ms(lambda fn=fn: fn(x), reps=3)
         conv.weights.grad = None
         (ob, dxb, dwb), (og, dxg, dwg) = res["band"], res["gather"]
         label = f"gather KPConv {conv_label(spec, conv, dict(q_rows=ob))}"
@@ -2301,12 +1880,10 @@ def gather_mixed(cfg, model, frags, batch, report, line, device="cuda"):
     phase(f"gather (a): the gather KPConv at all {n_convs} convs of the band pyramid "
           f"against K2 (max diff {worst['out']:.3g}, atol 3e-5 rtol 1e-4) and its autograd "
           f"dx, dW against K4 (max {worst['dx']:.3g}, {worst['dw']:.3g}; atol 5e-4 rtol 1e-3); "
-          f"forward by events summed over the convs: gather {ev['gather']:.4f} ms, band "
-          f"{ev['band']:.4f} ms; device ms (phase 3): gather forward {ms['gather']:.4f}, "
-          f"forward and backward {ms['gather_bwd']:.4f}; band {ms['band']:.4f}, forward and "
-          f"backward {ms['band_bwd']:.4f}")
-    line["mixed"] = dict(max_diff=worst, device_ms=ms,
-                         profiler_ms=report["gather KPConv profiler"], forward_ms=ev)
+          f"device ms (phase 3): gather forward {ms['gather']:.4f}, forward and backward "
+          f"{ms['gather_bwd']:.4f}; band {ms['band']:.4f}, forward and backward "
+          f"{ms['band_bwd']:.4f}")
+    line["mixed"] = dict(max_diff=worst, held_ms=ms)
 
     gcfg = route_config(cfg, bandconv_max_layer=-1)
     gmodel = init_kpfcnn(gcfg, device=device)  # the blocks read their model's config
@@ -2360,7 +1937,7 @@ def gather_mixed(cfg, model, frags, batch, report, line, device="cuda"):
 def gather_pyramids(cfg, frags, line, device="cuda"):
     """(b) The original-order pyramid of the serving batch for each search,
     on the card and on the CPU: every array and flag bit for bit; no
-    overflow for ``banded``; the card's ms by events."""
+    overflow for ``banded``."""
     import torch
     from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
 
@@ -2369,13 +1946,8 @@ def gather_pyramids(cfg, frags, line, device="cuda"):
     for search in GATHER_SEARCHES:
         spec = make_pyramid_spec(route_config(cfg, neighbor_search=search), num_clouds=2)
 
-        def run(spec=spec):
-            return build_pyramid(b["points"].to(device), b["lengths"].to(device), spec=spec)
-
-        got = run()
-        t = time.perf_counter()
+        got = build_pyramid(b["points"].to(device), b["lengths"].to(device), spec=spec)
         ref = build_pyramid(b["points"], b["lengths"], spec=spec)
-        cpu_s = time.perf_counter() - t
         check(got["band"] == {} and got["sel_thr"] == {}, f"{search} pyramid: band state")
         for k in ("points", "neighbors", "pools", "upsamples", "lengths", "masks"):
             for l, (a, c) in enumerate(zip(got[k], ref[k])):
@@ -2386,17 +1958,15 @@ def gather_pyramids(cfg, frags, line, device="cuda"):
         over = sorted(n for n, v in got["overflow_by"].items() if bool(v))
         if search == "banded":
             check(not over, f"banded pyramid overflowed at the bench capacities: {over}")
-        ms = cuda_ms(run, reps=3)
         phase(f"gather (b): {search} pyramid on the card equals the CPU's bit for bit (every "
-              f"level's points, lists, lengths, masks, overflow flags); overflow {over or 'none'}; "
-              f"card {ms:.3f} ms, CPU {cpu_s:.2f} s")
-        line["pyramids"][search] = dict(ms=ms, cpu_s=cpu_s, overflow=over)
+              f"level's points, lists, lengths, masks, overflow flags); overflow {over or 'none'}")
+        line["pyramids"][search] = dict(overflow=over)
 
 
 def gather_serving(cfg, model, frags, line, device="cuda"):
     """(c) Serving on the gather route (``neighbor_search='banded'``, r5):
     one counted call without any K1-K5 launch or twin call; finite unit
-    descriptors; fragments/s; then the recall pass held pair by pair to the
+    descriptors; then the recall pass held pair by pair to the
     JAX package's CPU route (``tests/torch_port_recall_r5_gather.json``)."""
     import numpy as np
     import torch
@@ -2421,13 +1991,8 @@ def gather_serving(cfg, model, frags, line, device="cuda"):
         check(desc.shape == (len(frag), cfg.output_dim) and np.isfinite(desc).all()
               and np.isfinite(scores).all() and err < 1e-5,
               f"gather (c): descriptors non-finite or norms off by {err}")
-    t = time.perf_counter()
-    for i in range(ITERS):
-        ex.extract_many(groups[i % len(groups)])
-    torch.cuda.synchronize()
-    fps = 2 * ITERS / (time.perf_counter() - t)
-    phase(f"gather (c): serving on the gather route: no kernel or twin in a counted call, finite "
-          f"unit descriptors; {fps:.3f} fragments/s ({ITERS} calls of 2 fragments)")
+    phase("gather (c): serving on the gather route: no kernel or twin in a counted call, finite "
+          "unit descriptors")
 
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, GATHER_REFERENCE)) as f:
@@ -2435,13 +2000,12 @@ def gather_serving(cfg, model, frags, line, device="cuda"):
     rcfg, rmodel, _ = load_snapshot(os.path.join(here, "artifacts", "model_best_acc_r5.npz"),
                                     device)
     rcfg.neighbor_search = "banded"
-    got, secs = recall_pass(rcfg, rmodel, recall_scenes(), device)
+    got = recall_pass(rcfg, rmodel, recall_scenes(), device)
     mean = recall_lines(got, "gather (c) recall")
     bad = hold_recall(ref["scenes"], got, ref["meta"]["route"], "gather route vs JAX's CPU route")
     check(not bad, "gather (c) recall vs the JAX CPU route: " + "; ".join(bad))
-    phase(f"gather (c): recall held pair by pair to the JAX package's CPU route; "
-          f"{sum(len(f) for f, _ in recall_scenes().values())} fragments in {secs:.3f} s")
-    line["serving"] = dict(fragments_per_s=fps, mean_recall=mean, recall_seconds=secs,
+    phase("gather (c): recall held pair by pair to the JAX package's CPU route")
+    line["serving"] = dict(mean_recall=mean,
                            scenes={s: {k: g[k] for k in ("gt_pairs", "matched_pairs", "recall")}
                                    for s, g in got.items()})
 
@@ -2449,7 +2013,7 @@ def gather_serving(cfg, model, frags, line, device="cuda"):
 def gather_training(cfg, model, batch, line, device="cuda"):
     """(d) Training on the gather route, one pair at full width from r5: a
     counted step without any K1-K5 launch or twin call (finite loss, not
-    skipped, no overflow), then ``TRAIN_STEPS`` steps and steps/s; peak
+    skipped, no overflow), then ``TRAIN_STEPS`` steps (the same gates); peak
     memory and the loss's distance to a band-route step, printed."""
     import copy
     import math
@@ -2476,19 +2040,14 @@ def gather_training(cfg, model, batch, line, device="cuda"):
           f"gather (d): the counted step launched {launched} kernels, twins {twins}")
     check(math.isfinite(mt.loss) and mt.skipped == 0.0 and mt.overflow == 0.0,
           f"gather (d): loss {mt.loss}, skipped {mt.skipped}, overflow {mt.overflow}")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     for i in range(TRAIN_STEPS):
         state, mt2 = step(state, batch, 0)
         check(math.isfinite(mt2.loss) and mt2.skipped == 0.0 and mt2.overflow == 0.0,
               f"gather (d) step {i + 1}: loss {mt2.loss}, skipped {mt2.skipped}")
-    torch.cuda.synchronize()
-    sps = TRAIN_STEPS / (time.perf_counter() - t)
     phase(f"gather (d): training on the gather route: no kernel or twin in a counted step, loss "
           f"{mt.loss:.6f} (band route {mb.loss:.6f}, not gated: the lists differ at the "
-          f"boundary), peak memory {peak:.2f} GiB; {sps:.3f} train steps/s ({TRAIN_STEPS} steps)")
-    line["training"] = dict(train_steps_per_s=sps, loss=mt.loss, band_loss=mb.loss,
-                            peak_gib=peak)
+          f"boundary), peak memory {peak:.2f} GiB; {TRAIN_STEPS} more steps")
+    line["training"] = dict(loss=mt.loss, band_loss=mb.loss, peak_gib=peak)
 
 
 def k1_unsorted_searches(cfg, frags, device="cuda"):
@@ -2520,15 +2079,13 @@ def check_k1_unsorted(cfg, frags, report):
     """K1 on clouds that are not pre-sorted (``radius_neighbors_pallas``),
     on ``k1_unsorted_searches``: kernel against twin bit for bit, through
     the wrapper (lists, overflow) and raw (positions, d2); each search's
-    K1 call timed (kernel and twin by events, kernel device time by events
-    on a held stream, and by ``torch.profiler`` with the launches it
-    recorded) beside its bound computed as for K1; the kernels line's ms
-    are the sums over the two searches."""
+    K1 call timed by ``held_ms``; the kernels line's ms are the sums over
+    the two searches."""
     import torch
     from d3feat_tpu_torch.ops.neighbors import radius_neighbors_pallas, unsorted_select_args
     from d3feat_tpu_torch.ops.select import band_select
 
-    tot = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0)
+    total = 0.0
     for name, q, ql, s, sl, r, kw in k1_unsorted_searches(cfg, frags):
         got = radius_neighbors_pallas(q, s, ql, sl, r, impl="kernel", **kw)
         ref = radius_neighbors_pallas(q, s, ql, sl, r, impl="plain", **kw)
@@ -2541,41 +2098,24 @@ def check_k1_unsorted(cfg, frags, report):
         pp, pd = band_select(impl="plain", **skw)
         check(torch.equal(kp, pp) and torch.equal(kd, pd), f"K1 unsorted {name}: raw outputs "
               "differ from the twin's")
-        ms = cuda_ms(lambda: band_select(impl="kernel", **skw))
-        dev_ms = held_ms(lambda: band_select(impl="kernel", **skw))
-        stages = {}
-        prof_ms = device_ms(lambda: band_select(impl="kernel", **skw), stages=stages)
-        seen = stages.get("select_kernel", (0.0, 0.0))[1]
-        plain_ms = cuda_ms(lambda: band_select(impl="plain", **skw), reps=3)
-        nb = nbytes(a["q_rows"], a["s_rows"], a["starts"], a["wends"], kp, kd)
-        ops = D2_OPS * window_rows(a)
-        b_ms, b_by = bound(nb, ops)
-        for f, v in (("ms", ms), ("dev_ms", dev_ms), ("plain_ms", plain_ms), ("bytes", nb),
-                     ("ops", ops)):
-            tot[f] += v
+        ms = held_ms(lambda: band_select(impl="kernel", **skw))
+        total += ms
         phase(f"K1 select unsorted {name} ({q.shape[0]} queries x {kw['max_k']}, band "
-              f"{kw['band_cap']}): bit-exact vs twin; kernel {ms:.4f} ms (device {dev_ms:.4f} "
-              f"ms), twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); torch.profiler: "
-              f"{prof_ms:.4f} ms, {seen:g} of 1 launch a call recorded")
-    b_ms, b_by = bound(tot["bytes"], tot["ops"])
-    phase(f"K1 select unsorted, sum over conv0 and pool0: kernel {tot['ms']:.4f} ms (device "
-          f"{tot['dev_ms']:.4f} ms), twin {tot['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    report["K1 select unsorted"] = dict(max_abs_err=0.0, ms=tot["ms"], device_ms=tot["dev_ms"],
-                                        plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                                        library_ms=None)
+              f"{kw['band_cap']}): bit-exact vs twin; {ms:.4f} ms")
+    phase(f"K1 select unsorted, sum over conv0 and pool0: {total:.4f} ms")
+    report["K1 select unsorted"] = dict(max_abs_err=0.0, ms=total)
 
 
 def gather_k1(cfg, frags, report, line, device="cuda"):
     """(e) K1 on clouds that are not pre-sorted (``radius_neighbors_pallas``)
     on ``k1_unsorted_searches``: one counted call a search (one launch),
     kernel against twin bit for bit; each row's set equal to the banded
-    search's wherever neither list is full; the whole wrapper timed by
-    events. The kernel's own times and bound are those of
-    ``check_k1_unsorted``, taken in the kernel phase."""
+    search's wherever neither list is full. The kernel's own time is
+    ``check_k1_unsorted``'s, taken in the kernel phase."""
     import torch
     from d3feat_tpu_torch.ops.neighbors import radius_neighbors_banded, radius_neighbors_pallas
 
-    launches, fn_ms, trunc = 0, 0.0, {}
+    launches, trunc = 0, {}
     for name, q, ql, s, sl, r, kw in k1_unsorted_searches(cfg, frags, device):
         radius_neighbors_pallas.launches = 0
         got, gov = radius_neighbors_pallas(q, s, ql, sl, r, impl="kernel", **kw)
@@ -2595,54 +2135,40 @@ def gather_k1(cfg, frags, report, line, device="cuda"):
         check(torch.equal(sg[free], sb[free]),
               f"K1 unsorted {name}: sets differ from the banded search's on untruncated rows")
         trunc[name] = int((~free[:int(ql.sum())]).sum())
-        ms = cuda_ms(lambda: radius_neighbors_pallas(q, s, ql, sl, r, **kw), reps=3)
-        fn_ms += ms
         phase(f"gather (e): K1 unsorted {name} ({q.shape[0]} queries x {kw['max_k']}, band "
               f"{kw['band_cap']}): one launch in a counted call, bit-exact vs twin, sets equal "
               f"the banded search's on the {int(free.sum())} rows where neither list is full "
-              f"({trunc[name]} valid rows truncated); radius_neighbors_pallas whole {ms:.3f} ms")
+              f"({trunc[name]} valid rows truncated)")
     k1 = report["K1 select unsorted"]
     k1["gather_phase_launches"] = launches
     phase(f"gather (e): K1 unsorted over conv0 and pool0: {launches} launches in the counted "
-          f"calls, {k1['launches']} on the main path; kernel {k1['ms']:.4f} ms (device "
-          f"{k1['device_ms']:.4f} ms), bound {k1['bound_ms']:.4f} ms (kernel phase); whole "
-          f"wrappers {fn_ms:.3f} ms")
-    line["k1_unsorted"] = dict(ms=k1["ms"], dev_ms=k1["device_ms"], plain_ms=k1["plain_ms"],
-                               bound_ms=k1["bound_ms"], fn_ms=fn_ms, truncated=trunc,
-                               launches=launches, main_path_launches=k1["launches"])
+          f"calls, {k1['launches']} on the main path; {k1['ms']:.4f} ms (kernel phase)")
+    line["k1_unsorted"] = dict(ms=k1["ms"], truncated=trunc, launches=launches,
+                               main_path_launches=k1["launches"])
 
 
 def gather_calibration(cfg, frags, line, device="cuda"):
     """(f) ``calibrate_caps`` on ``CALIBRATION_PAIRS`` eval-cache pairs of
     fragments, on the card and on the CPU: the same caps."""
-    import torch
     from d3feat_tpu_torch.data.calibrate import calibrate_caps
 
     pairs = []
     for i in range(CALIBRATION_PAIRS):
         b = packed_batch(frags[2 * i:2 * i + 2], cfg.caps.points[0], "cpu")
         pairs.append({"points": b["points"].numpy(), "lengths": b["lengths"].numpy()})
-    t = time.perf_counter()
     got = calibrate_caps(pairs, cfg, device=device)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t
-    t = time.perf_counter()
     ref = calibrate_caps(pairs, cfg, device="cpu")
-    cpu_s = time.perf_counter() - t
     check((got.points, got.neighbors, got.corr) == (ref.points, ref.neighbors, ref.corr),
           f"gather (f): caps on the card {got} differ from the CPU's {ref}")
     phase(f"gather (f): calibrate_caps on {len(pairs)} eval-cache pairs: points {got.points}, "
-          f"neighbors {got.neighbors}, equal on the card and the CPU; card {card_s:.2f} s, "
-          f"CPU {cpu_s:.2f} s")
-    line["calibration"] = dict(points=list(got.points), neighbors=list(got.neighbors),
-                               card_s=card_s, cpu_s=cpu_s)
+          f"neighbors {got.neighbors}, equal on the card and the CPU")
+    line["calibration"] = dict(points=list(got.points), neighbors=list(got.neighbors))
 
 
 def gather_phase(cfg, model, frags, batch, report, card, device="cuda"):
     """The gather route (``neighbor_search`` ``'banded'``, ``'grid'``,
     ``'brute'`` and the gather KPConv), subphases (a)-(f) of the module
     docstring. Returns the JSON line's dict."""
-    t = time.perf_counter()
     line = {"card": card}
     gather_mixed(cfg, model, frags, batch, report, line, device)
     gather_pyramids(cfg, frags, line, device)
@@ -2650,17 +2176,15 @@ def gather_phase(cfg, model, frags, batch, report, card, device="cuda"):
     gather_training(cfg, model, batch, line, device)
     gather_k1(cfg, frags, report, line, device)
     gather_calibration(cfg, frags, line, device)
-    line["seconds"] = time.perf_counter() - t
-    phase(f"gather route: {line['seconds']:.1f} s")
     return line
 
 
 # ---------------------------------------------------------------------------
-# phase 12: batch norm, deformable KPConv, randomised kernel points, KPCNN
+# phase 11: batch norm, deformable KPConv, randomised kernel points, KPCNN
 # ---------------------------------------------------------------------------
 
 DEFORM_LAYERS = (3, 4)    # the levels whose blocks are deformable in (b)
-VARIANT_STEPS = 5         # timed train steps after a counted one in (b)
+VARIANT_STEPS = 5         # train steps after a counted one in (b)
 KPCNN_LABELS = (3, 17)    # the fixed synthetic labels of the two clouds in (d)
 KPCNN_SGD_STEPS = 3
 
@@ -2798,24 +2322,20 @@ def hold_extraction(label, out, tout, lengths):
     return err
 
 
-def timed_steps(step, state, batch, n):
+def more_steps(step, state, batch, n):
+    """``n`` more train steps, each finite, not skipped, without overflow."""
     import math
 
-    import torch
-
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     for i in range(n):
         state, m = step(state, batch, 0)
         check(math.isfinite(m.loss) and m.skipped == 0.0 and m.overflow == 0.0,
-              f"timed step {i + 1}: loss {m.loss}, skipped {m.skipped}, overflow {m.overflow}")
-    torch.cuda.synchronize()
-    return n / (time.perf_counter() - t)
+              f"step {i + 1} after the counted one: loss {m.loss}, skipped {m.skipped}, "
+              f"overflow {m.overflow}")
 
 
 def variants_bn(cfg, frags, batch, line, acc, device="cuda", keep=None):
     """(a) A ``use_batch_norm`` KPFCNN drawn from a seed: one counted train
-    step against the twins, ``TRAIN_STEPS`` more and steps/s, then one
+    step against the twins, ``TRAIN_STEPS`` more, then one
     eval-mode extraction of the serving batch with the running statistics
     against the twins. The trained model and its config go into ``keep``."""
 
@@ -2825,7 +2345,6 @@ def variants_bn(cfg, frags, batch, line, acc, device="cuda", keep=None):
     from d3feat_tpu_torch.train.optim import make_optimizer
     from d3feat_tpu_torch.train.step import TrainState, make_extract_step, make_train_step
 
-    t = time.perf_counter()
     bcfg = route_config(cfg, use_batch_norm=True)
     spec = make_pyramid_spec(bcfg)
     model = init_kpfcnn(bcfg, seed=0, device=device)
@@ -2841,11 +2360,11 @@ def variants_bn(cfg, frags, batch, line, acc, device="cuda", keep=None):
                                          "K3 band_head", "K4 band_lists transpose",
                                          "K4 band_conv_bwd", "K5 band_head_bwd"))
     gerr, werr, serr, worst = hold_step("variants (a) train step", m, tm, model, twin, witness)
-    sps = timed_steps(step, state, batch, TRAIN_STEPS)
+    more_steps(step, state, batch, TRAIN_STEPS)
     phase(f"variants (a): BN model, {n_r5} tensors from r5; train step vs twins: loss "
           f"{m.loss:.6f} vs {tm.loss:.6f}, max gradient diff {gerr:.3g} (a twin step one ulp "
           f"away {werr:.3g}; worst leaves {worst}), running statistics within {serr:.3g}; "
-          f"{sps:.3f} train steps/s ({TRAIN_STEPS} steps)")
+          f"{TRAIN_STEPS} more steps")
     # the seeded draw itself: its step sits on near-ties, held to its own noise
     drawn = init_kpfcnn(bcfg, seed=0, device=device)
     dtwin, dtm, dwitness = twin_steps(bcfg, spec, drawn, batch)
@@ -2874,8 +2393,7 @@ def variants_bn(cfg, frags, batch, line, acc, device="cuda", keep=None):
                               seeded_draw=dict(loss=dm.loss, twin_loss=dtm.loss,
                                                grad_diff=dgerr, witness_grad_diff=dwerr,
                                                stats_diff=dserr),
-                              train_steps_per_s=sps, descriptor_diff=err,
-                              seconds=time.perf_counter() - t)
+                              descriptor_diff=err)
 
 
 def deform_config(cfg, **fields):
@@ -2928,8 +2446,8 @@ def deform_caps(cfg, samples, device="cuda"):
 def variants_deform(cfg, frags, batch, line, acc, device="cuda", keep=None):
     """(b) Levels ``DEFORM_LAYERS`` deformable, unmodulated and modulated,
     with calibrated caps: one counted extraction and one counted train step
-    each against the twins; steps/s and peak memory. The trained models and
-    their configs go into ``keep``."""
+    each against the twins, ``VARIANT_STEPS`` more steps and peak memory.
+    The trained models and their configs go into ``keep``."""
     import math
 
     import torch
@@ -2942,7 +2460,6 @@ def variants_deform(cfg, frags, batch, line, acc, device="cuda", keep=None):
     from d3feat_tpu_torch.train.optim import make_optimizer
     from d3feat_tpu_torch.train.step import TrainState, make_extract_step, make_train_step
 
-    t = time.perf_counter()
     serving = packed_batch(frags[:2], cfg.caps.points[0], device)
     lengths = serving["lengths"].tolist()
     samples = [{k: b[k].cpu().numpy() for k in ("points", "lengths")} for b in (serving, batch)]
@@ -3021,19 +2538,16 @@ def variants_deform(cfg, frags, batch, line, acc, device="cuda", keep=None):
               f"{c['K4 band_conv_bwd']} launches for {n_band} rigid band convs")
         gerr, werr, _, worst = hold_step(f"variants (b) {tag} train step", m, tm, model, twin,
                                          witness)
-        sps = timed_steps(step, state, batch, VARIANT_STEPS)
+        more_steps(step, state, batch, VARIANT_STEPS)
         phase(f"variants (b) {tag}: extraction vs twins max descriptor diff {err:.3g}; "
               f"regularizer {reg:.6g}; train step loss {m.loss:.6f} vs twins {tm.loss:.6f}, "
               f"max gradient diff {gerr:.3g} (a twin step one ulp away {werr:.3g}; worst "
-              f"leaves {worst}); "
-              f"{sps:.3f} train steps/s ({VARIANT_STEPS} steps), peak memory {peak:.2f} GiB "
-              f"in the step")
+              f"leaves {worst}); {VARIANT_STEPS} more steps, peak memory {peak:.2f} GiB in the "
+              f"step")
         line["deformable"][tag] = dict(band_convs=n_band, deformable_convs=n_def,
                                        descriptor_diff=err, regularizer=reg, loss=m.loss,
                                        twin_loss=tm.loss, grad_diff=gerr,
-                                       witness_grad_diff=werr, train_steps_per_s=sps,
-                                       peak_gib=peak)
-    line["deformable"]["seconds"] = time.perf_counter() - t
+                                       witness_grad_diff=werr, peak_gib=peak)
 
 
 def variants_kernel_points(cfg, frags, line, acc, device="cuda"):
@@ -3046,7 +2560,6 @@ def variants_kernel_points(cfg, frags, line, acc, device="cuda"):
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
     from d3feat_tpu_torch.train.step import make_extract_step
 
-    t = time.perf_counter()
     rcfg = route_config(cfg, deterministic_kernel_points=False, seed=11)
     model = init_kpfcnn(rcfg, device=device)
     cpu = init_kpfcnn(rcfg, device="cpu")
@@ -3068,14 +2581,14 @@ def variants_kernel_points(cfg, frags, line, acc, device="cuda"):
           "variants (c): extraction outputs not finite unit descriptors")
     phase(f"variants (c): kernel points of {len(convs)} convs equal the CPU's bit for bit; "
           f"extraction through K2 ({c['K2 band_conv']}) and K3 ({c['K3 band_head']})")
-    line["kernel_points"] = dict(convs=len(convs), seconds=time.perf_counter() - t)
+    line["kernel_points"] = dict(convs=len(convs))
 
 
 def variants_kpcnn(cfg, frags, line, acc, device="cuda"):
     """(d) KPCNN at full width on the serving batch's two fragments as
     clouds with fixed labels: a counted forward on the band route against
     the twins, a counted loss and backward against the twins', a few SGD
-    steps, the logits on ``'banded'`` against the band route's, clouds/s."""
+    steps, the logits on ``'banded'`` against the band route's."""
     import copy
     import math
 
@@ -3084,7 +2597,6 @@ def variants_kpcnn(cfg, frags, line, acc, device="cuda"):
     from d3feat_tpu_torch.ops.neighbors import permute_rows
     from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
 
-    t = time.perf_counter()
     kcfg = route_config(cfg, num_classes=40)
     serving = packed_batch(frags[:2], kcfg.caps.points[0], device)
     labels = torch.tensor(KPCNN_LABELS, device=device)
@@ -3142,30 +2654,20 @@ def variants_kpcnn(cfg, frags, line, acc, device="cuda"):
         banded = forward(model, sp=make_pyramid_spec(gcfg, num_clouds=2)).logits
     berr = float((band - banded).abs().max())
     check(berr <= 1e-4, f"variants (d): 'banded' logits differ from the band route's by {berr}")
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        for _ in range(ITERS):
-            forward(model)
-    torch.cuda.synchronize()
-    cps = 2 * ITERS / (time.perf_counter() - t0)
     phase(f"variants (d): KPCNN logits vs twins {err:.3g}; loss {loss:.6f} vs twins "
           f"{tloss:.6f}, max gradient diff {gerr:.3g}; SGD losses "
           + ", ".join(f"{v:.5f}" for v in losses)
-          + f"; 'banded' vs band route {berr:.3g}; {cps:.3f} clouds/s ({ITERS} calls of 2)")
+          + f"; 'banded' vs band route {berr:.3g}")
     line["kpcnn"] = dict(logits_diff=err, loss=loss, twin_loss=tloss, grad_diff=gerr,
-                         accuracy=acc_, sgd_losses=losses, banded_diff=berr,
-                         clouds_per_s=cps, seconds=time.perf_counter() - t)
+                         accuracy=acc_, sgd_losses=losses, banded_diff=berr)
 
 
 def variants_phase(cfg, frags, batch, report, card, device="cuda", keep=None):
-    """Phase 12: batch norm, deformable KPConv, randomised kernel points
+    """Phase 11: batch norm, deformable KPConv, randomised kernel points
     and KPCNN on the card, subphases (a)-(d) of the module docstring; each
     kernel's launches in the phase's counted runs go into ``report`` as
     ``variants_phase_launches``; the batch norm and deformable models, as
-    trained, into ``keep`` (for phase 13). Returns the JSON line's dict."""
-    t = time.perf_counter()
+    trained, into ``keep`` (for phase 12). Returns the JSON line's dict."""
     line = {"card": card}
     acc = {}
     variants_bn(cfg, frags, batch, line, acc, device, keep)
@@ -3176,8 +2678,6 @@ def variants_phase(cfg, frags, batch, report, card, device="cuda", keep=None):
         if name in report:
             report[name]["variants_phase_launches"] = acc.get(name, 0)
     line["launches"] = {k: v for k, v in acc.items() if v}
-    line["seconds"] = time.perf_counter() - t
-    phase(f"variants: {line['seconds']:.1f} s")
     return line
 
 
@@ -3189,30 +2689,25 @@ PORT_KERNELS_RE = r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\
 def round_trip(label, path, model, mcfg, device="cuda", **kw):
     """``model`` out through ``save_torch_checkpoint`` to ``path`` and back
     through ``load_torch_checkpoint``; every tensor must come back bit for
-    bit (dtype and device included). Returns (the loaded model, meta,
-    seconds to save, seconds to load, the file's bytes)."""
+    bit (dtype and device included). Returns (the loaded model, meta, the
+    file's bytes)."""
     import torch
     from d3feat_tpu_torch.compat.torch_export import save_torch_checkpoint
     from d3feat_tpu_torch.compat.torch_import import load_torch_checkpoint
 
-    t = time.perf_counter()
     save_torch_checkpoint(path, model, mcfg, **kw)
-    save_s = time.perf_counter() - t
-    t = time.perf_counter()
     loaded, meta = load_torch_checkpoint(path, mcfg, device=device)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t
     want, got = model.state_dict(), loaded.state_dict()
     bad = [k for k in want if not (got[k].dtype == want[k].dtype and got[k].device == want[k].device
                                    and torch.equal(got[k], want[k]))]
     check(set(got) == set(want) and not bad, f"{label}: the .pth round trip changed {bad[:4]}")
-    return loaded, meta, save_s, load_s, os.path.getsize(path)
+    return loaded, meta, os.path.getsize(path)
 
 
 def bridges_round_trip(cfg, model, frags, models, tmp, line, acc, card, device="cuda"):
     """(a) The r5 model out to a reference-layout ``.pth`` and back, bit for
     bit; the serving batch through ``FeatureExtractor`` with both models,
-    each call counted, descriptors and scores equal; then phase 12's batch
+    each call counted, descriptors and scores equal; then phase 11's batch
     norm and deformable models, tensors only. Returns the .pth's path and
     the extractor of the loaded model."""
     import numpy as np
@@ -3226,13 +2721,12 @@ def bridges_round_trip(cfg, model, frags, models, tmp, line, acc, card, device="
     check(all(torch.equal(sd[k].cpu(), torch.from_numpy(v)) for k, v in params.items()),
           "bridges (a): the serving model no longer holds the r5 npz's weights")
     pth = os.path.join(tmp, "model_best_acc_r5.pth")
-    loaded, meta, save_s, load_s, size = round_trip("bridges (a) r5", pth, model, cfg, device,
-                                                    epoch=114, best_loss=0.0)
+    loaded, meta, size = round_trip("bridges (a) r5", pth, model, cfg, device, epoch=114,
+                                    best_loss=0.0)
     check(meta == {"epoch": 114, "best_loss": 0.0}, f"bridges (a): meta {meta}")
     n_values = sum(v.numel() for v in model.state_dict().values())
     phase(f"bridges (a): r5 ({n_values} values, {len(model.state_dict())} tensors) to a "
-          f"{size} byte .pth in {save_s:.3f} s and back onto the card in {load_s:.3f} s, bit "
-          f"for bit, on {card}")
+          f"{size} byte .pth and back onto the card, bit for bit, on {card}")
     group = frags[:2]
     outs, exs = {}, {}
     for tag, m in (("npz", model), ("pth", loaded)):
@@ -3248,13 +2742,13 @@ def bridges_round_trip(cfg, model, frags, models, tmp, line, acc, card, device="
           f"from the .pth weights equals the npz weights' bit for bit (descriptors and "
           f"scores, max |diff| {diff})")
     line["r5"] = dict(values=n_values, tensors=len(model.state_dict()), pth_bytes=size,
-                      save_s=save_s, load_s=load_s, extraction_max_abs_diff=diff)
+                      extraction_max_abs_diff=diff)
     for tag, (mcfg, m) in models.items():
-        _, _, s_s, l_s, sz = round_trip(f"bridges (a) {tag}", os.path.join(tmp, f"{tag}.pth"),
-                                        m, mcfg, device)
-        phase(f"bridges (a): phase 12's {tag} model, {sz} bytes, saved in {s_s:.3f} s and "
-              f"loaded in {l_s:.3f} s, bit for bit, on {card}")
-        line[tag] = dict(pth_bytes=sz, save_s=s_s, load_s=l_s)
+        sz = round_trip(f"bridges (a) {tag}", os.path.join(tmp, f"{tag}.pth"), m, mcfg,
+                        device)[2]
+        phase(f"bridges (a): phase 11's {tag} model, {sz} bytes, saved and loaded bit for bit, "
+              f"on {card}")
+        line[tag] = dict(pth_bytes=sz)
     return pth, exs["pth"], group
 
 
@@ -3275,30 +2769,28 @@ def bridges_cli_start(pth, tmp, device="cuda"):
             *(["--cpu"] if device == "cpu" else [])]
     cmds = {"pth": base + ["--chosen_snapshot", run, "--torch_checkpoint", pth],
             "npz": base + ["--snapshot", npz]}
-    return {k: (subprocess.Popen(c, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                 text=True), time.perf_counter())
+    return {k: subprocess.Popen(c, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
             for k, c in cmds.items()}
 
 
 def bridges_cli_finish(procs, line, card):
     import subprocess
 
-    got, secs = {}, {}
-    for k, (p, t) in procs.items():
+    got = {}
+    for k, p in procs.items():
         try:
             out, err = p.communicate(timeout=CLI_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             fail(f"bridges (b): the {k} command line ran past {CLI_TIMEOUT_S} s")
-        secs[k] = time.perf_counter() - t
         check(p.returncode == 0, f"bridges (b): the {k} command line exited "
               f"{p.returncode}:\n{err[-3000:]}")
         got[k] = json.loads(out.strip().splitlines()[-1])
     check(got["pth"] == got["npz"], f"bridges (b): --torch_checkpoint {got['pth']} vs "
           f"--snapshot {got['npz']}")
     phase(f"bridges (b): test_3dmatch --synthetic on the .pth equals it on the npz: "
-          f"{json.dumps(got['pth'])} ({secs['pth']:.1f} s and {secs['npz']:.1f} s of wall, "
-          f"run together beside (c), on {card})")
-    line["cli"] = dict(result=got["pth"], pth_s=secs["pth"], npz_s=secs["npz"])
+          f"{json.dumps(got['pth'])} (run together beside (c), on {card})")
+    line["cli"] = dict(result=got["pth"])
 
 
 def native_row_diffs(a, b, thr, nat, npy):
@@ -3354,13 +2846,11 @@ def bridges_native(cfg, frags, pair_name, line, card, device="cuda"):
     from d3feat_tpu_torch.ops.build import BUILD_DIR
     from d3feat_tpu_torch.ops.subsample import voxel_subsample
 
-    t = time.perf_counter()
     lib = native.build()
-    build_s = time.perf_counter() - t
     check(os.path.dirname(lib) == BUILD_DIR and native.available(),
           f"bridges (c): the native library {lib} is not the port's")
-    phase(f"bridges (c): native library {os.path.relpath(lib)} built (or found) in "
-          f"{build_s:.2f} s by g++ on the host of {card}")
+    phase(f"bridges (c): native library {os.path.relpath(lib)} built (or found) by g++ on the "
+          f"host of {card}")
 
     fname, key = pair_name.split(":")
     i, j = key.split("_")[1:]
@@ -3375,15 +2865,13 @@ def bridges_native(cfg, frags, pair_name, line, card, device="cuda"):
         calls.append((use_native, a, b, out))
         return out
 
-    corr, secs = {}, {}
+    corr = {}
     prepare._nn_within = recording
     try:
         for use_native in (True, False):
-            t = time.perf_counter()
             corr[use_native] = prepare.compute_correspondences(src, tgt, pose, CORR_RADIUS,
                                                                mutual=True,
                                                                use_native=use_native)
-            secs[use_native] = time.perf_counter() - t
     finally:
         prepare._nn_within = orig
     rows, bad, gap = 0, 0, 0.0
@@ -3397,12 +2885,11 @@ def bridges_native(cfg, frags, pair_name, line, card, device="cuda"):
           f"bridges (c): {bad} of {rows} differing search rows not explained by float32 "
           f"rounding")
     phase(f"bridges (c): compute_correspondences on {pair_name} ({len(src)} + {len(tgt)} "
-          f"points, radius {CORR_RADIUS}, mutual): native {secs[True]:.3f} s "
-          f"({len(corr[True])} pairs), numpy {secs[False]:.3f} s ({len(corr[False])} pairs), "
-          f"on the host of {card}; {rows} search rows differ ({bad} unexplained, largest gap "
-          f"{gap:.3g} float32 ulps of r²), {len(pairs)} correspondences differ")
-    line["native"] = dict(build_s=build_s, pair=pair_name, native_s=secs[True],
-                          numpy_s=secs[False], pairs_native=len(corr[True]),
+          f"points, radius {CORR_RADIUS}, mutual): native {len(corr[True])} pairs, numpy "
+          f"{len(corr[False])} pairs, on the host of {card}; {rows} search rows differ ({bad} "
+          f"unexplained, largest gap {gap:.3g} float32 ulps of r²), {len(pairs)} "
+          f"correspondences differ")
+    line["native"] = dict(pair=pair_name, pairs_native=len(corr[True]),
                           pairs_numpy=len(corr[False]), differing_rows=rows,
                           differing_pairs=len(pairs))
 
@@ -3410,16 +2897,9 @@ def bridges_native(cfg, frags, pair_name, line, card, device="cuda"):
     pts = np.concatenate(group).astype(np.float32)
     lens = np.array([len(f) for f in group], np.int32)
     dl = cfg.first_subsampling_dl
-    t = time.perf_counter()
     h_pts, h_lens, h_over = native.grid_subsample_batch(pts, lens, dl)
-    host_s = time.perf_counter() - t
     pts_d, lens_d = torch.from_numpy(pts).to(device), torch.from_numpy(lens).to(device)
-    voxel_subsample(pts_d, lens_d, dl, out_capacity=len(pts), num_clouds=2)  # warm-up
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     res = voxel_subsample(pts_d, lens_d, dl, out_capacity=len(pts), num_clouds=2)
-    torch.cuda.synchronize()
-    dev_s = time.perf_counter() - t
     d_lens = res.lengths.cpu().numpy()
     d_pts = res.points[:int(d_lens.sum())].cpu().numpy()
     check(not h_over and not bool(res.overflow) and np.array_equal(h_lens, d_lens),
@@ -3433,10 +2913,8 @@ def bridges_native(cfg, frags, pair_name, line, card, device="cuda"):
     row_diff = float(np.abs(h_pts - d_pts).max())
     phase(f"bridges (c): grid_subsample_batch at {dl} of {lens.tolist()} points: "
           f"{h_lens.tolist()} voxels as voxel_subsample on the card, barycentres equal as "
-          f"sets (atol 1e-4; row by row within {row_diff:.3g}); host {host_s * 1e3:.2f} ms, "
-          f"card {dev_s * 1e3:.2f} ms (one call, events not used), on {card}")
-    line["native"].update(voxels=h_lens.tolist(), subsample_host_ms=host_s * 1e3,
-                          subsample_card_ms=dev_s * 1e3, barycentre_row_diff=row_diff)
+          f"sets (atol 1e-4; row by row within {row_diff:.3g}), on {card}")
+    line["native"].update(voxels=h_lens.tolist(), barycentre_row_diff=row_diff)
 
 
 def bridges_utils(cfg, frags, ex, group, tmp, line, card, device="cuda"):
@@ -3481,8 +2959,9 @@ def bridges_utils(cfg, frags, ex, group, tmp, line, card, device="cuda"):
         with open(fn) as f:
             names.update(re_.findall(PORT_KERNELS_RE, f.read()))
     traced = {}
-    for e in events:
-        n = stage_name(str(e.get("name", "")))
+    for e in events:  # a kernel's name without its template arguments and signature
+        m = re_.search(r"(\w+)\s*[<(]", str(e.get("name", "")))
+        n = m.group(1) if m else str(e.get("name", ""))
         if e.get("cat") == "kernel" and n in names:
             traced[n] = traced.get(n, 0) + 1
     phase(f"bridges (d): trace of one extraction call, {len(events)} events, the port's "
@@ -3515,13 +2994,12 @@ def bridges_utils(cfg, frags, ex, group, tmp, line, card, device="cuda"):
 
 
 def bridges_phase(cfg, model, frags, pair_name, models, report, card, device="cuda"):
-    """Phase 13: the reference ``.pth`` bridges, the native host geometry,
+    """Phase 12: the reference ``.pth`` bridges, the native host geometry,
     and the metrics and profiling utilities, subphases (a)-(d) of the
     module docstring; K1-K3's launches in (a)'s counted extractions go into
     ``report`` as ``bridges_phase_launches``. Returns the JSON line's dict."""
     import tempfile
 
-    t = time.perf_counter()
     line = {"card": card}
     acc = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bridges_") as tmp:
@@ -3532,7 +3010,7 @@ def bridges_phase(cfg, model, frags, pair_name, models, report, card, device="cu
             bridges_native(cfg, frags, pair_name, line, card, device)
             bridges_cli_finish(procs, line, card)
         finally:
-            for p, _ in procs.values():
+            for p in procs.values():
                 if p.poll() is None:
                     p.kill()
                     p.wait()
@@ -3541,8 +3019,6 @@ def bridges_phase(cfg, model, frags, pair_name, models, report, card, device="cu
         if name in report:
             report[name]["bridges_phase_launches"] = acc.get(name, 0)
     line["launches"] = {k: v for k, v in acc.items() if v}
-    line["seconds"] = time.perf_counter() - t
-    phase(f"bridges: {line['seconds']:.1f} s on {card}")
     return line
 
 
@@ -3555,9 +3031,9 @@ def main():
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    from d3feat_tpu_torch.bench import card_name
+    from d3feat_tpu_torch import card_name
     from d3feat_tpu_torch.compat.weights import load_npz
-    from d3feat_tpu_torch.data.pack import load_eval_fragments, pack_fragments
+    from d3feat_tpu_torch.data.pack import bench_config, load_eval_fragments, pack_fragments
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
     from d3feat_tpu_torch.ops import build
     from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
@@ -3612,24 +3088,22 @@ def main():
     del pyr
 
     phase("serving path")
-    fps, f32_out = main_path(cfg, model, frags, report)
+    f32_out = main_path(cfg, model, frags, report)
     phase("serving path, bf16")
-    fps_bf16 = serve_bf16(cfg, model, frags, report, f32_out)
+    serve_bf16(cfg, model, frags, report, f32_out)
     phase("training path")
     batch, (name, n0, n1, n_corr) = training_pair(cfg, make_pyramid_spec(cfg))
     phase(f"training pair {name}: {n0} + {n1} points, {n_corr} correspondences within "
           f"{CORR_RADIUS}, {NUM_NODE} used")
-    sps = train_phase(cfg, report, smi, batch)
+    train_phase(cfg, report, batch)
     phase("training path, bf16")
-    sps_bf16 = train_bf16(cfg, report, batch)
+    train_bf16(cfg, report, batch)
     phase("list path (no thresholds)")
     list_path(cfg, model, frags, batch, report)
     phase("data parallelism")
     dp_line = dp_phase(cfg, batch, frags)
     phase("trainer")
-    trainer_line = trainer_phase(smi, sps)
-    phase("bench")
-    bench_lines = bench_phase(smi)
+    trainer_line = trainer_phase(smi)
     phase("recall")
     recall_line = recall_phase(smi)
     phase("gather route")
@@ -3647,26 +3121,17 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": f"d3feat_tpu_torch/ops/cuda/{src}", "replaces": replaces,
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if "gather_phase_launches" in r:  # off the main path: its launches in phase 11
+                        "ms": r["ms"]})
+        if "gather_phase_launches" in r:  # off the main path: its launches in phase 10
             kernels[-1]["gather_phase_launches"] = r["gather_phase_launches"]
-        kernels[-1]["variants_phase_launches"] = r["variants_phase_launches"]  # phase 12
-        kernels[-1]["bridges_phase_launches"] = r["bridges_phase_launches"]  # phase 13
-    phase("library_ms: K3's sums and K5 by one cuSPARSE SpMM of their lists as a CSR of "
-          "ones; null for the others, which no single PyTorch call computes (each includes "
-          "the threshold selection of its rows)")
-    for line in bench_lines:
-        print(json.dumps(line), flush=True)
+        kernels[-1]["variants_phase_launches"] = r["variants_phase_launches"]  # phase 11
+        kernels[-1]["bridges_phase_launches"] = r["bridges_phase_launches"]  # phase 12
     print(json.dumps({"recall": recall_line}), flush=True)
     print(json.dumps({"trainer": trainer_line}), flush=True)
     print(json.dumps({"data_parallel": dp_line}), flush=True)
     print(json.dumps({"gather_route": gather_line}), flush=True)
     print(json.dumps({"variants": variants_line}), flush=True)
     print(json.dumps({"bridges": bridges_line}), flush=True)
-    print(json.dumps({"fragments_per_s": fps, "fragments_per_s_bf16": fps_bf16,
-                      "train_steps_per_s": sps, "train_steps_per_s_bf16": sps_bf16,
-                      "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": count}}), flush=True)

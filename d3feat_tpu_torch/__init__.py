@@ -11,9 +11,9 @@ Each kernel has a plain PyTorch twin in the same module, which runs for
 CPU tensors.
 
 Paths: serving extraction (``eval/extract.py::FeatureExtractor``, K1-K3),
-the train step (``train/step.py``, K1-K5), the bench (``bench.py``) and
-registration recall: ``eval/`` (keypoint selection, mutual-NN matching,
-inlier counts, ``register_scene``, gt logs, ``generate_features``), the
+the train step (``train/step.py``, K1-K5) and registration recall:
+``eval/`` (keypoint selection, mutual-NN matching, inlier counts,
+``register_scene``, gt logs, ``generate_features``), the
 held-out scene cache (``eval/scene_cache.py``) and the test set
 (``data/threedmatch.py``, ``data/ply.py``), driven by the entry points
 ``python3 -m d3feat_tpu_torch.final_recall`` and ``python3 -m
@@ -35,6 +35,8 @@ Entry points default to ``device="cuda"`` and raise when CUDA is missing;
 tests pass ``device="cpu"`` explicitly.
 """
 
+import subprocess
+
 import torch
 
 __version__ = "0.1.0"
@@ -50,3 +52,12 @@ def resolve_device(device="cuda") -> torch.device:
             "(torch.cuda.is_available() is False); pass device='cpu' explicitly "
             "to run the plain PyTorch twins")
     return dev
+
+
+def card_name(device) -> str:
+    """``nvidia-smi``'s name and power limit of the card, or "cpu"."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]

@@ -6,7 +6,8 @@ cloud 1, ..., and shadow padding at ``SHADOW_COORD`` fills the tail.
 Training pairs also carry their correspondences, padded to a fixed count
 with a validity mask, and the anchors' spatial distances, padded with
 ``_FAR`` so padded pairs never enter the safe-radius negative mask.
-Also reads the committed held-out fragments under ``artifacts/eval_cache``.
+Also reads the committed held-out fragments under ``artifacts/eval_cache``,
+and gives the configuration the card checks run them at (``bench_config``).
 """
 
 from __future__ import annotations
@@ -111,6 +112,20 @@ def choose_bucket(n_points: int, buckets) -> int:
         if n_points <= b:
             return int(b)
     raise ValueError(f"{n_points} points exceed the largest bucket {max(buckets)}")
+
+
+def bench_config(frags: int = 2):
+    """The card checks' configuration: the default model at capacities
+    ``(16384, 8192, 2048, 768, 256)·frags`` with 40 neighbours,
+    ``query_tile`` 512 and the top-M local-max gate at ``16·250·frags``."""
+    from d3feat_tpu_torch.config import D3FeatConfig, PyramidCaps
+
+    cfg = D3FeatConfig()
+    cfg.caps = PyramidCaps(points=tuple(c * frags for c in (16384, 8192, 2048, 768, 256)),
+                           neighbors=(40,) * 5, corr=128)
+    cfg.query_tile = 512
+    cfg.eval_gate_topm = 16 * 250 * frags
+    return cfg
 
 
 def load_eval_fragments(min_points: int = 0, max_points: int = 1 << 30,

@@ -2,8 +2,8 @@
 ``d3feat_tpu.data.synthetic``): rooms of rotated boxes, spheres and capped
 cylinders, rendered by a pinhole depth camera with Kinect-like noise, fused
 over a few nearby views and voxel-downsampled at the dataset resolution.
-The bench draws its fragments from ``scan_fragment``; the held-out scene
-generator (``eval/scene_cache.py``) warps its rooms with
+``draw_fragments`` keeps the ``scan_fragment`` draws within a size range;
+the held-out scene generator (``eval/scene_cache.py``) warps its rooms with
 ``make_warp_field``, and the synthetic eval draws ``synthetic_fragment``.
 
 The training pairs: ``synthetic_pair`` (a wavy patch and its augmented
@@ -327,6 +327,20 @@ def scan_fragment(
         pts = _fused_views(rng, room, eye, target, n_views, resolution)
     pts = voxel_downsample(pts, downsample)
     return (pts - pts.mean(axis=0, keepdims=True)).astype(np.float32)
+
+
+def draw_fragments(rng: np.random.Generator, count: int, n_min: int = 12000,
+                   n_max: int = 16000, **scan_kw):
+    """``count`` fragments of ``scan_fragment(rng, **scan_kw)``, each drawn
+    again until its size is within [n_min, n_max] (by default the
+    fragment sizes of the JAX package's ``bench.py``)."""
+    out = []
+    for _ in range(count):
+        f = scan_fragment(rng, **scan_kw)
+        while not (n_min <= len(f) <= n_max):
+            f = scan_fragment(rng, **scan_kw)
+        out.append(f)
+    return out
 
 
 def make_warp_field(rng: np.random.Generator, amplitude: float = 1.0):

@@ -130,8 +130,7 @@ def scene_recall(ex, frags, poses, num_points: int = 250):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from d3feat_tpu_torch import resolve_device
-    from d3feat_tpu_torch.bench import card_name
+    from d3feat_tpu_torch import card_name, resolve_device
     from d3feat_tpu_torch.eval.extract import FeatureExtractor
     from d3feat_tpu_torch.eval.scene_cache import get_scene
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn

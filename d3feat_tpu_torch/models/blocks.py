@@ -267,7 +267,8 @@ def search_inputs(batch, config, layer: int, strided: bool, radius: float,
     and kept in ``batch["band_args"]`` under the search's name
     (``"<name>:list"`` in list mode, so one batch holds both modes), so
     every conv of the search, and the head for ``conv0``, share them."""
-    from d3feat_tpu_torch.ops.band_lists import band_lists, band_lists_given, uses_kernel
+    from d3feat_tpu_torch.ops.band_lists import band_lists, band_lists_given
+    from d3feat_tpu_torch.ops.build import uses_kernel
     from d3feat_tpu_torch.ops.neighbors import band_windows, pick_chunk
     from d3feat_tpu_torch.ops.pyramid import level_band_cap
 

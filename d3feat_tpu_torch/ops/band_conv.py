@@ -58,7 +58,6 @@ import numpy as np
 import torch
 
 from d3feat_tpu_torch.ops import build
-from d3feat_tpu_torch.ops.band_lists import uses_kernel
 from d3feat_tpu_torch.ops.select import add_windows, exact_d2, tile_windows
 
 _BIG = 1.0e10  # masked-out squared distance: w == 0 exactly
@@ -357,7 +356,7 @@ def band_conv(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, wend
     ``band_conv.launches_bf16``, in list mode in ``launches_list`` and
     ``launches_list_bf16``."""
     kw = dict(query_tile=query_tile, extent=extent, panel_dtype=panel_dtype, chunk=chunk)
-    if not uses_kernel(impl, q_rows):
+    if not build.uses_kernel(impl, q_rows):
         return band_conv_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points,
                                starts, wends, neighb=neighb, **kw)
     return band_conv_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points,
@@ -494,7 +493,7 @@ def band_conv_bwd(q_rows, thr, ptie, s_rows, x, weights, kernel_points, starts, 
     ``launches_list_bf16``."""
     kw = dict(query_tile=query_tile, extent=extent, need_dx=need_dx, panel_dtype=panel_dtype,
               chunk=chunk)
-    if not uses_kernel(impl, q_rows):
+    if not build.uses_kernel(impl, q_rows):
         return band_conv_bwd_plain(q_rows, thr, ptie, s_rows, x, weights, kernel_points,
                                    starts, wends, gs, neighb=neighb, **kw)
     return band_conv_bwd_kernel(q_rows, thr, ptie, s_rows, x, weights, kernel_points,
@@ -522,7 +521,7 @@ class BandConvFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weights, kernel_points, args, impl):
         kept = ()
-        if uses_kernel(impl, x):
+        if build.uses_kernel(impl, x):
             out, den, wtd, wb = band_conv_kernel(x=x, weights=weights,
                                                  kernel_points=kernel_points,
                                                  keep_weighted=True, **args)

@@ -69,7 +69,7 @@ class BandLists:
     def transpose(self, n_rows: int, impl: str = "auto"):
         """``transpose_lists(self, n_rows, impl)``, built once for each row
         count and route (kernel or twin) and kept."""
-        key = (n_rows, uses_kernel(impl, self.lpos))
+        key = (n_rows, build.uses_kernel(impl, self.lpos))
         if key not in self._transposes:
             self._transposes[key] = transpose_lists(self, n_rows, impl=impl)
         return self._transposes[key]
@@ -118,7 +118,7 @@ def transpose_lists(lists: BandLists, n_rows: int, impl: str = "auto"):
     """(row_ptr [n_rows + 1] int32, pairs [Nq_pad * L] int32): the
     entries of support row r are ``pairs[row_ptr[r]:row_ptr[r + 1]]``,
     ascending; ``pairs`` is zero past ``row_ptr[n_rows]``."""
-    if uses_kernel(impl, lists.lpos):
+    if build.uses_kernel(impl, lists.lpos):
         return transpose_lists_kernel(lists, n_rows)
     return transpose_lists_plain(lists, n_rows)
 
@@ -180,12 +180,6 @@ def band_lists_kernel(q_rows, thr, ptie, s_rows, starts, wends, *, query_tile: i
     return BandLists(lpos, ld2, lcnt)
 
 
-def uses_kernel(impl: str, t: torch.Tensor) -> bool:
-    """Whether ``impl`` dispatches a call on ``t`` to the kernels: anything
-    but ``"plain"`` (the twins), where ``"auto"`` needs a CUDA tensor."""
-    return impl != "plain" and (impl != "auto" or t.is_cuda)
-
-
 def band_lists(q_rows, thr, ptie, s_rows, starts, wends, *, query_tile: int,
                width: int = LCAP, impl: str = "auto") -> BandLists:
     """The lists of one search: ``q_rows`` [Nq_pad, 4] sorted queries with
@@ -194,7 +188,7 @@ def band_lists(q_rows, thr, ptie, s_rows, starts, wends, *, query_tile: int,
     ``starts``/``wends`` [n_tiles], ``width`` the search's cap K (the lists
     are ``list_width(width)`` wide). ``impl`` as in ``ops.select.band_select``."""
     kw = dict(query_tile=query_tile, width=width)
-    if uses_kernel(impl, q_rows):
+    if build.uses_kernel(impl, q_rows):
         return band_lists_kernel(q_rows, thr, ptie, s_rows, starts, wends, **kw)
     return band_lists_plain(q_rows, thr, ptie, s_rows, starts, wends, **kw)
 
@@ -259,7 +253,7 @@ def band_lists_given(neighb, starts, wends, *, query_tile: int, n_rows: int,
     for ``K > LMAX``. ``impl`` as in
     ``ops.select.band_select``."""
     kw = dict(query_tile=query_tile, n_rows=n_rows)
-    if uses_kernel(impl, neighb):
+    if build.uses_kernel(impl, neighb):
         return band_lists_given_kernel(neighb, starts, wends, **kw)
     return band_lists_given_plain(neighb, starts, wends, **kw)
 

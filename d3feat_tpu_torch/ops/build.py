@@ -159,6 +159,18 @@ def launcher(name: str, symbol: str, argtypes) -> Callable[..., int]:
     return fn
 
 
+def uses_kernel(impl: str, t) -> bool:
+    """Whether a call on tensor ``t`` runs the kernel or its plain twin:
+    ``"auto"`` the kernel on a CUDA tensor and the twin anywhere else,
+    ``"kernel"`` always the kernel, ``"plain"`` always the twin. Any other
+    ``impl`` raises ``ValueError``."""
+    if impl == "auto":
+        return t.is_cuda
+    if impl in ("kernel", "plain"):
+        return impl == "kernel"
+    raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if rc != 0:

@@ -124,15 +124,15 @@ def uses_kernel(impl: str, x, kernel_points, influence: str, aggregation: str,
     the kernel computes the call (linear influence, sum aggregation,
     float32, ``KP`` kernel points, at most ``C_MAX`` channels) and no
     gradient is needed; ``"kernel"`` always, raising where it cannot;
-    ``"plain"`` never."""
-    if impl == "plain":
+    ``"plain"`` never (``ops.build.uses_kernel``)."""
+    if not build.uses_kernel(impl, x):
         return False
     fits = (influence == "linear" and aggregation == "sum" and compute_dtype == torch.float32
             and kernel_points.shape[-2] == KP and x.shape[1] <= C_MAX
             and not (torch.is_grad_enabled()
                      and (x.requires_grad or kernel_points.requires_grad)))
     if impl == "auto":
-        return fits and x.is_cuda
+        return fits
     if not fits:
         raise ValueError("deform_sums kernel: linear influence, sum aggregation, float32, "
                          f"{KP} kernel points, <= {C_MAX} channels, no gradient")

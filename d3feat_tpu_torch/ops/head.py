@@ -22,7 +22,7 @@ import torch
 
 from d3feat_tpu_torch.ops import build
 from d3feat_tpu_torch.ops.band_conv import threshold_select
-from d3feat_tpu_torch.ops.band_lists import list_width, uses_kernel
+from d3feat_tpu_torch.ops.band_lists import list_width
 from d3feat_tpu_torch.ops.select import add_windows, tile_windows
 
 C_MAX = 128  # channels per lane-strided warp in the kernel
@@ -79,7 +79,7 @@ def band_head(q_rows, thr, ptie, s_rows, x, starts, wends, *, query_tile: int,
     the listed feature rows and the count of listed non-zero rows.
     Arguments as in ``ops.band_conv.band_conv``: the twin selects from the
     windows, the kernel reads the search's ``lists`` (kernels only)."""
-    if not uses_kernel(impl, q_rows):
+    if not build.uses_kernel(impl, q_rows):
         return band_head_plain(q_rows, thr, ptie, s_rows, x, starts, wends,
                                query_tile=query_tile)
     if lists is None:
@@ -139,7 +139,7 @@ def band_head_bwd(q_rows, thr, ptie, s_rows, g, starts, wends, *, query_tile: in
     ``g`` [Nq_pad, C] carried back to the support rows. ``impl`` and
     ``lists`` as in ``band_head``: the kernel reads the lists' transpose,
     built once and shared with K4's conv0 backward."""
-    if not uses_kernel(impl, q_rows):
+    if not build.uses_kernel(impl, q_rows):
         return band_head_bwd_plain(q_rows, thr, ptie, s_rows, g, starts, wends,
                                    query_tile=query_tile)
     if lists is None:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from d3feat_tpu_torch.ops.build import uses_kernel
 from d3feat_tpu_torch.ops.select import band_select, fma_f32
 from d3feat_tpu_torch.ops.subsample import lengths_to_cloud_ids
 from d3feat_tpu_torch.utils.profiling import span
@@ -583,12 +584,13 @@ def radius_neighbors_pallas(queries, supports, q_lengths, s_lengths, radius: flo
     indices, shadow ``Ns``, in the original query order; ``overflow``: some
     tile's window was wider than ``band_cap``). ``launches`` counts the
     calls that launched the kernel."""
+    kernel = uses_kernel(impl, queries)
     nq, ns = queries.shape[0], supports.shape[0]
     a = unsorted_select_args(queries, supports, q_lengths, s_lengths, radius, max_k=max_k,
                              num_clouds=num_clouds, query_tile=query_tile, band_cap=band_cap)
     kw = {k: a[k] for k in ("q_rows", "s_rows", "starts", "wends", "query_tile", "r2", "max_k")}
     pos, _ = band_select(impl=impl, **kw)
-    if impl == "kernel" or (impl == "auto" and a["q_rows"].is_cuda):
+    if kernel:
         radius_neighbors_pallas.launches += 1
     out = _finish(a["sidx_pad"][torch.clamp(pos[:nq].long(), max=ns + band_cap - 1)], max_k, ns)
     return out[_inverse(a["qord"])], a["overflow"]

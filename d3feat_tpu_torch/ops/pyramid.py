@@ -30,6 +30,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from d3feat_tpu_torch.ops.build import uses_kernel
 from d3feat_tpu_torch.ops.neighbors import (
     SortedLevel,
     frame_dirs,
@@ -39,7 +40,7 @@ from d3feat_tpu_torch.ops.neighbors import (
     radius_neighbors_grid,
     radius_neighbors_sorted,
 )
-from d3feat_tpu_torch.ops.select import band_select, runs_kernel
+from d3feat_tpu_torch.ops.select import band_select
 from d3feat_tpu_torch.ops.subsample import lengths_to_mask, voxel_subsample
 from d3feat_tpu_torch.utils.profiling import span
 
@@ -199,7 +200,7 @@ def build_pyramid(points: torch.Tensor, lengths: torch.Tensor, *, spec: PyramidS
     """
     with span("pyramid"):
         if (points.is_cuda and lengths.device == points.device and spec.search == "pallas"
-                and runs_kernel(impl, points) and not torch.cuda.is_current_stream_capturing()):
+                and uses_kernel(impl, points) and not torch.cuda.is_current_stream_capturing()):
             return _graph(points, lengths, spec, impl).replay(points, lengths)
         return _build_pyramid(points, lengths, spec, impl)
 

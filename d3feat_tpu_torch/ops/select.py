@@ -154,12 +154,6 @@ def select_kernel(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: 
     return out_pos, out_d2
 
 
-def runs_kernel(impl: str, t: torch.Tensor) -> bool:
-    """Whether ``band_select`` launches the kernel, and not the twin, for
-    ``impl`` on tensors on ``t``'s device."""
-    return not (impl == "plain" or (impl == "auto" and not t.is_cuda))
-
-
 def band_select(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: int,
                 impl: str = "auto"):
     """([Nq_pad, max_k] int32 positions, [Nq_pad, max_k] float32 d2).
@@ -168,8 +162,9 @@ def band_select(q_rows, s_rows, starts, wends, *, query_tile: int, r2, max_k: in
     ``s_rows`` [Ns_pad, 4] sorted supports, ``starts``/``wends`` [n_tiles]
     int32 windows (``neighbors.band_windows``). ``impl="auto"`` launches
     the kernel for CUDA tensors and runs the twin for CPU tensors;
-    ``"plain"`` forces the twin (the card's kernel-vs-twin checks)."""
-    if not runs_kernel(impl, q_rows):
+    ``"plain"`` forces the twin (the card's kernel-vs-twin checks), as
+    ``ops.build.uses_kernel`` decides."""
+    if not build.uses_kernel(impl, q_rows):
         return select_plain(q_rows, s_rows, starts, wends, query_tile=query_tile,
                             r2=r2, max_k=max_k)
     return select_kernel(q_rows, s_rows, starts, wends, query_tile=query_tile,

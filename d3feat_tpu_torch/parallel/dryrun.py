@@ -25,9 +25,9 @@ gradients, the global non-finite gate, SGD update). It asserts
   the pair of its train step (whose tiny capacities overflow at the
   subsampled levels, as ``dryrun_multichip``'s do); with ``--cuda`` it
   extracts one ``scan_fragment`` of 12k-16k points
-  (``bench.draw_fragments`` from seed 0, fragment r on rank r) at the
-  bench's configuration on two cloud slots, as ``bench.py --dp`` packs
-  it, and no pyramid may overflow there.
+  (``data.synthetic.draw_fragments`` from seed 0, fragment r on rank r)
+  at the card checks' configuration (``data.pack.bench_config``) on two
+  cloud slots, and no pyramid may overflow there.
 
 With ``--cuda`` rank 0 also times the gradient all-reduce (one flat f32
 buffer, CUDA events, median of 5) and one more DP train step, and prints
@@ -113,8 +113,8 @@ def _extraction(world, rank, dev):
     import torch
 
     if dev.type == "cuda":
-        from d3feat_tpu_torch.bench import bench_config, draw_fragments
-        from d3feat_tpu_torch.data.pack import pack_fragments
+        from d3feat_tpu_torch.data.pack import bench_config, pack_fragments
+        from d3feat_tpu_torch.data.synthetic import draw_fragments
 
         cfg = bench_config(frags=2)
         frags = draw_fragments(np.random.default_rng(0), world)
@@ -184,7 +184,7 @@ def run_rank(rank: int, world: int, store: str, device: str = "cpu") -> dict:
                "extract_points": [int(b["lengths"].sum()) for b in all_eb]}
         if dev.type == "cuda":
             out.update(_card_times(step, state, mine, grad, sync))
-            from d3feat_tpu_torch.bench import card_name
+            from d3feat_tpu_torch import card_name
 
             out["card"] = card_name(dev)
         if rank == 0:

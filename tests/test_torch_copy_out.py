@@ -41,8 +41,7 @@ def served():
     fragments), its bucket's step built and its pyramid captured."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from d3feat_tpu_torch.bench import bench_config
-    from d3feat_tpu_torch.data.pack import load_eval_fragments
+    from d3feat_tpu_torch.data.pack import bench_config, load_eval_fragments
 
     cfg = bench_config()
     ex = FeatureExtractor(cfg, init_kpfcnn(cfg, seed=1, device="cuda"),

@@ -43,7 +43,7 @@ assert not leaked, leaked
 TOOLS = ("scene_cache", "ab_recall", "final_recall", "gen_eval_cache", "test_3dmatch",
          "train_3dmatch", "gen_corpus")
 assert not [m for m in sys.modules if m in TOOLS], [m for m in sys.modules if m in TOOLS]
-for m in ("d3feat_tpu_torch.bench", "d3feat_tpu_torch.data.synthetic",
+for m in ("d3feat_tpu_torch.data.synthetic",
           "d3feat_tpu_torch.data.threedmatch", "d3feat_tpu_torch.data.ply",
           "d3feat_tpu_torch.data.augment", "d3feat_tpu_torch.utils.timer",
           "d3feat_tpu_torch.eval.gtlog", "d3feat_tpu_torch.eval.matching",

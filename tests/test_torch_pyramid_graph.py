@@ -1,10 +1,10 @@
 """The band-route pyramid as a CUDA graph (``ops/pyramid.py``), on the card.
 
-On the bench configuration (``bench.bench_config``) and two pairs of
-eval-cache fragments of 12k-16k points: replayed pyramids equal the eager
-build bit for bit, a returned pyramid is the caller's (a later replay
-leaves it as it was), one capture serves every call of a spec, K1's
-launch counter counts the graph's launches, the cache keeps the most
+On the card checks' configuration (``data.pack.bench_config``) and two
+pairs of eval-cache fragments of 12k-16k points: replayed pyramids equal
+the eager build bit for bit, a returned pyramid is the caller's (a later
+replay leaves it as it was), one capture serves every call of a spec,
+K1's launch counter counts the graph's launches, the cache keeps the most
 recently used graphs, and neither the eager build nor a replay waits on
 the device (``torch.cuda.set_sync_debug_mode("error")``).
 
@@ -39,8 +39,7 @@ def card():
 @pytest.fixture(scope="module")
 def inputs(card):
     """(the bench spec, [(points, lengths)] of two fragment pairs on the card)."""
-    from d3feat_tpu_torch.bench import bench_config
-    from d3feat_tpu_torch.data.pack import load_eval_fragments, pack_fragments
+    from d3feat_tpu_torch.data.pack import bench_config, load_eval_fragments, pack_fragments
 
     cfg = bench_config()
     frags = load_eval_fragments(12000, 16000)[:4]

@@ -8,7 +8,7 @@ import pytest
 from d3feat_tpu.data.synthetic import make_room as j_make_room
 from d3feat_tpu.data.synthetic import scan_fragment as j_scan_fragment
 from d3feat_tpu.data.threedmatch import voxel_downsample as j_voxel_downsample
-from d3feat_tpu_torch.data.synthetic import make_room, scan_fragment
+from d3feat_tpu_torch.data.synthetic import draw_fragments, make_room, scan_fragment
 from d3feat_tpu_torch.data.threedmatch import voxel_downsample
 from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
@@ -22,6 +22,16 @@ def test_scan_fragment_bit_for_bit(seed, resolution):
         assert got.dtype == want.dtype == np.float32
         assert np.array_equal(got, want) and len(got) > 100
     assert rng_j.random() == rng_t.random()
+
+
+def test_draws_follow_the_rejection_loop():
+    scan, n_min, n_max = dict(resolution=(24, 18)), 150, 400
+    rng = np.random.default_rng(0)
+    for got in draw_fragments(np.random.default_rng(0), 6, n_min, n_max, **scan):
+        want = j_scan_fragment(rng, **scan)  # bench.py:96-101
+        while not (n_min <= len(want) <= n_max):
+            want = j_scan_fragment(rng, **scan)
+        assert np.array_equal(got, want)
 
 
 def test_make_room_bit_for_bit():
