@@ -48,11 +48,17 @@ seconds:
    14 convs against their list-mode twins at the same tolerances (K4's dx
    on the level's rows: the list stage drops the shadow and the zero pads
    past it), each timed, K2's distance to threshold mode printed (not
-   gated);
+   gated). Then K7, the neighbourhood max, against its twin on the lists
+   of a group of 8 eval-cache fragments at the 32,768-a-fragment bucket
+   (``check_k7``): each strided block's pool lists at its input width and
+   conv0's lists at the gate's 32 channels, equal under ``torch.equal``;
+   all-shadow rows (0) and NaN as in the twin; K7 and the twin each timed
+   by ``held_ms``, summed over the 5 calls;
 4. serving path: ``FeatureExtractor(batch_fragments=2)`` with the r5
    weights on the eval-cache fragments of 12k-16k points: launch counts of
    one counted call (K1 on unsorted clouds counted too: none on this
-   route), output checks, and the same batch through the twins on the
+   route; K7 once a strided block and once for the gate, its twin never),
+   output checks, and the same batch through the twins on the
    card; then the same in bf16: one counted call (K2's bf16 kernel, never
    its f32 one), descriptors within relative L2 1e-2 of the bf16 twins',
    finite, unit norm, no overflow; their distance to the f32 path and the
@@ -219,7 +225,9 @@ seconds:
    counted on the main path, 0 on the band route, and those of phase 10's
    counted calls as ``gather_phase_launches``; every kernel's launches in
    phase 11's counted runs as ``variants_phase_launches``, in phase 12's
-   as ``bridges_phase_launches``), then the result line.
+   as ``bridges_phase_launches``; K7 with its launches in the main path's
+   counted call and the twin's ``held_ms`` as ``plain_ms``), then the
+   result line.
 
 The JSON lines come in this order before the last: ``{"recall": ...}``,
 ``{"trainer": ...}`` (per dtype the epochs' losses and accuracies, steps
@@ -719,6 +727,70 @@ def check_k5(pyr, cfg, report, device="cuda"):
           f"{err:.3g}; {ms:.4f} ms")
 
 
+def check_k7(cfg, report, device="cuda"):
+    """K7 against its twin on the lists of a group of 8 eval-cache
+    fragments of 16,385-32,768 points at the 32,768-a-fragment bucket
+    (``eval/extract.py::_bucket_caps`` of the bench capacities): each
+    strided block's pool lists at its input width, conv0's lists at the
+    gate's width, on random rows (a fifth of them below 0), equal under
+    ``torch.equal``; then the level-2 pool and conv0 lists with every third
+    list all shadow (0 out) and NaN rows (NaN where the twin's). K7's and
+    the twin's ``held_ms``, summed over the 5 calls."""
+    import torch
+    from d3feat_tpu_torch.data.pack import load_eval_fragments, pack_fragments
+    from d3feat_tpu_torch.eval.extract import _bucket_caps
+    from d3feat_tpu_torch.models.kpfcnn import make_kpfcnn_specs
+    from d3feat_tpu_torch.ops.neighbor_max import neighbor_max_kernel, neighbor_max_plain
+    from d3feat_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+
+    group, bucket = 8, 32768
+    frags = load_eval_fragments(bucket // 2 + 1, bucket)[:group]
+    check(len(frags) == group, "K7: fewer than 8 eval-cache fragments of the 32,768 bucket")
+    b = pack_fragments(frags, point_capacity=group * bucket, num_clouds=group)
+    spec = make_pyramid_spec(route_config(cfg, caps=_bucket_caps(cfg, group * bucket)),
+                             num_clouds=group)
+    pyr = build_pyramid(torch.from_numpy(b["points"]).to(device),
+                        torch.from_numpy(b["lengths"]).to(device), spec=spec)
+    cases = [(f"pool{s.layer}", s.layer, pyr["pools"][s.layer], s.in_dim)
+             for s in make_kpfcnn_specs(cfg).encoder if s.strided]
+    cases.append(("gate", 0, pyr["neighbors"][0], cfg.output_dim))
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def rows_of(level, c):
+        x = torch.randn((pyr["points"][level].shape[0], c), generator=gen, device=device)
+        x[::5] = -x[::5].abs()
+        return x
+
+    ms, parts = [0.0, 0.0], []
+    for label, level, inds, c in cases:
+        x = rows_of(level, c)
+        got, want = neighbor_max_kernel(x, inds), neighbor_max_plain(x, inds)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K7 {label}: differs from the twin")
+        t = (held_ms(lambda: neighbor_max_kernel(x, inds)),
+             held_ms(lambda: neighbor_max_plain(x, inds)))
+        ms = [a + b for a, b in zip(ms, t)]
+        parts.append(f"{label} {tuple(inds.shape)} x {c} {t[0]:.4f} / {t[1]:.4f}")
+    for label, level, inds, c in (cases[2], cases[-1]):
+        shadow = pyr["points"][level].shape[0]
+        inds = inds.clone()
+        inds[::3] = shadow
+        x = rows_of(level, c)
+        nan_rows = inds[1::3, 0]
+        x[nan_rows[nan_rows < shadow].long(), : c // 2] = float("nan")
+        got, want = neighbor_max_kernel(x, inds), neighbor_max_plain(x, inds)
+        torch.cuda.synchronize()
+        ok = ~want.isnan()
+        check(torch.equal(got[::3], torch.zeros_like(got[::3])), f"K7 {label}: an all-shadow "
+              f"list is not 0")
+        check(bool(want.isnan().any()) and torch.equal(got.isnan(), want.isnan())
+              and torch.equal(got[ok], want[ok]), f"K7 {label}: NaN not as in the twin")
+    report["K7 neighbor_max"] = dict(max_abs_err=0.0, ms=ms[0], plain_ms=ms[1])
+    phase(f"K7 neighbor_max vs twin, a group of 8 at the 32,768 bucket (pyramid overflow "
+          f"{bool(pyr['overflow'])}): equal; all-shadow lists 0, NaN as the twin's; ms K7 / twin: "
+          + "; ".join(parts) + f"; sum {ms[0]:.4f} / {ms[1]:.4f}")
+
+
 def topk_agree(a, b, k, atol):
     """The top-k index sets of two score vectors agree, up to swaps of
     scores within ``atol`` of the k-th score (ties at the boundary)."""
@@ -734,6 +806,7 @@ def main_path(cfg, model, frags, report, device="cuda"):
     import numpy as np
     import torch
     from d3feat_tpu_torch.eval.extract import FeatureExtractor
+    from d3feat_tpu_torch.ops.neighbor_max import neighbor_max
 
     names = ("K1 select", "K2/K4 band_lists", "K2 band_conv", "K3 band_head")
     # the serving policy: a group that overflows the bench bucket is run
@@ -746,9 +819,15 @@ def main_path(cfg, model, frags, report, device="cuda"):
 
     ex._steps.clear()
     # one extraction call: the counted main-path run
+    k7 = (neighbor_max.launches, neighbor_max.launches_fallback)
     out, c = counted_run(lambda: ex.extract_many(groups[0]))
+    k7 = (neighbor_max.launches - k7[0], neighbor_max.launches_fallback - k7[1])
     check(list(ex._steps) == [(cfg.caps.points[0], 2)],
           "main path: the counted call overflowed the bench bucket")
+    n_pools = sum(s.strided for s in model.specs.encoder)
+    check(k7 == (n_pools + 1, 0), f"main path: K7 launched {k7[0]} times and its twin ran "
+          f"{k7[1]} times, for {n_pools} pools and the gate")
+    report["K7 neighbor_max"]["launches"] = k7[0]
     check(c["K2 band_conv bf16"] == 0, "main path: f32 serving launched K2's bf16 kernel")
     for name in names:
         report[name]["launches"] = c[name]
@@ -756,7 +835,7 @@ def main_path(cfg, model, frags, report, device="cuda"):
     # K1 on unsorted clouds is the original-order route's; the main path is the band route
     report["K1 select unsorted"]["launches"] = c["K1 select unsorted"]
     phase("main path launches per call: " + ", ".join(
-        f"{n} {report[n]['launches']}" for n in (*names, "K1 select unsorted")))
+        f"{n} {report[n]['launches']}" for n in (*names, "K1 select unsorted", "K7 neighbor_max")))
 
     for (desc, scores), frag in zip(out, groups[0]):
         check(desc.shape == (len(frag), cfg.output_dim) and scores.shape == (len(frag),),
@@ -3076,6 +3155,7 @@ def main():
     check_k3(pyr, cfg, report)
     check_k4(pyr, cfg, model, report)
     check_k5(pyr, cfg, report)
+    check_k7(cfg, report)
     time_gather_kpconv(pyr, cfg, model, report)
     phase("bf16 kernels vs bf16 twins")
     check_k2(pyr, cfg, model, report, panel="bfloat16")
@@ -3126,6 +3206,11 @@ def main():
             kernels[-1]["gather_phase_launches"] = r["gather_phase_launches"]
         kernels[-1]["variants_phase_launches"] = r["variants_phase_launches"]  # phase 11
         kernels[-1]["bridges_phase_launches"] = r["bridges_phase_launches"]  # phase 12
+    k7 = report["K7 neighbor_max"]  # replaces no TPU kernel: XLA's max over lists
+    kernels.append({"name": "K7 neighbor_max", "route": "cuda",
+                    "source": "d3feat_tpu_torch/ops/cuda/neighbor_max.cu", "replaces": None,
+                    "launches": k7["launches"], "max_abs_err": k7["max_abs_err"],
+                    "ms": k7["ms"], "plain_ms": k7["plain_ms"]})
     print(json.dumps({"recall": recall_line}), flush=True)
     print(json.dumps({"trainer": trainer_line}), flush=True)
     print(json.dumps({"data_parallel": dp_line}), flush=True)

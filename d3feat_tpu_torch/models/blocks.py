@@ -5,15 +5,17 @@ two rigid KPConvs, the band KPConv (K2 forward, K4 backward) where
 ``band_conv_eligible`` holds and the gather KPConv
 (``models.kpconv.kpconv``) everywhere else; and the deformable KPConv
 (``models.kpconv.deformable_kpconv``), whose neighbour sums run on K6
-where no gradient is needed and by the gather route otherwise.
+where no gradient is needed and by the gather route otherwise. The max
+pools take their neighbourhood max on K7 (``ops.neighbor_max``) where no
+gradient is needed and by a gather otherwise.
 
 Modules carry the JAX package's parameter names, so a parameter's
 ``state_dict`` name is its JAX key path written with dots
 (``encoder.1.unary1.linear.w``). Linear weights are stored ``[in, out]``.
-Pooling appends a zero feature row, so all-shadow neighborhoods pool to
-zero. With ``use_batch_norm`` each norm is a masked batch norm
-(``BatchNorm``) whose running ``mean`` and ``var`` are buffers (the JAX
-package's model state), else a learned bias (``Norm``).
+Pooling reads the shadow index as a zero feature row, so all-shadow
+neighborhoods pool to zero. With ``use_batch_norm`` each norm is a masked
+batch norm (``BatchNorm``) whose running ``mean`` and ``var`` are buffers
+(the JAX package's model state), else a learned bias (``Norm``).
 
 Every block's forward takes ``compute_dtype`` (``torch.float32`` or
 ``torch.bfloat16``, the model config's ``compute_dtype``): in bf16 the
@@ -83,9 +85,12 @@ def closest_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     return gather_rows(x, inds[:, 0])
 
 
-def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
-    """Max over each neighborhood with a zero shadow row."""
-    return gather_rows(x, inds).amax(1)
+def max_pool(x: torch.Tensor, inds: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Max over each neighborhood with a zero shadow row
+    (``ops.neighbor_max.neighbor_max``)."""
+    from d3feat_tpu_torch.ops.neighbor_max import neighbor_max
+
+    return neighbor_max(x, inds, impl)
 
 
 def global_average(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -432,7 +437,7 @@ class ResnetBBlock(_ConvBlock):
         h, aux = self._conv(h, batch, impl, cd)
         h = leaky_relu(self.norm_conv(h, out_mask, train))
         h = self.unary2(h, out_mask, relu=False, compute_dtype=cd, train=train)
-        shortcut = max_pool(x, batch["pools"][spec.layer]) if spec.strided else x
+        shortcut = max_pool(x, batch["pools"][spec.layer], impl) if spec.strided else x
         if hasattr(self, "shortcut"):
             shortcut = self.shortcut(shortcut, out_mask, relu=False, compute_dtype=cd,
                                      train=train)
@@ -476,7 +481,7 @@ class MaxPoolBlock(nn.Module):
 
     def forward(self, x, batch, impl="auto", compute_dtype=torch.float32, train=False):
         # the lists of pools[layer + 1], as d3feat_tpu/models/blocks.py:258-259 reads them
-        return max_pool(x, batch["pools"][self.spec.layer + 1]), None
+        return max_pool(x, batch["pools"][self.spec.layer + 1], impl), None
 
 
 class GlobalAverageBlock(nn.Module):

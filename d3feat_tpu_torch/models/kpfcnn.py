@@ -16,7 +16,8 @@ when conv0 has no thresholds (list mode) or on the train path with
 JAX package's XLA route, outside any Pallas kernel). At eval
 time points that are not a per-channel local max of their neighborhood
 score zero (optionally only the top-M candidates are gated,
-``eval_gate_topm``); the training head has no gate.
+``eval_gate_topm``), the neighbourhood max on K7 (``ops.neighbor_max``);
+the training head has no gate.
 """
 
 from __future__ import annotations
@@ -173,6 +174,7 @@ def detection_scores(batch, features: torch.Tensor, *, config, train: bool = Fal
     chooses it)."""
     from d3feat_tpu_torch.models.blocks import search_mode
     from d3feat_tpu_torch.ops.head import BandHeadFn
+    from d3feat_tpu_torch.ops.neighbor_max import neighbor_max
     from d3feat_tpu_torch.ops.subsample import lengths_to_cloud_ids
 
     f = features
@@ -212,16 +214,15 @@ def detection_scores(batch, features: torch.Tensor, *, config, train: bool = Fal
     # hard local-max gate; with eval_gate_topm > 0 only the top-M points by
     # ungated score are gated (gating only zeroes scores, so top-k keypoint
     # selection stays exact), the rest report 0
-    neighbor = batch["neighbors"][0].long()  # [C0, K0], shadow = C0
-    f_ext = torch.cat([f, f.new_zeros((1, f.shape[1]))])
+    neighbor = batch["neighbors"][0]  # [C0, K0], shadow = C0
     topm = config.eval_gate_topm
     s_flat = scores[:, 0]
     if topm and topm < f.shape[0]:
         cand = torch.topk(s_flat, topm).indices
-        local_max = f_ext[neighbor[cand]].amax(1)                     # [M, D]
+        local_max = neighbor_max(f, neighbor[cand], impl)             # [M, D]
         det = (f[cand] == local_max).float().amax(1)
         return torch.zeros_like(s_flat).index_copy(0, cand, s_flat[cand] * det)[:, None]
-    local_max = f_ext[neighbor].amax(1)
+    local_max = neighbor_max(f, neighbor, impl)
     detected = (f == local_max).float().amax(1, keepdim=True)
     return scores * detected
 

@@ -38,7 +38,7 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 
 # every kernel source under cuda/; the first load builds all that are missing
 KERNELS = ("select", "band_lists", "band_conv", "head", "band_conv_bwd", "head_bwd",
-           "deform_conv")
+           "deform_conv", "neighbor_max")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHERS: Dict[Tuple[str, str], Callable[..., int]] = {}

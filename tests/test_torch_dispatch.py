@@ -8,7 +8,8 @@ import types
 import pytest
 import torch
 
-from d3feat_tpu_torch.ops import band_conv, band_lists, build, deform_conv, head, neighbors, select
+from d3feat_tpu_torch.ops import (band_conv, band_lists, build, deform_conv, head, neighbor_max,
+                                  neighbors, select)
 from tests.torch_port_helpers import torch_one_thread_module  # noqa: F401 (autouse fixture)
 
 CUDA = types.SimpleNamespace(is_cuda=True)  # stands in for a card's tensor
@@ -35,7 +36,8 @@ ROUTES = {select: ("select_kernel", "select_plain"),
                  "band_head_bwd_plain"),
           band_conv: ("band_conv_kernel", "band_conv_plain", "band_conv_bwd_kernel",
                       "band_conv_bwd_plain"),
-          deform_conv: ("deform_sums_kernel", "deform_sums_plain")}
+          deform_conv: ("deform_sums_kernel", "deform_sums_plain"),
+          neighbor_max: ("neighbor_max_kernel", "neighbor_max_plain")}
 
 NQ, NS, T, C = 32, 40, 32, 4
 WIN = dict(starts=torch.zeros(1, dtype=torch.int32), wends=torch.full((1,), NS, dtype=torch.int32))
@@ -79,6 +81,8 @@ CALLS = {
     "deform_sums": lambda impl: deform_conv.deform_sums(
         torch.rand(NQ, 3), torch.rand(NS, 3), torch.zeros((NQ, 8), dtype=torch.int64),
         torch.rand(NS, C), torch.rand(deform_conv.KP, 3), extent=1.0, drop=False, impl=impl),
+    "neighbor_max": lambda impl: neighbor_max.neighbor_max(
+        torch.rand(NS, C), torch.zeros((NQ, 8), dtype=torch.int32), impl=impl),
 }
 
 
