@@ -29,8 +29,20 @@ from reference import model as ref_model
 SPANS = ("bench.pyramid",)
 
 
+def network(cfg_doc: dict) -> str:
+    """The network a configuration names (``program.NETWORKS``): D3Feat's
+    KPFCNN unless it says otherwise."""
+    return cfg_doc.get("network", "kpfcnn")
+
+
 def architecture(cfg_doc: dict) -> list:
-    return list(cfg_doc.get("architecture") or ref_model.architecture(cfg_doc["num_layers"]))
+    """The configuration's block list; D3Feat's for a KPFCNN that states
+    none. Any other network has to state its own."""
+    if cfg_doc.get("architecture"):
+        return list(cfg_doc["architecture"])
+    if network(cfg_doc) != "kpfcnn":
+        raise ValueError(f"a {network(cfg_doc)!r} configuration states its architecture")
+    return ref_model.architecture(cfg_doc["num_layers"])
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, started_at: float,
@@ -47,8 +59,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, started_at: fl
                   window_seconds=min(seconds, float(spec.get("trace_seconds", seconds)))
                   if traced else seconds)
     ctx.cfg = program.make_config(cfg_doc, compute_dtype)
-    ctx.model, ctx.weights = program.build_model(ctx.cfg, cfg_doc["weights"], seed, device,
-                                                 ROOT)
+    ctx.model, ctx.weights = program.build_model(ctx.cfg, network(cfg_doc), cfg_doc["weights"],
+                                                 seed, device, ROOT)
     ctx.mark("weights and model")
     ctx.rec = rec = program.Recorder(tracing=traced)
     with program.spans(rec):
@@ -103,8 +115,11 @@ def _read_metrics(wanted, cell, ctx, res, window_s, summary, info) -> dict:
     counts, each counted launcher's calls (``launches``, sizes read from
     the device), the port's own counters over the window (``counters``),
     the device's readings (``device``: ``memory_peak_bytes`` and, traced,
-    ``busy_s`` and ``window_s``) and the trace's summary (``trace``:
-    ``device_s`` by span, ``port_s`` by foreign launch function)."""
+    ``busy_s`` and ``window_s``), the trace's summary (``trace``:
+    ``device_s`` by span, ``port_s`` by foreign launch function) and
+    ``forward_ops(counts)``, one KPFCNN forward's operations at a
+    pyramid's counts (the block list walked only when a reader calls it,
+    so a cell of another network reads the rest)."""
     counts = {}
 
     def count_module(name):
@@ -113,7 +128,6 @@ def _read_metrics(wanted, cell, ctx, res, window_s, summary, info) -> dict:
         return counts[name]
 
     rec, cfg_doc = ctx.rec, ctx.cfg_doc
-    enc_dec = ref_model.blocks(cfg_doc, ctx.arch)[:2]
     host = lambda v: int(v) if isinstance(v, torch.Tensor) else v  # noqa: E731
     pyr_counts = [{k: [host(x) for x in v] for k, v in c.items()} for c in rec.pyramid_counts]
     launches = {k: [{a: host(b) for a, b in call.items()} for call in v]
@@ -125,7 +139,8 @@ def _read_metrics(wanted, cell, ctx, res, window_s, summary, info) -> dict:
         pyramid_s=list(rec.pyramid_s), pyramid_counts=pyr_counts, launches=launches,
         counters=dict(rec.counters), device=dict(info), trace=summary, counts=count_module,
         forward_ops=lambda c: count_module("kpfcnn").forward_ops(
-            enc_dec, c, cfg_doc["num_kernel_points"], cfg_doc["output_dim"]))
+            ref_model.blocks(cfg_doc, ctx.arch)[:2], c, cfg_doc["num_kernel_points"],
+            cfg_doc["output_dim"]))
     out = {}
     for m in wanted:
         v = load_module("metrics", m["name"]).read(run)

@@ -4,7 +4,8 @@ judged by the plain reference (``reference/``).
 Extraction: for each sampled group, the pyramid the extraction step built,
 stage by stage (``reference.geometry.pyramid_misses``), then each
 fragment's descriptors and scores in the caller's row order against the
-reference's forward: the share of rows off by more than ``ROW_TOL``. Not
+reference's forward: the rows off by more than ``ROW_TOL`` (the kind
+takes their share over blocks of 8 sampled fragments). Not
 the widest gap: D3Feat's density count (neighbours whose features sum
 above 0) is a step, and where such a sum is a near-tie the two float32
 orders of summation may count differently, moving the rows downstream of
@@ -53,14 +54,23 @@ def _sorted_rows(kept: dict, n: int, device) -> torch.Tensor:
     return inv[:n].long()
 
 
-def check_group(group, outputs, kept, weights, cfg_doc, arch, device) -> dict:
-    """Misses of one extraction group's pyramid, and the shares of its rows
-    whose descriptor (L2) or score (rows whose gate is a near-tie left out)
-    is off the reference's by more than ``ROW_TOL``; the widest gaps
-    beside."""
-    pts = torch.from_numpy(np.concatenate(group)).to(device)
+def group_lengths(group, clouds: int) -> list:
+    """The group's fragment lengths, with zeros for the empty cloud slots
+    after them up to the pyramid's ``clouds``: the packing fills a step's
+    unused slots with length 0 (``pack_single`` packs one fragment as
+    ``[n, 0]``). Any other difference stays a ``lengths`` miss."""
     lengths = [len(g) for g in group]
+    return lengths + [0] * (clouds - len(lengths))
+
+
+def check_group(group, outputs, kept, weights, cfg_doc, arch, device) -> dict:
+    """Misses of one extraction group's pyramid, and the shares and counts
+    of its rows whose descriptor (L2) or score (rows whose gate is a
+    near-tie left out, ``clear_rows`` the others) is off the reference's by
+    more than ``ROW_TOL``; the widest gaps beside."""
+    pts = torch.from_numpy(np.concatenate(group)).to(device)
     pyr = _pyramid(kept)
+    lengths = group_lengths(group, len(pyr["lengths"][0]))
     misses = geometry.pyramid_misses(pyr, pts, lengths, cfg_doc, _spec(cfg_doc, arch))
     n = pts.shape[0]
     p = weights
@@ -79,9 +89,13 @@ def check_group(group, outputs, kept, weights, cfg_doc, arch, device) -> dict:
     clear = m_ref.abs() >= GATE_TIE
     d_gap = (d_got - d_ref).norm(dim=1)
     s_gap = (s_got - s_ref).abs()
+    # a gap that is not a number (an answer made of nothing) is off too
+    d_off, s_off = ~(d_gap <= ROW_TOL), ~(s_gap[clear] <= ROW_TOL)
     return {"pyramid_miss": sum(misses.values()),
-            "desc_off_share": 100.0 * float((d_gap > ROW_TOL).float().mean()),
-            "score_off_share": 100.0 * float((s_gap[clear] > ROW_TOL).float().mean()),
+            "desc_off_share": 100.0 * float(d_off.float().mean()),
+            "score_off_share": 100.0 * float(s_off.float().mean()),
+            "desc_off_rows": int(d_off.sum()), "score_off_rows": int(s_off.sum()),
+            "clear_rows": int(clear.sum()),
             "rows": n, "gate_ties": int((~clear).sum()), "desc_gap": float(d_gap.max()),
             "score_gap": float((s_gap * clear).max()), "misses": misses}
 

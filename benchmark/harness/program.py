@@ -43,14 +43,31 @@ def make_config(doc: dict, compute_dtype: str = None) -> D3FeatConfig:
     return cfg
 
 
-def build_model(cfg, weight_rule: dict, seed: int, device, root: str):
-    """(the port's model of ``cfg``, the weights it holds): the weights made
-    by the benchmark (``reference.weights.make_weights``) for the model's
-    leaves and loaded strictly."""
+def _kpfcnn(cfg, device):
     from d3feat_tpu_torch.models.kpfcnn import init_kpfcnn
+
+    return init_kpfcnn(cfg, device=device)
+
+
+def _kpcnn(cfg, device):
+    from d3feat_tpu_torch.models.kpcnn import init_kpcnn, make_kpcnn_specs
+
+    return init_kpcnn(cfg, device=device, specs=make_kpcnn_specs(cfg, cfg.architecture()))
+
+
+NETWORKS = {"kpfcnn": _kpfcnn, "kpcnn": _kpcnn}
+
+
+def build_model(cfg, network: str, weight_rule: dict, seed: int, device, root: str):
+    """(the port's model of ``cfg``, the weights it holds): the network a
+    configuration names (``NETWORKS``), the weights made by the benchmark
+    (``reference.weights.make_weights``) for the model's leaves and loaded
+    strictly."""
     from reference.weights import make_weights
 
-    model = init_kpfcnn(cfg, device=device)
+    if network not in NETWORKS:
+        raise ValueError(f"network {network!r}: the benchmark builds {sorted(NETWORKS)}")
+    model = NETWORKS[network](cfg, device)
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     weights = make_weights(weight_rule, shapes, seed, device, root)
     model.load_state_dict({k: v.clone() for k, v in weights.items()}, strict=True)

@@ -9,7 +9,10 @@ warm-up), ``check_groups`` (groups of the window's first pass that the
 check samples), ``trace_seconds`` (the longest traced window) and
 ``prepared_per_s`` (groups made before the window opens, per second of
 it). Each pass is a permutation of all fragments drawn from the seed, cut
-into groups; every fragment gets a fresh motion on every use.
+into groups; every fragment gets a fresh motion on every use. With
+``batch_fragments`` 1 each call is one fragment, which the extractor runs
+as ``FeatureExtractor.extract`` does (``pack_single``: the lengths
+``[n, 0]``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import numpy as np
 from harness import check, program
 from harness.loop import log, prepared, sync
 from harness.traffic import load_scenes, move
+
+BLOCK_FRAGMENTS = 8  # fragments a block of the check pools (one group of extract-b8)
 
 
 class Traffic:
@@ -96,13 +101,41 @@ def run(ctx) -> SimpleNamespace:
 
 
 def check_numbers(res, ctx) -> dict:
-    """The largest of each number over the sampled groups."""
-    nums = {}
+    """``pyramid_miss``, the largest over the sampled calls; each share of
+    rows off, the largest over blocks of consecutive sampled calls that
+    hold ``BLOCK_FRAGMENTS`` fragments between them, over the block's
+    rows. A group of 8 is a block of its own; calls of one fragment are
+    pooled 8 to a block, since one near-tie of a density count moves a
+    large share of one small fragment's rows (``PERF.md`` §6). A
+    call answered without a step of the extractor (no pyramid built)
+    misses in full."""
+    nums, block, frags = {}, [], 0
     for i in sorted(res.kept):
         group, outputs, kept = res.kept[i]
-        r = check.check_group(group, outputs, kept, ctx.weights, ctx.cfg_doc, ctx.arch,
-                              ctx.device)
+        if kept is None:
+            n = sum(len(g) for g in group)
+            r = {"pyramid_miss": 1, "rows": n, "desc_off_rows": n, "clear_rows": n,
+                 "score_off_rows": n}
+        else:
+            r = check.check_group(group, outputs, kept, ctx.weights, ctx.cfg_doc, ctx.arch,
+                                  ctx.device)
         log(f"group {i}: {r}")
-        for k in ("pyramid_miss", "desc_off_share", "score_off_share"):
-            nums[k] = max(nums.get(k, 0), r[k])
+        nums["pyramid_miss"] = max(nums.get("pyramid_miss", 0), r["pyramid_miss"])
+        block.append(r)
+        frags += len(group)
+        if frags >= BLOCK_FRAGMENTS:
+            _pool(nums, block)
+            block, frags = [], 0
+    if block:
+        _pool(nums, block)
     return nums
+
+
+def _pool(nums: dict, block: list):
+    """Each share of rows off over the block's rows, kept where it is the
+    largest yet."""
+    rows, clear = sum(r["rows"] for r in block), sum(r["clear_rows"] for r in block)
+    for key, off, base in (("desc_off_share", "desc_off_rows", rows),
+                           ("score_off_share", "score_off_rows", clear)):
+        share = 100.0 * sum(r[off] for r in block) / base if base else 0.0
+        nums[key] = max(nums.get(key, 0.0), share)

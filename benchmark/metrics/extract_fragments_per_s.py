@@ -1,8 +1,9 @@
 """Fragments returned to the host in the window over the window's seconds
-(host clock, the window closed by a synchronize after the last group)."""
+(host clock, the window closed by a synchronize after the last call): the
+run's ``done`` over ``window_s`` in every cell the manifest lists for it."""
 
 
 def read(run):
-    if run.kind != "extract" or not run.window_s:
+    if not run.window_s:
         return None
     return run.done / run.window_s

@@ -31,7 +31,8 @@ def make_weights(spec: dict, shapes: dict, seed: int, device, root: str) -> dict
     holds the leaf; a leaf ending in one of ``spec["draw"]`` drawn
     uniform in +-1/sqrt(fan_in) (fan_in = the product of all dimensions
     but the first), all drawn leaves from one ``torch.rand`` call seeded by
-    ``seed``; one ending in ``spec["zeros"]`` zero; one ending in a key of
+    ``seed``; one ending in ``spec["zeros"]`` zero, in ``spec["ones"]`` one
+    (batch norm's ``scale`` and running ``var``); one ending in a key of
     ``spec["copy"]`` a copy of the sibling leaf it names."""
     import os
 
@@ -45,6 +46,8 @@ def make_weights(spec: dict, shapes: dict, seed: int, device, root: str) -> dict
             drawn.append((name, tuple(shape)))
         elif leaf in spec.get("zeros", ()):
             out[name] = torch.zeros(shape, dtype=torch.float32, device=device)
+        elif leaf in spec.get("ones", ()):
+            out[name] = torch.ones(shape, dtype=torch.float32, device=device)
         elif leaf not in spec.get("copy", {}):
             raise KeyError(f"weights: no rule for leaf {name} {tuple(shape)}")
     if drawn:

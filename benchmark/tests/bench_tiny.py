@@ -29,7 +29,7 @@ def write_scene(path, n=600, frags=4, seed=0):
     return str(path)
 
 
-def tiny_cell(kind: str, scene: str, deform: bool = False) -> Cell:
+def tiny_cell(kind: str, scene: str, deform: bool = False, batch_fragments: int = 2) -> Cell:
     with open(os.path.join(BENCH_DIR, "configs", "d3feat-3dmatch.json")) as f:
         cfg = json.load(f)
     cfg.update(num_layers=3, first_features_dim=16, num_node=16,
@@ -41,7 +41,7 @@ def tiny_cell(kind: str, scene: str, deform: bool = False) -> Cell:
     if deform:
         cfg["architecture"] = DEFORM_ARCH
     if kind == "extract":
-        traffic = {"kind": "extract", "scenes": scene, "batch_fragments": 2,
+        traffic = {"kind": "extract", "scenes": scene, "batch_fragments": batch_fragments,
                    "on_overflow": "retry", "buckets": [1024], "translation": 1.0,
                    "warmup": 0, "check_groups": 2, "trace_seconds": 1,
                    "prepared_per_s": 20}
